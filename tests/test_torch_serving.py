@@ -1,0 +1,211 @@
+"""The port's serving slice against the JAX package's serving engine.
+
+The slice test runs both ``ServingEngine``s on the same smoke llava-1.5-7b
+backbone, tenant adapters and ``make_requests`` traffic, the JAX engine with
+its three Pallas kernels in interpret mode and the port with ``use_pallas``
+(on the CPU its kernels' plain versions), and requires identical tokens.
+The rest are the pure-Python parts: the adapter cache and the page pool.
+"""
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.launch import serve as jax_serve
+from repro.models import model as jmodel
+from repro.serving import ServingEngine as JaxServingEngine
+from repro_torch import interop
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import serve
+from repro_torch.models import model as model_lib
+from repro_torch.serving import (
+    AdapterBank,
+    AdapterCache,
+    AdapterCacheMiss,
+    KVSlotManager,
+    ServingEngine,
+    grouped_adapter_apply,
+)
+
+ARCH = "llava-1.5-7b"
+TENANTS = ["tenant0", "tenant1"]
+ENGINE_KW = dict(max_slots=3, prefill_len=8, max_new_tokens=4, adapter_slots=4)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_side():
+    jcfg = jax_smoke_config(ARCH).with_(use_pallas=True)
+    key = jax.random.PRNGKey(0)
+    backbone = jmodel.init_backbone(key, jcfg)
+    tenants = jax_serve.synth_tenant_adapters(key, jcfg, TENANTS)
+    return jcfg, backbone, tenants
+
+
+def _requests(make):
+    jcfg = jax_smoke_config(ARCH)
+    return make(jcfg, TENANTS, 6, ENGINE_KW["prefill_len"], ENGINE_KW["max_new_tokens"], 0)
+
+
+def test_make_requests_matches_reference():
+    mine, ref = _requests(serve.make_requests), _requests(jax_serve.make_requests)
+    assert [r.tenant for r in mine] == [r.tenant for r in ref]
+    assert None in [r.tenant for r in mine]  # base-model traffic is part of the mix
+    for a, b in zip(mine, ref):
+        np.testing.assert_array_equal(a.prompt, b.prompt)
+        np.testing.assert_array_equal(a.patches, b.patches)
+        assert a.max_new_tokens == b.max_new_tokens
+
+
+def test_engine_tokens_match_jax_engine():
+    jcfg, jbackbone, jtenants = _jax_side()
+    jeng = JaxServingEngine(jcfg, jbackbone, adapter_loader=jtenants.__getitem__,
+                            use_pallas_grouped=True, **ENGINE_KW)
+    want = jeng.run(_requests(jax_serve.make_requests))
+
+    cfg = get_smoke_config(ARCH).with_(use_pallas=True)
+    backbone = interop.backbone_from_numpy(cfg, jax.tree.map(np.asarray, jbackbone), "cpu")
+    tenants = {t: interop.adapters_from_numpy(jax.tree.map(np.asarray, a), "cpu")
+               for t, a in jtenants.items()}
+    eng = ServingEngine(cfg, backbone, adapter_loader=tenants.__getitem__,
+                        use_pallas_grouped=True, **ENGINE_KW)
+    got = eng.run(_requests(serve.make_requests))
+
+    assert sorted(got) == sorted(want) == list(range(6))
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens, rid
+        assert len(got[rid].tokens) == ENGINE_KW["max_new_tokens"]
+    assert eng.stats["prefills"] == jeng.stats["prefills"] == 6
+    assert eng.stats["decode_steps"] == jeng.stats["decode_steps"]
+    assert eng.mean_occupancy() > 1.0
+
+
+def test_engine_prefill_logits_pick_first_token():
+    cfg = get_smoke_config(ARCH)
+    eng = ServingEngine(cfg, model_lib.init_backbone(cfg, seed=0, device="cpu"), **ENGINE_KW)
+    reqs = _requests(serve.make_requests)[:2]
+    for r in reqs:
+        r.tenant = None  # base model: no loader needed
+    done = eng.run(reqs)
+    for r in reqs:
+        lg = eng.prefill_logits(r)
+        assert lg.shape == (cfg.vocab_size,) and lg.dtype == torch.float32
+        assert int(torch.argmax(lg)) == done[r.rid].tokens[0]
+
+
+def test_engine_stop_token_and_budget():
+    cfg = get_smoke_config(ARCH)
+    backbone = model_lib.init_backbone(cfg, seed=0, device="cpu")
+    reqs = _requests(serve.make_requests)[4:5]  # the base-model request
+    free_run = ServingEngine(cfg, backbone, **ENGINE_KW).run(reqs)[4].tokens
+    assert len(free_run) == ENGINE_KW["max_new_tokens"]  # budget respected
+    stop = free_run[1]
+    stopped = ServingEngine(cfg, backbone, stop_token=stop, **ENGINE_KW).run(reqs)[4].tokens
+    assert stopped == free_run[:free_run.index(stop) + 1]
+
+
+# ---------------------------------------------------------------------------
+# adapter bank / cache
+# ---------------------------------------------------------------------------
+
+def _bank(n_slots):
+    cfg = get_smoke_config(ARCH)
+    return cfg, AdapterBank(cfg, n_slots, "cpu")
+
+
+def _adapters(cfg, seed):
+    return serve.synth_tenant_adapters(seed, cfg, ["t"], "cpu")["t"]
+
+
+def test_adapter_cache_lru_eviction_order():
+    cfg, bank = _bank(2)
+    loads = []
+
+    def loader(t):
+        loads.append(t)
+        return _adapters(cfg, len(loads))
+
+    cache = AdapterCache(bank, loader=loader)
+    sa = cache.acquire("a"); cache.release("a")
+    sb = cache.acquire("b"); cache.release("b")
+    assert {sa, sb} == {0, 1}
+    assert cache.acquire("a") == sa          # hit, no load
+    cache.release("a")
+    assert loads == ["a", "b"]
+    cache.acquire("c"); cache.release("c")   # evicts b (a was touched later)
+    assert "b" not in cache and "a" in cache
+    assert cache.stats() == {"hits": 1, "misses": 3, "evictions": 1, "resident": 2}
+
+
+def test_adapter_cache_pinned_slots_never_evicted():
+    cfg, bank = _bank(1)
+    cache = AdapterCache(bank, loader=lambda t: _adapters(cfg, 1))
+    cache.acquire("a")  # pinned (no release)
+    with pytest.raises(AdapterCacheMiss, match="pinned"):
+        cache.acquire("b")
+    cache.release("a")
+    assert cache.acquire("b") == 0  # now evictable
+
+
+def test_adapter_cache_none_tenant_and_missing_loader():
+    cfg, bank = _bank(1)
+    cache = AdapterCache(bank)
+    assert cache.acquire(None) == -1
+    cache.release(None)  # no-op
+    with pytest.raises(AdapterCacheMiss, match="no loader"):
+        cache.acquire("ghost")
+
+
+def test_adapter_bank_set_slot_in_place_and_validates():
+    cfg, bank = _bank(2)
+    down_before = bank.data["text"]["down"]
+    ad = _adapters(cfg, 3)
+    bank.set_slot(1, ad)
+    assert bank.data["text"]["down"] is down_before  # written in place
+    assert torch.equal(bank.data["image"]["up"][1], ad["image"]["up"])
+    assert torch.equal(bank.data["text"]["up"][0], torch.zeros_like(ad["text"]["up"]))
+    with pytest.raises(IndexError):
+        bank.set_slot(5, ad)
+    bad = {"text": {"down": np.zeros((3, 3)), "up": np.zeros((3, 3))}, "image": ad["image"]}
+    with pytest.raises(ValueError, match="shape"):
+        bank.set_slot(0, bad)
+
+
+def test_grouped_adapter_apply_identity_rows_exact():
+    cfg, bank = _bank(2)
+    bank.set_slot(0, _adapters(cfg, 1))
+    x = torch.randn(5, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    idx = torch.tensor([0, -1, 1, -1, 0], dtype=torch.int32)
+    y = grouped_adapter_apply(bank, "text", x, idx, use_pallas=True)
+    assert torch.equal(y[idx < 0], x[idx < 0])
+    assert torch.equal(y[2], x[2])                # slot 1 never written: identity
+    assert not torch.equal(y[0], x[0])
+
+
+# ---------------------------------------------------------------------------
+# kv slot manager
+# ---------------------------------------------------------------------------
+
+def test_kv_slot_manager_alloc_free():
+    cfg = get_smoke_config(ARCH)
+    mgr = KVSlotManager(cfg, n_slots=3, capacity=16, dtype=torch.float32, device="cpu")
+    assert [mgr.alloc(), mgr.alloc(), mgr.alloc()] == [0, 1, 2]
+    assert mgr.alloc() is None
+    mgr.free(1)
+    with pytest.raises(ValueError, match="double free"):
+        mgr.free(1)
+    assert mgr.alloc() == 1  # deterministic lowest-first reuse
+    assert mgr.n_free == 0
+
+
+def test_kv_slot_manager_write_installs_page():
+    cfg = get_smoke_config(ARCH)
+    mgr = KVSlotManager(cfg, n_slots=2, capacity=16, dtype=torch.float32, device="cpu")
+    page = {"layers": type(mgr.state["layers"])(*(torch.ones_like(t[:, :1])
+                                                   for t in mgr.state["layers"]))}
+    mgr.write(1, page, start_pos=5)
+    assert mgr.pos[1] == 5 and mgr.pos[0] == 0
+    for t in mgr.state["layers"]:
+        assert bool((t[:, 1] == 1.0).all()) and bool((t[:, 0] == 0.0).all())
