@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
 Holds the configs whose families the port runs; the other architectures of
-``repro.configs`` join as their families are ported (ROADMAP queue 1).
+``repro.configs`` join as their families are ported (ROADMAP queue 3).
 """
 from __future__ import annotations
 

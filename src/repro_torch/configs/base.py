@@ -6,7 +6,7 @@ JAX package's, so ``tests/test_torch_model.py`` can hold the two smoke
 configs against each other field by field. The switches only other families
 set (sliding window, softcap, QKV bias, tied embeddings, sequence limit) and
 the sub-family configs (MoE, SSM, RG-LRU, encoder-decoder) arrive with those
-families (ROADMAP queue 1).
+families (ROADMAP queue 3).
 """
 from __future__ import annotations
 

@@ -82,3 +82,14 @@ def nanoedge_forward(cfg, backbone, adapters, batch: Batch):
 
     positions = torch.arange(S, dtype=torch.long, device=dev).expand(B, S)
     return tok_emb, positions, batch.labels, batch.mask, None
+
+
+def fednano_loss(cfg, backbone, adapters, batch: Batch):
+    """End-to-end FedNano loss: client NanoEdge -> frozen server backbone.
+
+    Differentiate with respect to ``adapters`` only: the backbone's tensors
+    never require grad, so autograd reaches them as constants.
+    Returns (loss, aux).
+    """
+    embeds, positions, labels, mask, _ = nanoedge_forward(cfg, backbone, adapters, batch)
+    return model_lib.loss_fn(cfg, backbone, embeds, positions, labels, mask)

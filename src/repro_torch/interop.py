@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.utils import tree_leaves, tree_map
+
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -30,23 +32,17 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def backbone_from_numpy(cfg, tree, device):
     """JAX-layout backbone params (numpy) -> the port's params on ``device``."""
-    out = {k: _map(lambda a: tensor_from_numpy(a, device), v)
+    out = {k: tree_map(lambda a: tensor_from_numpy(a, device), v)
            for k, v in tree.items() if k != "layers"}
-    stacked = _map(lambda a: tensor_from_numpy(a, device), tree["layers"])
+    stacked = tree_map(lambda a: tensor_from_numpy(a, device), tree["layers"])
     n = cfg.n_layers
 
     def layer(i):
-        return _map(lambda t: t[i].contiguous(), stacked)
+        return tree_map(lambda t: t[i].contiguous(), stacked)
 
-    leading = {t.shape[0] for t in _leaves(stacked)}
+    leading = {t.shape[0] for t in tree_leaves(stacked)}
     if leading != {n}:
         raise ValueError(f"stacked layer axis {sorted(leading)} != n_layers {n}")
     out["layers"] = [layer(i) for i in range(n)]
@@ -55,31 +51,40 @@ def backbone_from_numpy(cfg, tree, device):
 
 def backbone_to_numpy(params):
     """The port's params -> JAX layout (numpy), restacking the layer list."""
-    out = {k: _map(tensor_to_numpy, v) for k, v in params.items() if k != "layers"}
-    layers = [_map(tensor_to_numpy, lp) for lp in params["layers"]]
+    out = {k: tree_map(tensor_to_numpy, v) for k, v in params.items() if k != "layers"}
+    layers = [tree_map(tensor_to_numpy, lp) for lp in params["layers"]]
 
     def stack(*leaves):
         return np.stack(leaves)
 
-    out["layers"] = _zip_map(stack, layers)
+    out["layers"] = tree_map(stack, layers[0], *layers[1:])
     return out
 
 
 def adapters_from_numpy(tree, device):
-    """{modality: {"down", "up"}} numpy -> tensors on ``device``."""
-    return _map(lambda a: tensor_from_numpy(a, device), tree)
+    """{modality: {"down", "up"}} numpy -> tensors on ``device``.
+
+    Also carries any adapter-shaped tree: Fisher diagonals, AdamW moments.
+    """
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def adapters_to_numpy(tree):
+    return tree_map(tensor_to_numpy, tree)
 
 
-def _zip_map(fn, trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _zip_map(fn, [t[k] for t in trees]) for k in first}
-    return fn(*trees)
+def adamw_state_from_numpy(state, device):
+    """The JAX package's ``AdamWState(mu, nu, step)`` as numpy -> the port's."""
+    from repro_torch.optim import AdamWState
+
+    return AdamWState(mu=adapters_from_numpy(state.mu, device),
+                      nu=adapters_from_numpy(state.nu, device),
+                      step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                                        device=device))
+
+
+def adamw_state_to_numpy(state):
+    """-> (mu, nu, step) numpy, the fields of the JAX package's ``AdamWState``."""
+    return (adapters_to_numpy(state.mu), adapters_to_numpy(state.nu),
+            np.asarray(int(state.step), np.int32))
+

@@ -41,6 +41,10 @@ _SIGNATURES = {
     "repro_grouped_lora_residual": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, causal, window, softcap, scale, dtype, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # theta, fisher, w, out, K, N, eps, dtype, stream
+    "repro_fisher_merge": [_P, _P, _P, _P, _I, _L, _F, _I, _P],
+    # num, den, theta, fisher, w, N, dtype, stream
+    "repro_fisher_fold": [_P, _P, _P, _P, _F, _L, _I, _P],
 }
 
 

@@ -4,6 +4,9 @@ Computes the kernel's function (``repro.kernels.flash_attention``): f32
 scores and probabilities, the per-row logsumexp, and 0 output with
 lse = NEG_INF for a row that sees no key (the kernel's guard; the JAX jnp
 oracle has no such rows at the shapes it is run at).
+
+``attention_bwd`` is the plain backward from the saved LSE that both devices
+run (the JAX package's ``_fa_bwd``).
 """
 from __future__ import annotations
 
@@ -48,3 +51,49 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         return out
     lse = torch.where(live[:, 0], torch.logsumexp(s, dim=-1), NEG_INF)
     return out, lse.permute(0, 2, 1).contiguous()
+
+
+def attention_bwd(q, k, v, out, lse, g, *, causal: bool, window: Optional[int],
+                  softcap: float):
+    """(dq, dk, dv) of ``attention`` from its output and logsumexp
+    (``repro/kernels/flash_attention/ops.py::_fa_bwd``).
+
+    p = exp(s - L) from the saved LSE; rows whose LSE carries the NEG_INF
+    marker see no key and get p = 0; the D-trick ds = p ∘ (g·vᵀ - rowsum(g ∘ o));
+    the softcap chain factor (1 - tanh²); GQA K/V grads summed over each
+    head group. f32 inside, grads in the input dtypes.
+    """
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    gf, of = g.float(), out.float()
+    scale = D ** -0.5
+
+    u = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    dfac = None
+    if softcap and softcap > 0.0:
+        t = torch.tanh(u / softcap)
+        s = t * softcap
+        dfac = 1.0 - t * t
+    else:
+        s = u
+    mask = attention_mask(Sq, Sk, causal=causal, window=window, device=q.device)
+    lse_h = lse.permute(0, 2, 1)                                  # (B, H, Sq)
+    live = (lse_h > NEG_INF / 2)[..., None]                       # (B, H, Sq, 1)
+    p = torch.where(mask & live, torch.exp(s - lse_h[..., None]), 0.0)
+
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    drow = (gf * of).sum(dim=-1).permute(0, 2, 1)                 # (B, H, Sq)
+    ds = p * (dp - drow[..., None])
+    if dfac is not None:
+        ds = ds * dfac
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    if group > 1:
+        dk = dk.reshape(B, Sk, Hkv, group, D).sum(dim=3)
+        dv = dv.reshape(B, Sk, Hkv, group, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

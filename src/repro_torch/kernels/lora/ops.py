@@ -3,10 +3,18 @@
 A tensor on the CPU takes the plain version in ``ref.py``. A tensor on a CUDA
 device launches the hand-written kernel of ``csrc/lora.cu`` or raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (one per
-call: the kernel's two passes run as two CUDA launches).
+kernel call: the kernel's two passes run as two CUDA launches).
 
-The backward (``_lora_2d_bwd`` in the JAX package) comes with the training
-slice (ROADMAP queue 1).
+``lora_residual`` is differentiable in (x, down, up): ``LoraResidual`` ports
+the JAX package's custom VJP (``repro/kernels/lora/ops.py::_lora_2d_bwd``).
+For y = x + s·(x·A)·B,
+
+    dx = g + s·(g·Bᵀ)·Aᵀ   the forward kernel on (g, Bᵀ, Aᵀ), only when x needs it
+    dA = s · xᵀ·(g·Bᵀ)     f32 products (adapter-sized: torch.matmul, as the
+    dB = s · (x·A)ᵀ·g      JAX package leaves them to XLA)
+
+FedNano's x (token embeddings, connector output) is frozen, so on its path
+the backward launches no kernel.
 """
 from __future__ import annotations
 
@@ -43,7 +51,45 @@ def _scratch(x, r):
 
 
 def lora_residual(x, down, up, *, scale: float):
-    """y = x + scale·(x·down)·up for x (..., D); down (D, r); up (r, D) in f32."""
+    """y = x + scale·(x·down)·up for x (..., D); down (D, r); up (r, D) in f32.
+
+    Differentiable in (x, down, up); gradients come back in the input dtypes.
+    """
+    d = x.shape[-1]
+    y = LoraResidual.apply(x.reshape(-1, d), down, up, float(scale))
+    return y.reshape(x.shape)
+
+
+lora_residual.launches = 0
+
+
+class LoraResidual(torch.autograd.Function):
+    """y = x + s·(x·A)·B on x (T, D), with the JAX package's hand-written VJP."""
+
+    @staticmethod
+    def forward(ctx, x, down, up, scale):
+        ctx.save_for_backward(x, down, up)
+        ctx.scale = scale
+        return _residual(x, down, up, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, down, up = ctx.saved_tensors
+        s = ctx.scale
+        dx = d_down = d_up = None
+        if ctx.needs_input_grad[0]:  # the kernel reads raw pointers: contiguous copies
+            dx = _residual(g.contiguous(), up.t().contiguous(), down.t().contiguous(),
+                           s).to(x.dtype)
+        gf, xf = g.float(), x.float()
+        if ctx.needs_input_grad[1]:
+            d_down = (s * (xf.t() @ (gf @ up.float().t()))).to(down.dtype)   # (D, r)
+        if ctx.needs_input_grad[2]:
+            d_up = (s * ((xf @ down.float()).t() @ gf)).to(up.dtype)         # (r, D)
+        return dx, d_down, d_up, None
+
+
+def _residual(x, down, up, scale: float):
+    """x (T, D): the plain version on the CPU, the kernel on a CUDA device."""
     if x.device.type == "cpu":
         return ref.lora_residual(x, down, up, scale=scale)
     d = x.shape[-1]
@@ -61,9 +107,6 @@ def lora_residual(x, down, up, *, scale: float):
     build.check(err, "lora_residual")
     lora_residual.launches += 1
     return out
-
-
-lora_residual.launches = 0
 
 
 def grouped_lora_residual(x, down, up, idx, *, scale: float):

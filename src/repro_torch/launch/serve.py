@@ -8,7 +8,7 @@ Tenant adapters are synthesized from ``--seed``. ``--device`` (default
 
 ``--ckpt-root`` (federated checkpoints) and ``--naive`` (the one-request-at-
 a-time baseline) wait for the checkpoint and ``generate_naive`` ports
-(ROADMAP queue 1).
+(ROADMAP queue 4).
 """
 from __future__ import annotations
 

@@ -105,7 +105,7 @@ def seed_cache(cache: KVCache, k, v) -> KVCache:
     """Write prefill KV (already rotated) into cache slots [0, S).
 
     In place: the JAX package's ``dynamic_update_slice`` returns a new cache.
-    The sliding-window ring arrives with the SWA configs (ROADMAP queue 1).
+    The sliding-window ring arrives with the SWA configs (ROADMAP queue 3).
     """
     S = k.shape[1]
     cache.k[:, :S] = k

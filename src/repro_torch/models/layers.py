@@ -60,7 +60,7 @@ def rmsnorm(params, x, eps: float = 1e-6):
 def init_mlp(gen, cfg, dtype):
     if cfg.act != "swiglu":
         raise NotImplementedError(f"act={cfg.act!r}: the port runs swiglu only "
-                                  "(other activations: ROADMAP queue 1)")
+                                  "(other activations: ROADMAP queue 3)")
     d, f = cfg.d_model, cfg.d_ff
     return {
         "w_gate": dense_init(gen, (d, f), dtype),
@@ -86,3 +86,26 @@ def embed(params, tokens):
 def unembed(params, x):
     """Project back to vocab."""
     return x @ params["table"].t().to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses (f32, as the JAX package computes them)
+# ---------------------------------------------------------------------------
+
+def lm_loss(logits, labels, mask):
+    """Masked next-token cross entropy.
+
+    logits (B, S, V), already shifted (logits[t] predicts labels[t]);
+    labels (B, S) int; mask (B, S) {0, 1}, 1 on supervised (answer) positions.
+    """
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def token_accuracy(logits, labels, mask):
+    pred = torch.argmax(logits, dim=-1)
+    correct = (pred == labels).float() * mask
+    return correct.sum() / torch.clamp(mask.sum(), min=1.0)

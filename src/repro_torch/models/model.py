@@ -4,7 +4,9 @@
     init_backbone(cfg, seed, device)              -> params
     embed_tokens(cfg, params, tokens)             -> (B, S, D)
     connect(cfg, params, feats)                   -> (B, M, D)   connector
+    forward(cfg, params, embeds, positions)       -> (hidden, aux)
     logits(cfg, params, hidden)                   -> (B, S, V)
+    loss_fn(cfg, params, embeds, positions, labels, mask) -> (loss, aux)
     prefill(cfg, params, embeds, positions, capacity) -> (state, hidden)
     decode_step(cfg, params, embed, state, pos)   -> (logits, state)
     init_state(cfg, batch, capacity, dtype, device)
@@ -19,6 +21,7 @@ from repro_torch.models.layers import (
     embed,
     init_embedding,
     init_rmsnorm,
+    lm_loss,
     rmsnorm,
     torch_dtype,
     unembed,
@@ -37,7 +40,7 @@ def check_supported(cfg) -> None:
         if getattr(cfg, field) != want:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r}: the port runs {want} only "
-                "(ROADMAP queue 1, 'The other families')")
+                "(ROADMAP queue 3, 'The other families')")
 
 
 def init_backbone(cfg, *, seed: int = 0, device="cuda"):
@@ -69,8 +72,29 @@ def connect(cfg, params, feats):
     return feats.to(c["w"].dtype) @ c["w"] + c["b"]
 
 
+def forward(cfg, params, embeds, positions):
+    """Full-sequence causal forward (training and evaluation).
+
+    embeds (B, S, D), adapter-processed; positions (B, S) int.
+    Returns (hidden (B, S, D) after the final norm, aux scalar).
+    """
+    angles = make_angles(cfg, positions)
+    x, aux = transformer.forward_stack(cfg, params, embeds, angles)
+    return rmsnorm(params["final_norm"], x), aux
+
+
 def logits(cfg, params, hidden):
     return unembed(params["unembed"], hidden)
+
+
+def loss_fn(cfg, params, embeds, positions, labels, mask):
+    """Masked LM loss of the frozen backbone on adapted embeddings -> (loss, aux).
+
+    The port's configs have no ``loss_chunk`` (llava sets none), so the full
+    (B, S, V) logits are formed, as in ``repro.models.model.loss_fn``.
+    """
+    hidden, aux = forward(cfg, params, embeds, positions)
+    return lm_loss(logits(cfg, params, hidden), labels, mask), aux
 
 
 def prefill(cfg, params, embeds, positions, capacity: int):

@@ -1,7 +1,7 @@
 """Rotary position embeddings (PyTorch counterpart of ``repro.models.rotary``).
 
 Standard RoPE with the "rotate halves" convention. M-RoPE (qwen2-vl) joins
-with that family (ROADMAP queue 1).
+with that family (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -39,5 +39,5 @@ def make_angles(cfg, positions):
     """positions (B, S) int -> (B, S, head_dim/2) angles."""
     if cfg.pos_type != "rope":
         raise NotImplementedError(f"pos_type={cfg.pos_type!r}: the port runs rope only "
-                                  "(M-RoPE and learned positions: ROADMAP queue 1)")
+                                  "(M-RoPE and learned positions: ROADMAP queue 3)")
     return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)

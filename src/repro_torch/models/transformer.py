@@ -7,7 +7,7 @@ a list of per-layer dicts and the layer loop is a Python loop. The decode
 state keeps the JAX package's stacked layout, ``KVCache`` of
 (L, B, C, n_kv, hd) tensors, and each layer reads and writes its slice in
 place. MoE, SSM, hybrid and encoder-decoder stacks arrive with their
-families (ROADMAP queue 1).
+families (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r}: the port runs {FAMILIES}; the moe, ssm, hybrid and "
-            "audio families are ROADMAP queue 1, 'The other families'")
+            "audio families are ROADMAP queue 3, 'The other families'")
 
 
 def init_dense_layer(gen, cfg, dtype):
@@ -45,13 +45,30 @@ def _layer_cache(state, i) -> attn_lib.KVCache:
     return attn_lib.KVCache(state["layers"].k[i], state["layers"].v[i])
 
 
-def _attn_prefill(cfg, lp, x, angles, cache):
+def dense_body(cfg, lp, x, angles):
+    """One layer over the full sequence -> (x, (k, v)).
+
+    Shared by training (``forward_stack``) and prefill. It writes nothing in
+    place, so autograd can save its tensors; prefill seeds the cache after.
+    """
     h = rmsnorm(lp["norm1"], x)
-    out, (k, v) = attn_lib.full_attention(cfg, lp["attn"], h, angles, return_kv=True)
+    out, kv = attn_lib.full_attention(cfg, lp["attn"], h, angles, return_kv=True)
     x = x + out
     x = x + mlp(cfg, lp["mlp"], rmsnorm(lp["norm2"], x))
-    attn_lib.seed_cache(cache, k, v)
-    return x
+    return x, kv
+
+
+def forward_stack(cfg, stack, x, angles):
+    """Full-sequence causal stack for training: x (B, S, D) -> (hidden, aux).
+
+    aux is the dense family's zero auxiliary loss (the MoE balance loss
+    arrives with that family). Activations are kept for the backward: the
+    JAX package's ``remat`` is a memory option that changes no number.
+    """
+    check_family(cfg)
+    for lp in stack["layers"]:
+        x, _ = dense_body(cfg, lp, x, angles)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def prefill_stack(cfg, stack, x, angles, capacity: int):
@@ -59,7 +76,8 @@ def prefill_stack(cfg, stack, x, angles, capacity: int):
     check_family(cfg)
     state = init_decode_state(cfg, x.shape[0], capacity, x.dtype, x.device)
     for i, lp in enumerate(stack["layers"]):
-        x = _attn_prefill(cfg, lp, x, angles, _layer_cache(state, i))
+        x, (k, v) = dense_body(cfg, lp, x, angles)
+        attn_lib.seed_cache(_layer_cache(state, i), k, v)
     return x, state
 
 

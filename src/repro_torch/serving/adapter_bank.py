@@ -8,7 +8,7 @@ indexes per row. Tenants map to bank slots through an LRU
 index -1 is the implicit identity adapter (no tenant).
 
 ``checkpoint_adapter_loader`` arrives with the checkpoint port
-(ROADMAP queue 1); a loader is any callable ``tenant -> adapter dict``.
+(ROADMAP queue 4); a loader is any callable ``tenant -> adapter dict``.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ mask pad rows never influence real rows, and pad KV at slots
 prefill + batched decode gives the tokens of one request at a time.
 
 ``generate_naive`` (the one-request-at-a-time baseline) waits for a later
-slice (ROADMAP queue 1).
+slice (ROADMAP queue 4).
 """
 from __future__ import annotations
 

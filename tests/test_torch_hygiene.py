@@ -22,7 +22,7 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import model as jmodel
 from repro_torch import interop
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import model as model_lib
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -64,6 +64,9 @@ def test_entry_points_default_to_cuda(no_cuda):
         model_lib.init_backbone(cfg)
     with pytest.raises((RuntimeError, AssertionError)):
         serve.main([])
+    with pytest.raises((RuntimeError, AssertionError)):
+        train.main(["--rounds", "1", "--clients", "2", "--local-steps", "1",
+                    "--examples-per-client", "8", "--batch-size", "4", "--seq-len", "8"])
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda):
