@@ -53,6 +53,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    end to end. The kernels' line is printed at the end.
 11. Profile a short full-width serving run and one full-width local step
    (torch.profiler): device busy share and device time by kernel.
+12. The ssm family (mamba2-130m, 24 layers, d_model 768, 24 SSD heads of 64,
+   state 128, chunk 256), through the SSD scan kernel:
+   a. kernel parity: the SSD kernel against its plain version over the
+      harness grid and the full-width shapes (1, 512) and (4, 1024), f32 at
+      1e-6 and bf16 at 5e-2, its gradients (kernel forward, backward
+      recomputed through the plain version) against autograd, and the LoRA
+      and Fisher kernels at d_model 768;
+   b. smoke mamba2 in f32, card (kernels) against CPU (plain versions):
+      serving tokens equal, two FedNano rounds within 1e-5;
+   c. full-width serving, bf16 weights from seed 0: 16 requests from 4
+      tenants and base traffic, ragged prompts of 64-512 tokens and one of
+      2, prefill_len 512 (two chunks), 16 new tokens, 8 decode slots, 8
+      adapter slots, counters reset around the run; prefill logits, kernels
+      against plain versions, in bf16 and in f32 on the same weights;
+   d. full-width training: FedNano, 2 clients x 2 rounds, 2 local steps and
+      2 Fisher batches, batch 4 x 1024 text tokens (four chunks a row),
+      kernels on, counters reset around the run, and one agg_chunk=1 round;
+      loss and adapter gradients of one step, kernels against plain
+      versions, in f32 (1e-4) and bf16;
+   e. timings: the SSD kernel at both full-width shapes against its plain
+      version and its bound, the LoRA kernel at d_model 768, the local step,
+      Fisher batch, merge and round; a profiled local step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
@@ -98,6 +120,27 @@ LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # adapters differ by 1.1 of ‖ref‖∞), and round 1 starts from other adapters:
 # 5.1e-3 measured on the H100. About 4x that, for a gross fault.
 RUN_LOSS_TOL_BF16 = 2e-2
+MAMBA = "mamba2-130m"
+# Full-width serving of each arch: engine settings and the number of requests.
+SERVE_KW = {
+    "llava-1.5-7b": dict(max_slots=8, prefill_len=128, max_new_tokens=16, adapter_slots=8),
+    MAMBA: dict(max_slots=8, prefill_len=512, max_new_tokens=16, adapter_slots=8),
+}
+# Smoke-size serving and training of each arch, card against CPU. mamba2's
+# prompts and rows cross its smoke config's 32-step SSD chunk.
+SMOKE_SERVE = {"llava-1.5-7b": (dict(max_slots=3, prefill_len=8, max_new_tokens=6,
+                                     adapter_slots=4), 6),
+               MAMBA: (dict(max_slots=3, prefill_len=40, max_new_tokens=6, adapter_slots=4),
+                       12)}
+SMOKE_SEQ = {"llava-1.5-7b": 16, MAMBA: 40}
+TRAIN_DATA_BY_ARCH = {"llava-1.5-7b": TRAIN_DATA, MAMBA: dict(TRAIN_DATA, seq_len=1024)}
+# The kernels each main path must launch.
+SERVING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "grouped_lora_residual",
+                                            "flash_attention"),
+                           MAMBA: ("lora_residual", "grouped_lora_residual", "ssd_scan")}
+TRAINING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "flash_attention",
+                                             "fisher_merge"),
+                            MAMBA: ("lora_residual", "ssd_scan", "fisher_merge")}
 
 
 def log(msg: str) -> None:
@@ -182,15 +225,16 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
 # serving
 # ---------------------------------------------------------------------------
 
-def serving_smoke(torch, get_smoke_config, init_backbone, synth, make_requests, Engine):
-    """Smoke llava on the card (kernels, f32) vs on the CPU (plain versions)."""
+def serving_smoke(torch, get_smoke_config, init_backbone, synth, make_requests, Engine,
+                  arch="llava-1.5-7b"):
+    """Smoke ``arch`` on the card (kernels, f32) vs on the CPU (plain versions)."""
     from repro_torch.utils import tree_map
 
     names = ["tenant0", "tenant1"]
-    kw = dict(max_slots=3, prefill_len=8, max_new_tokens=6, adapter_slots=4)
+    kw, n_req = SMOKE_SERVE[arch]
     runs = {}
     for dev in ("cuda", "cpu"):
-        cfg = get_smoke_config("llava-1.5-7b").with_(use_pallas=True)
+        cfg = get_smoke_config(arch).with_(use_pallas=True)
         backbone = init_backbone(cfg, seed=1, device="cpu")
         tenants = synth(1, cfg, names, "cpu")
         if dev == "cuda":
@@ -198,7 +242,7 @@ def serving_smoke(torch, get_smoke_config, init_backbone, synth, make_requests, 
             tenants = tree_map(lambda t: t.to(dev), tenants)
         eng = Engine(cfg, backbone, adapter_loader=tenants.__getitem__,
                      use_pallas_grouped=True, **kw)
-        reqs = make_requests(cfg, names, 6, kw["prefill_len"], kw["max_new_tokens"], 1)
+        reqs = make_requests(cfg, names, n_req, kw["prefill_len"], kw["max_new_tokens"], 1)
         done = eng.run(reqs)
         runs[dev] = ({rid: c.tokens for rid, c in done.items()},
                      torch.stack([eng.prefill_logits(r).cpu() for r in reqs]))
@@ -210,27 +254,44 @@ def serving_smoke(torch, get_smoke_config, init_backbone, synth, make_requests, 
         raise AssertionError(f"smoke prefill logits: card vs CPU max |err| {err:.3e} > {bound:.3e}")
     if tok_gpu != tok_cpu:
         raise AssertionError(f"smoke tokens differ: card {tok_gpu} cpu {tok_cpu}")
-    log(f"[smoke] smoke llava f32: card (kernels) == CPU (plain) tokens for 6 requests; "
-        f"prefill logits max |err| {err:.3e} (bound {bound:.3e})")
+    log(f"[smoke] smoke {arch} f32: card (kernels) == CPU (plain) tokens for {n_req} "
+        f"requests; prefill logits max |err| {err:.3e} (bound {bound:.3e})")
 
 
-def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine, counters):
+def serve_requests(arch, cfg, names, make_requests, kw, seed):
+    """The main path's 16 requests: ``make_requests``' mix of tenants and base
+    traffic; for mamba2 with ragged prompts of 64-512 tokens and one of 2."""
+    import numpy as np
+
+    reqs = make_requests(cfg, names, 16, kw["prefill_len"], kw["max_new_tokens"], seed)
+    if arch == MAMBA:
+        rng = np.random.default_rng(seed + 1)
+        top = kw["prefill_len"]
+        lengths = [2] + [int(v) for v in np.linspace(min(64, top), top, len(reqs) - 1)]
+        for r, n in zip(reqs, lengths):
+            r.prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+    return reqs
+
+
+def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine, counters,
+                 arch="llava-1.5-7b"):
     """-> launches per kernel in the main-path run."""
     from repro_torch.utils import tree_leaves, tree_map
 
-    cfg = get_config("llava-1.5-7b").with_(use_pallas=True)
+    cfg = get_config(arch).with_(use_pallas=True)
     t0 = time.perf_counter()
     backbone = init_backbone(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(backbone))
-    log(f"[serve] llava-1.5-7b backbone: {n_params / 1e9:.3f} B params "
+    log(f"[serve] {arch} backbone: {n_params / 1e9:.3f} B params "
         f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) drawn in "
         f"{time.perf_counter() - t0:.1f} s")
     names = [f"tenant{i}" for i in range(4)]
     tenants = synth(0, cfg, names, "cuda")
-    kw = dict(max_slots=8, prefill_len=128, max_new_tokens=16, adapter_slots=8,
-              adapter_loader=tenants.__getitem__)
-    reqs = make_requests(cfg, names, 16, kw["prefill_len"], kw["max_new_tokens"], 0)
+    kw = dict(SERVE_KW[arch], adapter_loader=tenants.__getitem__)
+    reqs = serve_requests(arch, cfg, names, make_requests, kw, 0)
+    log(f"[serve] {arch}: prompt lengths {[len(r.prompt) for r in reqs]}, prefill_len "
+        f"{kw['prefill_len']}, tenants {[r.tenant for r in reqs]}")
 
     # warm-up: cuBLAS handles, allocator pools, first kernel launches
     Engine(cfg, backbone, use_pallas_grouped=True, **kw).run(
@@ -254,11 +315,11 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
         toks = done[r.rid].tokens
         if len(toks) != r.max_new_tokens or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {r.rid}: tokens {toks}")
-    if not all(launches[n] for n in SERVING_KERNELS):
-        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
+    if not all(launches[n] for n in SERVING_KERNELS_BY_ARCH[arch]):
+        raise AssertionError(f"a kernel of the {arch} serving path never launched: {launches}")
     st = eng.stats
     n_tok = sum(len(c.tokens) for c in done.values())
-    log(f"[serve] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
+    log(f"[serve] {arch}: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
         f"{n_tok / wall:.1f} tokens/s | prefill {1e3 * st['prefill_s'] / st['prefills']:.2f} "
         f"ms/request | decode step {1e3 * st['decode_s'] / st['decode_steps']:.2f} ms "
         f"({st['decode_steps']} steps, occupancy {eng.mean_occupancy():.2f}/8) | "
@@ -267,15 +328,16 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
     kernel16 = [eng.prefill_logits(r) for r in reqs]
     done_plain, plain16 = run_plain_versions(cfg, backbone, Engine, kw, reqs, counters)
     worst = hold(torch, cfg.dtype, reqs, kernel16, plain16)
-    log(f"[serve] bf16, kernels vs their plain versions: prefill logits max |err| / ‖ref‖∞ = "
-        f"{worst:.3e} (limit {LOGIT_TOL['bfloat16']}); {agreement(reqs, done, done_plain)}")
+    log(f"[serve] {arch} bf16, kernels vs their plain versions: prefill logits max |err| / "
+        f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['bfloat16']}); "
+        f"{agreement(reqs, done, done_plain)}")
 
     # for information: the model's plain path (use_pallas off: bf16 adapter
     # products, probabilities cast to bf16 before the product with V)
     jnp_path = Engine(cfg.with_(use_pallas=False), backbone, use_pallas_grouped=False, **kw)
     done_jnp = jnp_path.run(reqs)
     jnp16 = [jnp_path.prefill_logits(r) for r in reqs]
-    log(f"[serve] bf16, kernels vs the use_pallas=False path: prefill logits max |err| / "
+    log(f"[serve] {arch} bf16, kernels vs the use_pallas=False path: prefill logits max |err| / "
         f"‖ref‖∞ = {rel_err(kernel16, jnp16):.3e}; {agreement(reqs, done, done_jnp)}")
 
     # f32 on the same weights, upcast exactly: the kernels against their plain
@@ -288,9 +350,10 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
     kernel32 = [eng32.prefill_logits(r) for r in reqs]
     done32_plain, plain32 = run_plain_versions(cfg32, backbone32, Engine, kw, reqs, counters)
     worst = hold(torch, cfg32.dtype, reqs, kernel32, plain32)
-    log(f"[serve] f32, kernels vs their plain versions: prefill logits max |err| / ‖ref‖∞ = "
-        f"{worst:.3e} (limit {LOGIT_TOL['float32']}); {agreement(reqs, done32, done32_plain)}")
-    log(f"[serve] bf16 runs vs the f32 plain run, prefill logits max |err| / ‖ref‖∞: "
+    log(f"[serve] {arch} f32, kernels vs their plain versions: prefill logits max |err| / "
+        f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['float32']}); "
+        f"{agreement(reqs, done32, done32_plain)}")
+    log(f"[serve] {arch} bf16 runs vs the f32 plain run, prefill logits max |err| / ‖ref‖∞: "
         f"kernels {rel_err(kernel16, plain32):.3e}, plain versions "
         f"{rel_err(plain16, plain32):.3e}, use_pallas=False {rel_err(jnp16, plain32):.3e}; "
         f"kernels' tokens: {agreement(reqs, done, done32_plain)}")
@@ -340,19 +403,23 @@ def plain_versions(counters):
     from repro_torch.kernels.fisher_merge import ops as fm_ops, ref as fm_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
     from repro_torch.kernels.lora import ops as lora_ops, ref as lora_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 
-    swaps = [(lora_ops, "lora_residual", lora_ref.lora_residual),
-             (lora_ops, "grouped_lora_residual", lora_ref.grouped_lora_residual),
-             (fa_ops, "flash_attention", fa_ref.attention),
-             (fm_ops, "fisher_merge", fm_ref.fisher_merge),
-             (fm_ops, "fisher_fold", fm_ref.fisher_fold)]
+    # (module, wrapper attribute, plain version, counter name)
+    swaps = [(lora_ops, "lora_residual", lora_ref.lora_residual, "lora_residual"),
+             (lora_ops, "grouped_lora_residual", lora_ref.grouped_lora_residual,
+              "grouped_lora_residual"),
+             (fa_ops, "flash_attention", fa_ref.attention, "flash_attention"),
+             (fm_ops, "fisher_merge", fm_ref.fisher_merge, "fisher_merge"),
+             (fm_ops, "fisher_fold", fm_ref.fisher_fold, "fisher_fold"),
+             (ssd_ops, "ssd", ssd_ref.ssd_chunked, "ssd_scan")]
     try:
-        for mod, name, plain in swaps:
-            setattr(mod, name, plain)
+        for mod, attr, plain, _ in swaps:
+            setattr(mod, attr, plain)
         yield
     finally:
-        for mod, name, _ in swaps:
-            setattr(mod, name, counters[name])
+        for mod, attr, _, name in swaps:
+            setattr(mod, attr, counters[name])
 
 
 # ---------------------------------------------------------------------------
@@ -447,13 +514,14 @@ def tree_rel_err(got, want) -> float:
                for g, w in zip(tree_leaves(got), tree_leaves(want)))
 
 
-def training_smoke(torch, tr):
-    """Two FedNano rounds of smoke llava in f32: card (kernels) vs CPU (plain)."""
+def training_smoke(torch, tr, arch="llava-1.5-7b"):
+    """Two FedNano rounds of smoke ``arch`` in f32: card (kernels) vs CPU (plain)."""
     from repro_torch.utils import tree_map
 
-    cfg = tr["get_smoke_config"]("llava-1.5-7b").with_(use_pallas=True)
+    cfg = tr["get_smoke_config"](arch).with_(use_pallas=True)
     hp = tr["HyperParams"](**TRAIN_HP)
-    data_kw = dict(n_clients=2, examples_per_client=16, batch_size=4, seq_len=16, seed=0)
+    data_kw = dict(n_clients=2, examples_per_client=16, batch_size=4, seq_len=SMOKE_SEQ[arch],
+                   seed=0)
     server_cpu = tr["init_server"](cfg, seed=3, device="cpu")
     runs, step = {}, {}
     for dev in ("cuda", "cpu"):
@@ -484,30 +552,31 @@ def training_smoke(torch, tr):
     if adp_err > 1e-5 or gpu.comm_totals != cpu.comm_totals:
         raise AssertionError(f"smoke training: global adapters {adp_err:.3e} (bound 1e-5); "
                              f"comm {gpu.comm_totals} vs {cpu.comm_totals}")
-    log(f"[train-smoke] smoke llava f32, 2 rounds: card (kernels) vs CPU (plain): round "
+    log(f"[train-smoke] smoke {arch} f32, 2 rounds: card (kernels) vs CPU (plain): round "
         f"losses {gl} vs {cl}, max rel err {loss_err:.3e}; first step loss {step_loss:.3e}, "
         f"grads {step_grad:.3e} (bound 1e-5); global adapters after 2 rounds {adp_err:.3e} "
         f"(bound 1e-5); comm totals equal")
 
 
-def training_full(torch, tr, counters):
-    """The slice's main path at full width. -> (state for later phases,
+def training_full(torch, tr, counters, arch="llava-1.5-7b"):
+    """A training main path at full width. -> (state for later phases,
     launches per kernel on its runs)."""
     from repro_torch.utils import tree_leaves
 
-    cfg = tr["get_config"]("llava-1.5-7b").with_(use_pallas=True)
+    cfg = tr["get_config"](arch).with_(use_pallas=True)
     hp = tr["HyperParams"](**TRAIN_HP)
     t0 = time.perf_counter()
     server = tr["init_server"](cfg, seed=0, device="cuda")
-    train, evald, _ = tr["make_federated_data"](cfg, device="cuda", **TRAIN_DATA)
+    train, evald, _ = tr["make_federated_data"](cfg, device="cuda", **TRAIN_DATA_BY_ARCH[arch])
     torch.cuda.synchronize()
     b0 = train[0][0]
-    tokens_per_step = b0.tokens.shape[0] * (b0.tokens.shape[1] + b0.patches.shape[1])
-    log(f"[train] llava-1.5-7b backbone {cfg.dtype}, rank-{cfg.adapter.rank} "
+    n_patches = b0.patches.shape[1] if b0.patches is not None else 0
+    tokens_per_step = b0.tokens.shape[0] * (b0.tokens.shape[1] + n_patches)
+    log(f"[train] {arch} backbone {cfg.dtype}, rank-{cfg.adapter.rank} "
         f"{cfg.adapter.dtype} adapters {list(cfg.adapter.modalities)}, data "
         f"{[len(train[c]) for c in sorted(train)]} train / {[len(evald[c]) for c in sorted(evald)]}"
-        f" eval batches per client, batch {tuple(b0.tokens.shape)} tokens + "
-        f"{tuple(b0.patches.shape)} patches ({tokens_per_step} positions a step); drawn in "
+        f" eval batches per client, batch {tuple(b0.tokens.shape)} tokens + {n_patches} "
+        f"patches a row ({tokens_per_step} positions a step); drawn in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # warm-up: cuBLAS handles, allocator pools, first launches
@@ -541,11 +610,11 @@ def training_full(torch, tr, counters):
         raise AssertionError(f"full-width training: comm totals {c}, want {want_bytes} each")
     if not all(0.0 <= a <= 1.0 for a in res.client_accuracy.values()):
         raise AssertionError(f"client accuracy {res.client_accuracy}")
-    for name in ("lora_residual", "flash_attention", "fisher_merge"):
+    for name in TRAINING_KERNELS_BY_ARCH[arch]:
         if launches[name] <= 0:
-            raise AssertionError(f"the {name} kernel never launched on the training path: "
-                                 f"{launches}")
-    log(f"[train] fednano, 2 clients x 2 rounds x ({hp.local_steps} steps + "
+            raise AssertionError(f"the {name} kernel never launched on the {arch} training "
+                                 f"path: {launches}")
+    log(f"[train] {arch} fednano, 2 clients x 2 rounds x ({hp.local_steps} steps + "
         f"{hp.fisher_batches} Fisher batches), merge by fisher_merge: round losses {losses}, "
         f"client accuracy {res.client_accuracy}, comm {c}; wall {wall:.3f} s with final eval; "
         f"peak memory {peak / 2**30:.2f} GiB | launches {json.dumps(launches)}")
@@ -562,11 +631,12 @@ def training_full(torch, tr, counters):
     if fold_err > 1e-6 or abs(loss0 - losses[0]) > 1e-5 * abs(losses[0]):
         raise AssertionError(f"round 0 by fisher_fold vs fisher_merge: adapters {fold_err:.3e} "
                              f"(bound 1e-6); loss {loss0} vs {losses[0]}")
-    log(f"[train] agg_chunk=1, round 0 folded one client at a time by fisher_fold: loss "
+    log(f"[train] {arch} agg_chunk=1, round 0 folded one client at a time by fisher_fold: loss "
         f"{loss0} (merge run {losses[0]}); streamed merge vs fisher_merge of the same uploads "
         f"{fold_err:.3e} of ‖ref‖∞ (bound 1e-6); wall {wall_f:.3f} s | launches "
         f"{json.dumps(launches_f)}")
-    launches_by_path = {"train": {n: launches[n] + launches_f[n] for n in launches}}
+    path = "train" if arch == "llava-1.5-7b" else f"train_{arch.split('-')[0]}"
+    launches_by_path = {path: {n: launches[n] + launches_f[n] for n in launches}}
     state = dict(cfg=cfg, hp=hp, server=server, train=train, evald=evald, res=res,
                  tokens_per_step=tokens_per_step, peak=peak)
     return state, launches_by_path
@@ -603,7 +673,7 @@ def training_check(torch, tr, st, counters):
         del backbone
     torch.cuda.empty_cache()
     for (dtype, label), (lk, lp, le, ge) in out.items():
-        log(f"[train-check] {dtype} {label}: loss kernels {lk:.7f} plain {lp:.7f} (rel "
+        log(f"[train-check] {cfg.name} {dtype} {label}: loss kernels {lk:.7f} plain {lp:.7f} (rel "
             f"{le:.3e}, bound {LOSS_TOL[dtype]}); adapter grads max |err| / ‖ref‖∞ {ge:.3e} "
             f"(bound {GRAD_TOL[dtype]})")
 
@@ -617,7 +687,8 @@ def training_check(torch, tr, st, counters):
     ae = tree_rel_err(st["res"].server.global_adapters, plain.server.global_adapters)
     if le > RUN_LOSS_TOL_BF16:
         raise AssertionError(f"bf16 run, kernels vs plain versions: round losses {kl} vs {pl}")
-    log(f"[train-check] bf16 whole run, kernels vs plain versions: round losses {kl} vs {pl} "
+    log(f"[train-check] {cfg.name} bf16 whole run, kernels vs plain versions: round losses "
+        f"{kl} vs {pl} "
         f"(max rel {le:.3e}, bound {RUN_LOSS_TOL_BF16}); final global adapters "
         f"{ae:.3e} of ‖ref‖∞ (reported)")
 
@@ -652,7 +723,7 @@ def training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref, fa_op
     """The new kernels at the slice's shapes and the training loop end to end."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    cfg, hp, server, train = st["cfg"], st["hp"], st["server"], st["train"]
+    cfg = st["cfg"]
     out = {}
 
     # the server's merge of 2 clients' (4096, 64) f32 leaves, one leaf a call
@@ -716,7 +787,16 @@ def training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref, fa_op
         f"causal: device ms per step (issued): Function {k_ms:.5f} | plain autograd "
         f"{p_ms:.5f} | SDPA forward + backward {l_ms:.5f} | bound {b_ms:.5f} ({b_by})")
 
-    # end to end at full width
+    loop_timings(torch, tr, st)
+    return out
+
+
+def loop_timings(torch, tr, st):
+    """The training loop end to end at full width: local step, Fisher batch,
+    server merge, round."""
+    from repro_torch.utils import tree_leaves
+
+    cfg, hp, server, train = st["cfg"], st["hp"], st["server"], st["train"]
     strat = tr["get_strategy"]("fednano")
     adp = st["res"].server.global_adapters
     opt = tr["adamw_init"](adp)
@@ -732,12 +812,11 @@ def training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref, fa_op
                         use_pallas=True, server=fresh_server(server), final_eval=False)
     torch.cuda.synchronize()
     round_s = time.perf_counter() - t0
-    log(f"[train-time] local step (forward, backward, AdamW, float(loss)) {step_ms:.2f} ms: "
-        f"{st['tokens_per_step'] / step_ms * 1e3:.1f} trained tokens/s | Fisher-pass batch "
-        f"{fisher_ms:.2f} ms | server merge (4 leaves, fisher_merge) {merge_ms:.3f} ms | "
-        f"round wall (2 clients, no eval) {round_s:.3f} s | peak memory of the main run "
-        f"{st['peak'] / 2**30:.2f} GiB")
-    return out
+    log(f"[train-time] {cfg.name} local step (forward, backward, AdamW, float(loss)) "
+        f"{step_ms:.2f} ms: {st['tokens_per_step'] / step_ms * 1e3:.1f} trained tokens/s | "
+        f"Fisher-pass batch {fisher_ms:.2f} ms | server merge ({len(tree_leaves(adp))} leaves, "
+        f"fisher_merge) {merge_ms:.3f} ms | round wall (2 clients, no eval) {round_s:.3f} s | "
+        f"peak memory of the main run {st['peak'] / 2**30:.2f} GiB")
 
 
 # ---------------------------------------------------------------------------
@@ -849,6 +928,194 @@ def timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the ssm family: the SSD scan kernel and mamba2-130m's widths
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(torch, gen, b, s, h, p, n, dtype):
+    """The JAX harness's input scales: x·0.5, dt in [0.01, 0.2), A in (-2, -0.5]."""
+    dev = gen.device
+    x = (torch.randn((b, s, h, p), generator=gen, device=dev) * 0.5).to(dtype)
+    dt = (torch.rand((b, s, h), generator=gen, device=dev) * 0.19 + 0.01).to(dtype)
+    A = -(torch.rand((h,), generator=gen, device=dev) * 1.5 + 0.5)
+    B, C = ((torch.randn((b, s, n), generator=gen, device=dev) * 0.3).to(dtype)
+            for _ in range(2))
+    return x, dt, A, B, C
+
+
+def ssd_work(b, s, h, p, n, q, itemsize):
+    """-> (bytes, f32 operations) the SSD scan needs at these shapes: each
+    input read once and y written once; per (b, chunk) C·Bᵀ once (it does not
+    depend on the head) over the causal pairs j <= i, and per head the masked
+    product with x over those pairs, the carried state's read (C·h) on every
+    chunk but the first (h = 0 there) and its update (B·xᵀ) on every chunk
+    but the last (only y is returned), 2 operations a multiply-add."""
+    pairs = 0
+    rows = [min(q, s - c0) for c0 in range(0, s, q)]
+    for r in rows:
+        pairs += r * (r + 1) // 2
+    carried = (s - rows[0]) + (s - rows[-1])   # steps of C·h reads + state updates
+    ops = b * (2 * pairs * n + h * (2 * pairs * p + 2 * carried * n * p))
+    n_bytes = itemsize * (2 * b * s * h * p + b * s * h + 2 * b * s * n) + 4 * h
+    return n_bytes, ops
+
+
+def mamba_parity(torch, harness, ssd_ops, ssd_ref, lora_ops, lora_ref, fm_ops, fm_ref):
+    """The SSD kernel and its gradients against the plain version, and the
+    LoRA and Fisher kernels at mamba2's widths. -> {kernel: max |err|}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    main_err, n_cases, full = {}, 0, {}
+    names = ("dx", "ddt", "dA", "dB", "dC")
+
+    def rel(got, want):  # max |got - want| / max(1, ‖want‖∞), the harness's scale
+        return float((got.double() - want.double()).abs().max()) / max(
+            1.0, float(want.double().abs().max()))
+
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for shape in harness.SSD_SHAPES + harness.FULL_SSD_SHAPES:
+            b, s, h, p, n, q = shape
+            is_full = shape in harness.FULL_SSD_SHAPES
+            tol = harness.FULL_SSD_TOLERANCES if is_full else harness.SSD_TOLERANCES
+            args = ssd_inputs(torch, gen, b, s, h, p, n, dtype)
+            y_k = ssd_ops.ssd(*args, chunk=q)
+            y_p = ssd_ref.ssd_chunked(*args, chunk=q)
+            err = harness.check_close(y_k, y_p, dtype_name, f"ssd {shape}", tol)
+            got = sq_loss_grads(lambda *a: ssd_ops.ssd(*a, chunk=q), *args)
+            want = sq_loss_grads(lambda *a: ssd_ref.ssd_chunked(*a, chunk=q), *args)
+            gerr = max(rel(g, w) for g, w in zip(got, want))
+            for name, g, w in zip(names, got, want):
+                harness.check_close(g, w, dtype_name, f"ssd grad {name} {shape}", tol)
+            n_cases += 2
+            if not is_full:
+                continue
+            line = (f"forward max |err| {err:.3e}, {rel(y_k, y_p):.3e} of max(1, ‖ref‖∞); "
+                    f"gradients {gerr:.3e} (bound {tol[dtype_name]['atol_scale']})")
+            if dtype_name == "float32":
+                # both f32 paths against the same scan in float64
+                a64 = [t.double() for t in args]
+                y64 = ssd_ref.ssd_chunked(*a64, chunk=q)
+                g64 = sq_loss_grads(lambda *a: ssd_ref.ssd_chunked(*a, chunk=q), *a64)
+                line += (f"; against float64: forward kernel {rel(y_k, y64):.3e}, plain "
+                         f"{rel(y_p, y64):.3e}; gradients Function "
+                         f"{max(rel(g, w) for g, w in zip(got, g64)):.3e}, plain autograd "
+                         f"{max(rel(g, w) for g, w in zip(want, g64)):.3e}")
+            full[f"{dtype_name} {shape[:2]}"] = line
+            if shape == harness.FULL_SSD_SHAPES[-1] and dtype_name == "bfloat16":
+                main_err["ssd_scan"] = err
+        for t, d, r, _ in harness.MAMBA_LORA_SHAPES:
+            x, down, up = (torch.randn((t, d), generator=gen, device=dev).to(dtype),
+                           torch.randn((d, r), generator=gen, device=dev) * 0.05,
+                           torch.randn((r, d), generator=gen, device=dev) * 0.05)
+            harness.check_close(lora_ops.lora_residual(x, down, up, scale=SCALE),
+                                lora_ref.lora_residual(x, down, up, scale=SCALE), dtype_name,
+                                f"lora t{t}d{d}r{r}")
+            n_cases += 1
+        for t, d, r, nb, _ in harness.MAMBA_GROUPED_SHAPES:
+            x = torch.randn((t, d), generator=gen, device=dev).to(dtype)
+            down = torch.randn((nb, d, r), generator=gen, device=dev) * 0.05
+            up = torch.randn((nb, r, d), generator=gen, device=dev) * 0.05
+            idx = torch.randint(-1, nb, (t,), generator=gen, device=dev, dtype=torch.int32)
+            harness.check_close(lora_ops.grouped_lora_residual(x, down, up, idx, scale=SCALE),
+                                lora_ref.grouped_lora_residual(x, down, up, idx, scale=SCALE),
+                                dtype_name, f"grouped t{t}d{d}n{nb}")
+            n_cases += 1
+        for t, d, r, _ in harness.MAMBA_LORA_GRAD_SHAPES:
+            x = torch.randn((t, d), generator=gen, device=dev).to(dtype)
+            down = torch.randn((d, r), generator=gen, device=dev) * 0.05
+            up = torch.randn((r, d), generator=gen, device=dev) * 0.05
+            got = sq_loss_grads(lambda a, b_, c: lora_ops.lora_residual(a, b_, c, scale=SCALE),
+                                x, down, up)
+            want = sq_loss_grads(lambda a, b_, c: lora_ref.lora_residual(a, b_, c, scale=SCALE),
+                                 x, down, up)
+            for name, g, w in zip(("dx", "dA", "dB"), got, want):
+                harness.check_close(g, w, dtype_name, f"lora grad {name} t{t}d{d}r{r}")
+            n_cases += 1
+        for k, n, _ in harness.MAMBA_FISHER_SHAPES:
+            theta = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+            fisher = (torch.rand((k, n), generator=gen, device=dev) + 0.01).to(dtype)
+            w = torch.rand((k,), generator=gen, device=dev) + 0.1
+            harness.check_close(fm_ops.fisher_merge(theta, fisher, w),
+                                fm_ref.fisher_merge(theta, fisher, w), dtype_name,
+                                f"fisher_merge k{k}n{n}")
+            num, den = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+            pnum, pden = num.clone(), den.clone()
+            for i in range(k):
+                fm_ops.fisher_fold(num, den, theta[i], fisher[i], float(w[i]))
+                fm_ref.fisher_fold(pnum, pden, theta[i], fisher[i], float(w[i]))
+            harness.check_close(num, pnum, "float32", f"fisher_fold num k{k}n{n}")
+            harness.check_close(den, pden, "float32", f"fisher_fold den k{k}n{n}")
+            n_cases += 2
+    torch.cuda.synchronize()
+    log(f"[ssd-parity] {n_cases} kernel-vs-plain cases passed (SSD forward and gradients over "
+        f"the harness grid and the full-width shapes; LoRA, grouped LoRA, LoRA gradients and "
+        f"Fisher kernels at d_model 768; f32 and bf16)")
+    for key, line in full.items():
+        log(f"[ssd-parity] full width {key}: {line}")
+    return main_err
+
+
+def mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness):
+    """The SSD kernel at both full-width shapes and the LoRA kernel at d_model
+    768, bf16 activations, beside their plain versions and bounds."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    shapes = {}
+    for label, shape in zip(("serve", "train"), harness.FULL_SSD_SHAPES):
+        b, s, h, p, n, q = shape
+        args = ssd_inputs(torch, gen, b, s, h, p, n, bf16)
+        (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: ssd_ops.ssd(*args, chunk=q)),
+                                      time_ms(torch, lambda: ssd_ref.ssd_chunked(*args, chunk=q)))
+        n_bytes, n_ops = ssd_work(b, s, h, p, n, q, 2)
+        b_ms, b_by = bound(n_bytes, n_ops, "f32")
+        shapes[label] = dict(shape=list(shape), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by)
+        log(f"[time] ssd_scan at x ({b}, {s}, {h}, {p}) bf16, N {n}, chunk {q} ({label}): "
+            f"device ms per call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}) | plain "
+            f"{p_ms:.5f} ({p_is:.5f}) | library None | bound {b_ms:.5f} ({b_by}; "
+            f"{n_ops / 1e9:.4f} GFLOP f32, {n_bytes / 1e6:.3f} MB) | kernel at "
+            f"{n_ops / k_ms / 1e9:.3f} TFLOP/s")
+        if label == "train":
+            # what a local step pays per layer: SSDScan (kernel forward, then the
+            # plain forward recomputed and differentiated) against plain autograd.
+            # A is frozen; x, dt, B and C lie downstream of the adapter.
+            leaves = [t.detach().requires_grad_(i != 2) for i, t in enumerate(args)]
+            g = torch.randn(args[0].shape, generator=gen, device=dev).to(bf16)
+
+            def fwd_bwd(fn):
+                return torch.autograd.grad(fn(*leaves, chunk=q),
+                                           [t for t in leaves if t.requires_grad], g)
+
+            (f_ms, _), (a_ms, _) = (time_ms(torch, lambda: fwd_bwd(ssd_ops.ssd), iters=10),
+                                    time_ms(torch, lambda: fwd_bwd(ssd_ref.ssd_chunked),
+                                            iters=10))
+            shapes[label].update(fwd_bwd_ms=f_ms, plain_fwd_bwd_ms=a_ms)
+            log(f"[time] ssd_scan forward + backward at x ({b}, {s}, {h}, {p}) bf16 (train): "
+                f"device ms: SSDScan {f_ms:.5f} (kernel forward + plain recompute and backward) "
+                f"| plain autograd {a_ms:.5f} | so the backward alone about "
+                f"{a_ms - p_ms:.5f} and the kernel forward adds {f_ms - a_ms:.5f}")
+    for t, d, r, _ in harness.MAMBA_LORA_SHAPES:
+        x = torch.randn((t, d), generator=gen, device=dev).to(bf16)
+        A = torch.randn((d, r), generator=gen, device=dev) * 0.05
+        Bm = torch.randn((r, d), generator=gen, device=dev) * 0.05
+        y = lora_ops.lora_residual(x, A, Bm, scale=SCALE)
+        A16, B16 = A.to(bf16), Bm.to(bf16)
+        (k_ms, _), (p_ms, _), (l_ms, _) = (
+            time_ms(torch, lambda: lora_ops.lora_residual(x, A, Bm, scale=SCALE)),
+            time_ms(torch, lambda: lora_ref.lora_residual(x, A, Bm, scale=SCALE)),
+            time_ms(torch, lambda: torch.addmm(x, x @ A16, B16, alpha=SCALE)))
+        b_ms, b_by = bound(nbytes(x, A, Bm, y), 4 * t * d * r + 2 * t * d, "f32")
+        log(f"[time] lora_residual at x ({t}, {d}) bf16, r {r} (mamba2-130m): device ms per "
+            f"call: kernel {k_ms:.5f} | plain {p_ms:.5f} | library {l_ms:.5f} (torch.addmm) | "
+            f"bound {b_ms:.5f} ({b_by})")
+    main = shapes["train"]
+    return {"ssd_scan": dict(ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+                             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                             shapes=shapes)}
+
+
 def breakdown(torch, get_config, init_backbone, synth, make_requests, Engine):
     """Device busy share and device time by kernel over one prefill and a few
     decode steps at full width, from torch.profiler."""
@@ -932,8 +1199,9 @@ SOURCES = {
                      "src/repro/kernels/fisher_merge/fisher_merge.py:100"),
     "fisher_fold": ("src/repro_torch/csrc/fisher_merge.cu",
                     "src/repro/kernels/fisher_merge/fisher_merge.py:62"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/ssd_scan.py:81"),
 }
-SERVING_KERNELS = ("lora_residual", "grouped_lora_residual", "flash_attention")
 
 
 def main() -> int:
@@ -959,6 +1227,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.lora import ops as lora_ops
     from repro_torch.kernels.lora import ref as lora_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.launch.serve import make_requests, synth_tenant_adapters
     from repro_torch.models.model import init_backbone
     from repro_torch.optim import adamw_init
@@ -990,7 +1260,8 @@ def main() -> int:
                 "grouped_lora_residual": lora_ops.grouped_lora_residual,
                 "flash_attention": fa_ops.flash_attention,
                 "fisher_merge": fm_ops.fisher_merge,
-                "fisher_fold": fm_ops.fisher_fold}
+                "fisher_fold": fm_ops.fisher_fold,
+                "ssd_scan": ssd_ops.ssd}
     launches = {"serve": serving_full(torch, get_config, init_backbone, synth_tenant_adapters,
                                       make_requests, ServingEngine, counters)}
     torch.cuda.empty_cache()
@@ -1013,6 +1284,25 @@ def main() -> int:
     breakdown(torch, get_config, init_backbone, synth_tenant_adapters, make_requests,
               ServingEngine)
     step_profile(torch, tr, st)
+    del st
+    torch.cuda.empty_cache()
+
+    # the ssm family: mamba2-130m through the SSD scan kernel
+    main_err.update(mamba_parity(torch, harness, ssd_ops, ssd_ref, lora_ops, lora_ref,
+                                 fm_ops, fm_ref))
+    serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
+                  make_requests, ServingEngine, arch=MAMBA)
+    launches["serve_mamba2"] = serving_full(torch, get_config, init_backbone,
+                                            synth_tenant_adapters, make_requests, ServingEngine,
+                                            counters, arch=MAMBA)
+    torch.cuda.empty_cache()
+    training_smoke(torch, tr, arch=MAMBA)
+    st, train_launches = training_full(torch, tr, counters, arch=MAMBA)
+    launches.update(train_launches)
+    training_check(torch, tr, st, counters)
+    times.update(mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness))
+    loop_timings(torch, tr, st)
+    step_profile(torch, tr, st)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -1022,7 +1312,8 @@ def main() -> int:
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": main_err[name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                        **({"shapes": t["shapes"]} if "shapes" in t else {})})
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,11 +7,12 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import llava15_7b
-from repro_torch.configs.base import AdapterConfig, ModelConfig, reduced
+from repro_torch.configs import llava15_7b, mamba2_130m
+from repro_torch.configs.base import AdapterConfig, ModelConfig, SSMConfig, reduced
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "llava-1.5-7b": llava15_7b.config,
+    "mamba2-130m": mamba2_130m.config,
 }
 
 
@@ -29,5 +30,5 @@ def get_smoke_config(arch: str, **overrides) -> ModelConfig:
     return reduced(get_config(arch), **overrides)
 
 
-__all__ = ["AdapterConfig", "ModelConfig", "get_config", "get_smoke_config",
+__all__ = ["AdapterConfig", "ModelConfig", "SSMConfig", "get_config", "get_smoke_config",
            "list_archs", "reduced"]

@@ -1,18 +1,31 @@
 """Configuration dataclasses of the PyTorch port.
 
 The port's own copy of ``repro.configs.base``, cut to what the ported
-families (``dense`` / ``vlm``) read. The field names and defaults are the
-JAX package's, so ``tests/test_torch_model.py`` can hold the two smoke
+families (``dense`` / ``vlm`` / ``ssm``) read. The field names and defaults
+are the JAX package's, so ``tests/test_torch_model.py`` can hold the smoke
 configs against each other field by field. The switches only other families
-set (sliding window, softcap, QKV bias, tied embeddings, sequence limit) and
-the sub-family configs (MoE, SSM, RG-LRU, encoder-decoder) arrive with those
-families (ROADMAP queue 3).
+set (sliding window, softcap, QKV bias, the sequence limit of learned
+positions) and the other sub-family configs (MoE, RG-LRU, encoder-decoder)
+arrive with those families (ROADMAP queue 3).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field, replace
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD: state space duality, arXiv:2405.21060)."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64       # SSD multi-head: d_inner / head_dim heads
+    chunk_size: int = 256    # chunked-scan block length; fixes the f32 summation order
+    dt_min: float = 0.001
+    dt_max: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -28,7 +41,7 @@ class AdapterConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "unnamed"
-    family: str = "dense"          # the port runs dense | vlm
+    family: str = "dense"          # the port runs dense | vlm | ssm
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -38,10 +51,14 @@ class ModelConfig:
     vocab_size: int = 1024
 
     # positions / block structure
-    pos_type: str = "rope"         # the port runs rope
+    pos_type: str = "rope"         # the port runs rope | none
     rope_theta: float = 10000.0
     norm: str = "rmsnorm"          # the port runs rmsnorm
     act: str = "swiglu"            # the port runs swiglu
+    tie_embeddings: bool = False   # logits read the embedding table (no unembed)
+
+    # sub-family configs
+    ssm: Optional[SSMConfig] = None
 
     # modality frontend stub (vlm): incoming embedding width before connector
     frontend_dim: int = 0
@@ -87,6 +104,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         dtype="float32",
         adapter=dataclasses.replace(cfg.adapter, rank=4, alpha=8.0),
     )
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk_size=32)
     if cfg.frontend_dim:
         kw["frontend_dim"] = min(cfg.frontend_dim, 128)
     kw.update(overrides)

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "repro_fisher_merge": [_P, _P, _P, _P, _I, _L, _F, _I, _P],
     # num, den, theta, fisher, w, N, dtype, stream
     "repro_fisher_fold": [_P, _P, _P, _P, _F, _L, _I, _P],
+    # x, dt, A, B, C, out, Bt, S, H, P, N, Q, x_sb, x_st, b_sb, b_st, c_sb, c_st, dtype, stream
+    "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _L, _I, _P],
 }
 
 

@@ -2,9 +2,8 @@
 
 The port's copy of the grids and the tolerance policy of the JAX package's
 ``tests/kernel_harness.py`` (``tests/test_torch_kernels.py`` checks that the
-copies agree), plus the full-width shapes that llava-1.5-7b serving gives
-the kernels, the gradient cases and the Fisher-merge shapes that training
-gives them. ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` run
+copies agree), plus the full-width shapes that llava-1.5-7b and
+mamba2-130m give the kernels in serving and in training. ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` run
 them on the card.
 
 A comparison passes when |got − want| ≤ rtol·|want| + atol_scale·max(1, ‖want‖∞).
@@ -33,6 +32,26 @@ FLASH_GRAD_TOLERANCES = {
 FULL_FLASH_GRAD_TOLERANCES = {
     "float32": {"rtol": 1e-5, "atol_scale": 1e-5},
     "bfloat16": {"rtol": 3e-2, "atol_scale": 3e-2},
+}
+# The SSD scan: the JAX harness's override for bf16 (the chunked
+# recurrence's exp/cumsum chains lose more mantissa than one matmul); f32 is
+# the common 1e-6.
+SSD_TOLERANCES = {
+    "float32": {"rtol": 1e-6, "atol_scale": 1e-6},
+    "bfloat16": {"rtol": 5e-2, "atol_scale": 5e-2},
+}
+# ... at mamba2-130m's full width (N 128, chunk 256), where L = cumsum(dt·A)
+# reaches -30 and beyond inside a chunk: the kernel's sequential f32 prefix
+# and the plain version's torch.cumsum round L_i - L_j differently by a few
+# ulps of |L|, and sums run over 256 steps and 128 state entries. Measured on
+# an H100 at 700 W (chip_smoke.py phase 12a): kernel vs plain 2.7e-6 and
+# 2.9e-6 of max(1, ‖ref‖∞) forward, 2.4e-6 and 1.3e-6 for the gradients; a
+# float64 scan is 2.1e-6 and 2.2e-6 from the kernel and 1.5e-6 and 2.2e-6
+# from the plain version, so neither f32 path holds 1e-6 there. The bound
+# is about 3x the measured gap.
+FULL_SSD_TOLERANCES = {
+    "float32": {"rtol": 1e-5, "atol_scale": 1e-5},
+    "bfloat16": {"rtol": 5e-2, "atol_scale": 5e-2},
 }
 
 LORA_SHAPES = [
@@ -77,6 +96,16 @@ FISHER_SHAPES = [
 # K in {1, 3, 8} at N off every multiple of the TPU kernel's 1024-wide blocks
 FISHER_EXTRA_SHAPES = [(1, 3000, 1024), (3, 1025, 1024), (8, 2047, 1024)]
 
+SSD_SHAPES = [
+    # (b, s, h, p, n, chunk): 15/16/17 around one chunk, a ragged multi-chunk
+    # case and an odd head width
+    (1, 16, 2, 16, 8, 16),
+    (1, 15, 2, 16, 8, 16),
+    (1, 17, 2, 16, 8, 16),
+    (2, 100, 3, 32, 16, 32),
+    (1, 64, 2, 33, 8, 16),
+]
+
 # Gradient cases: the JAX harness's LoRA grad shapes and its flash grad picks,
 # plus bidirectional attention and rows that see no key (Sq > Sk, causal).
 LORA_GRAD_SHAPES = [(37, 48, 8, 16), (16, 32, 4, 16), (33, 32, 8, 32)]
@@ -88,6 +117,16 @@ FLASH_GRAD_SHAPES = [FLASH_SHAPES[i] for i in (2, 3, 4, 5, 6, 7)] + [
 # 8 adapter slots, rank 64), and the one head dim the grids above miss.
 FULL_LORA_SHAPES = [(128, 4096, 64, 0), (64, 4096, 64, 0)]      # text, image adapters
 FULL_GROUPED_SHAPES = [(8, 4096, 64, 8, 0)]                      # decode step
+# Full-width mamba2-130m (d_model 768): the text adapter at prefill_len 512,
+# the grouped bank at 8 decode slots, training's 4 x 1024 text rows, and the
+# server's merge of 2 clients' 768 x 64 leaves.
+MAMBA_LORA_SHAPES = [(512, 768, 64, 0), (4 * 1024, 768, 64, 0)]
+MAMBA_GROUPED_SHAPES = [(8, 768, 64, 8, 0)]
+MAMBA_LORA_GRAD_SHAPES = [(4 * 1024, 768, 64, 0)]
+MAMBA_FISHER_SHAPES = [(2, 768 * 64, 0)]
+# ... and its SSD scan: H 24, P 64, N 128, chunk 256, at serving's prefill
+# (batch 1 x 512: two chunks) and training's batch (4 x 1024: four chunks).
+FULL_SSD_SHAPES = [(1, 512, 24, 64, 128, 256), (4, 1024, 24, 64, 128, 256)]
 # Full-width llava-1.5-7b training (batch 4 of 64 patches + 32 text tokens:
 # 96 positions), and the server's merge of 2 clients' 4096 x 64 adapter leaves.
 # NanoEdge gives the LoRA kernel the text rows (4 x 32) and the image rows

@@ -1,4 +1,4 @@
-"""Backbone facade of the port, dense/vlm families
+"""Backbone facade of the port, dense/vlm and ssm families
 (PyTorch counterpart of ``repro.models.model``).
 
     init_backbone(cfg, seed, device)              -> params
@@ -7,7 +7,7 @@
     forward(cfg, params, embeds, positions)       -> (hidden, aux)
     logits(cfg, params, hidden)                   -> (B, S, V)
     loss_fn(cfg, params, embeds, positions, labels, mask) -> (loss, aux)
-    prefill(cfg, params, embeds, positions, capacity) -> (state, hidden)
+    prefill(cfg, params, embeds, positions, capacity, length) -> (state, hidden)
     decode_step(cfg, params, embed, state, pos)   -> (logits, state)
     init_state(cfg, batch, capacity, dtype, device)
 """
@@ -36,11 +36,12 @@ def param_dtype(cfg) -> torch.dtype:
 def check_supported(cfg) -> None:
     """Raise for configs whose layers the port does not have yet."""
     transformer.check_family(cfg)
-    for field, want in (("norm", "rmsnorm"), ("act", "swiglu"), ("pos_type", "rope")):
+    pos = "none" if cfg.family == "ssm" else "rope"
+    for field, want in (("norm", "rmsnorm"), ("act", "swiglu"), ("pos_type", pos)):
         if getattr(cfg, field) != want:
             raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r}: the port runs {want} only "
-                "(ROADMAP queue 3, 'The other families')")
+                f"{field}={getattr(cfg, field)!r}: the port runs {want} only for the "
+                f"{cfg.family} family (ROADMAP queue 3, 'The other families')")
 
 
 def init_backbone(cfg, *, seed: int = 0, device="cuda"):
@@ -51,8 +52,9 @@ def init_backbone(cfg, *, seed: int = 0, device="cuda"):
     params = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "unembed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
     }
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
     if cfg.frontend_dim:
         params["connector"] = {
             "w": dense_init(gen, (cfg.frontend_dim, cfg.d_model), dtype),
@@ -84,7 +86,8 @@ def forward(cfg, params, embeds, positions):
 
 
 def logits(cfg, params, hidden):
-    return unembed(params["unembed"], hidden)
+    """Tied configs read the embedding table (``model.py:111-115``)."""
+    return unembed(params["embed" if cfg.tie_embeddings else "unembed"], hidden)
 
 
 def loss_fn(cfg, params, embeds, positions, labels, mask):
@@ -97,10 +100,15 @@ def loss_fn(cfg, params, embeds, positions, labels, mask):
     return lm_loss(logits(cfg, params, hidden), labels, mask), aux
 
 
-def prefill(cfg, params, embeds, positions, capacity: int):
-    """embeds (B, S, D), positions (B, S) -> (stacked decode state, hidden)."""
+def prefill(cfg, params, embeds, positions, capacity: int, length=None):
+    """embeds (B, S, D), positions (B, S) -> (stacked decode state, hidden).
+
+    ``length`` (int, optional): the number of real positions of a
+    right-padded sequence. Only the ssm family reads it (its terminal state
+    must not integrate pad steps); the attention cache ignores it.
+    """
     angles = make_angles(cfg, positions)
-    x, state = transformer.prefill_stack(cfg, params, embeds, angles, capacity)
+    x, state = transformer.prefill_stack(cfg, params, embeds, angles, capacity, length=length)
     return state, rmsnorm(params["final_norm"], x)
 
 

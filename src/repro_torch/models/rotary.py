@@ -1,7 +1,8 @@
 """Rotary position embeddings (PyTorch counterpart of ``repro.models.rotary``).
 
-Standard RoPE with the "rotate halves" convention. M-RoPE (qwen2-vl) joins
-with that family (ROADMAP queue 3).
+Standard RoPE with the "rotate halves" convention, and no positions at all
+for the ssm family. M-RoPE (qwen2-vl) joins with that family (ROADMAP
+queue 3).
 """
 from __future__ import annotations
 
@@ -36,8 +37,11 @@ def apply_rotary(x, angles):
 
 
 def make_angles(cfg, positions):
-    """positions (B, S) int -> (B, S, head_dim/2) angles."""
+    """positions (B, S) int -> (B, S, head_dim/2) angles, or None for
+    ``pos_type="none"`` (the ssm family has no positions)."""
+    if cfg.pos_type == "none":
+        return None
     if cfg.pos_type != "rope":
-        raise NotImplementedError(f"pos_type={cfg.pos_type!r}: the port runs rope only "
+        raise NotImplementedError(f"pos_type={cfg.pos_type!r}: the port runs rope and none "
                                   "(M-RoPE and learned positions: ROADMAP queue 3)")
     return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)

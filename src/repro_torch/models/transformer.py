@@ -1,28 +1,32 @@
-"""Decoder stack of the port, dense/vlm family
+"""Decoder stacks of the port, dense/vlm and ssm families
 (PyTorch counterpart of ``repro.models.transformer``).
 
-Layer body: x += attn(norm(x)); x += mlp(norm(x)). The JAX package scans
-over per-layer params stacked on a leading axis; here ``params["layers"]`` is
-a list of per-layer dicts and the layer loop is a Python loop. The decode
-state keeps the JAX package's stacked layout, ``KVCache`` of
-(L, B, C, n_kv, hd) tensors, and each layer reads and writes its slice in
-place. MoE, SSM, hybrid and encoder-decoder stacks arrive with their
-families (ROADMAP queue 3).
+Layer bodies:
+    dense/vlm : x += attn(norm(x)); x += mlp(norm(x))
+    ssm       : x += mamba2(norm(x))
+
+The JAX package scans over per-layer params stacked on a leading axis; here
+``params["layers"]`` is a list of per-layer dicts and the layer loop is a
+Python loop. The decode state keeps the JAX package's stacked layout
+(``KVCache`` of (L, B, C, n_kv, hd) tensors, or ``SSMState`` of (L, B, ...)
+tensors) and each layer reads and writes its slice in place. MoE, hybrid and
+encoder-decoder stacks arrive with their families (ROADMAP queue 3).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "ssm")
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs {FAMILIES}; the moe, ssm, hybrid and "
+            f"family {cfg.family!r}: the port runs {FAMILIES}; the moe, hybrid and "
             "audio families are ROADMAP queue 3, 'The other families'")
 
 
@@ -35,9 +39,15 @@ def init_dense_layer(gen, cfg, dtype):
     }
 
 
+def init_ssm_layer(gen, cfg, dtype):
+    return {"norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
+            "ssm": ssm_lib.init_ssm(gen, cfg, dtype)}
+
+
 def init_stack(gen, cfg, dtype):
     check_family(cfg)
-    return {"layers": [init_dense_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]}
+    init = init_ssm_layer if cfg.family == "ssm" else init_dense_layer
+    return {"layers": [init(gen, cfg, dtype) for _ in range(cfg.n_layers)]}
 
 
 def _layer_cache(state, i) -> attn_lib.KVCache:
@@ -58,27 +68,53 @@ def dense_body(cfg, lp, x, angles):
     return x, kv
 
 
+def ssm_body(cfg, lp, x):
+    """One Mamba2 layer over the full sequence (``transformer.py:174-177``)."""
+    return x + ssm_lib.ssm_apply(cfg, lp["ssm"], rmsnorm(lp["norm1"], x),
+                                 use_pallas=cfg.use_pallas)
+
+
 def forward_stack(cfg, stack, x, angles):
     """Full-sequence causal stack for training: x (B, S, D) -> (hidden, aux).
 
-    aux is the dense family's zero auxiliary loss (the MoE balance loss
-    arrives with that family). Activations are kept for the backward: the
-    JAX package's ``remat`` is a memory option that changes no number.
+    aux is the dense and ssm families' zero auxiliary loss (the MoE balance
+    loss arrives with that family). Activations are kept for the backward:
+    the JAX package's ``remat`` is a memory option that changes no number.
     """
     check_family(cfg)
     for lp in stack["layers"]:
-        x, _ = dense_body(cfg, lp, x, angles)
+        if cfg.family == "ssm":
+            x = ssm_body(cfg, lp, x)
+        else:
+            x, _ = dense_body(cfg, lp, x, angles)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def prefill_stack(cfg, stack, x, angles, capacity: int):
-    """x (B, S, D) -> (hidden (B, S, D), stacked decode state)."""
+def prefill_stack(cfg, stack, x, angles, capacity: int, length=None):
+    """x (B, S, D) -> (hidden (B, S, D), stacked decode state).
+
+    ``length`` (int, optional) marks only the first ``length`` positions as
+    real: the ssm layers keep pad steps out of their terminal state. The
+    attention cache ignores it (pad KV is overwritten before decode reads it).
+    """
     check_family(cfg)
     state = init_decode_state(cfg, x.shape[0], capacity, x.dtype, x.device)
     for i, lp in enumerate(stack["layers"]):
-        x, (k, v) = dense_body(cfg, lp, x, angles)
-        attn_lib.seed_cache(_layer_cache(state, i), k, v)
+        if cfg.family == "ssm":
+            out, st = ssm_lib.ssm_prefill(cfg, lp["ssm"], rmsnorm(lp["norm1"], x), length,
+                                          use_pallas=cfg.use_pallas)
+            x = x + out
+            _write_ssm_layer(state, i, st)
+        else:
+            x, (k, v) = dense_body(cfg, lp, x, angles)
+            attn_lib.seed_cache(_layer_cache(state, i), k, v)
     return x, state
+
+
+def _write_ssm_layer(state, i, st: ssm_lib.SSMState) -> None:
+    """Layer i's new conv window and h, written into the stacked state."""
+    state["layers"].conv[i].copy_(st.conv)
+    state["layers"].h[i].copy_(st.h)
 
 
 def _attn_step(cfg, lp, x, angles, cache, pos):
@@ -92,13 +128,25 @@ def decode_stack(cfg, stack, x, angles, state, pos):
     """x (B, 1, D), pos (B,) -> (hidden (B, 1, D), state updated in place)."""
     check_family(cfg)
     for i, lp in enumerate(stack["layers"]):
-        x = _attn_step(cfg, lp, x, angles, _layer_cache(state, i), pos)
+        if cfg.family == "ssm":
+            layer = ssm_lib.SSMState(state["layers"].conv[i], state["layers"].h[i])
+            out, st = ssm_lib.ssm_decode_step(cfg, lp["ssm"], rmsnorm(lp["norm1"], x), layer)
+            x = x + out
+            _write_ssm_layer(state, i, st)
+        else:
+            x = _attn_step(cfg, lp, x, angles, _layer_cache(state, i), pos)
     return x, state
 
 
 def init_decode_state(cfg, batch: int, capacity: int, dtype, device):
-    """Zero decode state: {"layers": KVCache of (L, B, C, n_kv, hd)}."""
+    """Zero decode state: {"layers": KVCache of (L, B, C, n_kv, hd)}, or for
+    the ssm family {"layers": SSMState of (L, B, d_conv-1, conv_dim) in
+    ``dtype`` and (L, B, H, P, N) in f32}; ``capacity`` is unused there."""
     check_family(cfg)
+    if cfg.family == "ssm":
+        one = ssm_lib.init_ssm_state(cfg, batch, dtype, device)
+        return {"layers": ssm_lib.SSMState(
+            *(t.new_zeros((cfg.n_layers,) + tuple(t.shape)) for t in one))}
     shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"layers": attn_lib.KVCache(torch.zeros(shape, dtype=dtype, device=device),
                                        torch.zeros(shape, dtype=dtype, device=device))}

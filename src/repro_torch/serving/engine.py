@@ -10,7 +10,10 @@ Exactness: prompts are right-padded to ``prefill_len``. Under the causal
 mask pad rows never influence real rows, and pad KV at slots
 ``[L_real, prefill_len)`` is only attended after decode has overwritten it
 (decode at position p writes slot p before attending slots <= p), so padded
-prefill + batched decode gives the tokens of one request at a time.
+prefill + batched decode gives the tokens of one request at a time. The ssm
+family integrates every prefill step into its recurrent state, so the engine
+passes the true length down to ``model.prefill``: pad steps get dt = 0 (an
+exact identity on the state) and the conv window is sliced at that length.
 
 ``generate_naive`` (the one-request-at-a-time baseline) waits for a later
 slice (ROADMAP queue 4).
@@ -138,9 +141,9 @@ class ServingEngine:
                       patches=patches)
         embeds, positions, _, _, _ = nano.nanoedge_forward(
             self.cfg, self.backbone, self._gather_adapters(aslot), batch)
-        state, hidden = model_lib.prefill(self.cfg, self.backbone, embeds, positions,
-                                          self.capacity)
         last_idx = self.img_prefix + L - 1
+        state, hidden = model_lib.prefill(self.cfg, self.backbone, embeds, positions,
+                                          self.capacity, length=last_idx + 1)
         # logits at last_idx only (engine.py:149-151)
         lg = model_lib.logits(self.cfg, self.backbone, hidden[:, last_idx:last_idx + 1])
         return state, lg[0, 0], last_idx

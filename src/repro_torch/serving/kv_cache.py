@@ -1,7 +1,9 @@
 """Slot-paged decode-state pool of the port (``repro.serving.kv_cache``).
 
 The engine owns ONE fixed-shape decode state for ``n_slots`` concurrent
-requests: the stacked KV cache (L, n_slots, C, n_kv, hd). A request occupies
+requests: the stacked KV cache (L, n_slots, C, n_kv, hd), or for the ssm
+family the stacked recurrent state (conv windows in the model dtype, h in
+f32). A request occupies
 one page (slot) from admission to completion; prefill's single-request state
 is copied into its page, and finishing frees the page. Per-slot positions
 are tracked on the host: slot j of a page is valid iff j <= pos, so a freed
@@ -45,8 +47,9 @@ class KVSlotManager:
         self.pos[slot] = 0
 
     def write(self, slot: int, page, start_pos: int) -> None:
-        """Install a single-request prefill state into ``slot``, in place
-        (the JAX package's ``dynamic_update_index_in_dim`` returns a new pool)."""
+        """Install a single-request prefill state into ``slot``, in place, field
+        by field of the state's namedtuple, each in the pool's own dtype (the
+        JAX package's ``dynamic_update_index_in_dim`` returns a new pool)."""
         for pool_t, page_t in zip(self.state["layers"], page["layers"]):
             pool_t[:, slot].copy_(page_t[:, 0])
         self.pos[slot] = start_pos

@@ -58,15 +58,25 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(res.stdout.strip()) >= 20  # every module of the port was imported
 
 
-def test_entry_points_default_to_cuda(no_cuda):
-    cfg = get_smoke_config("llava-1.5-7b")
+@pytest.mark.parametrize("arch", ["llava-1.5-7b", "mamba2-130m"])
+def test_entry_points_default_to_cuda(no_cuda, arch):
+    cfg = get_smoke_config(arch)
     with pytest.raises((RuntimeError, AssertionError)):
         model_lib.init_backbone(cfg)
     with pytest.raises((RuntimeError, AssertionError)):
-        serve.main([])
+        serve.main(["--arch", arch])
     with pytest.raises((RuntimeError, AssertionError)):
-        train.main(["--rounds", "1", "--clients", "2", "--local-steps", "1",
+        train.main(["--arch", arch, "--rounds", "1", "--clients", "2", "--local-steps", "1",
                     "--examples-per-client", "8", "--batch-size", "4", "--seq-len", "8"])
+
+
+@pytest.mark.parametrize("arch", ["llava-1.5-7b", "mamba2-130m"])
+def test_serve_cli_runs_on_cpu(capsys, arch):
+    rc = serve.main(["--arch", arch, "--device", "cpu", "--pallas-grouped", "--requests", "6",
+                     "--gen-tokens", "3", "--prefill-len", "40", "--slots", "2"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert f"arch={arch} engine: 6 requests, 18 tokens" in out
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda):

@@ -13,6 +13,13 @@ package's custom VJPs over the Pallas kernels in interpret mode, and against
 ``torch.autograd`` through the plain versions. The Fisher-merge wrappers are
 held against the ``fisher_merge_2d`` / ``fisher_fold_2d`` Pallas kernels.
 
+The SSD scan: the port's plain versions (``ssd_chunked``, the sequential
+recurrence, the decode step) against the JAX package's oracles, its wrapper
+against ``ssd_chunked_pallas`` in interpret mode, and the ``SSDScan``
+gradients against ``jax.grad`` of the oracle ``ssd_chunked`` (the JAX
+package cannot differentiate its Pallas kernel, so its training path
+differentiates that oracle).
+
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``.
 """
@@ -28,6 +35,8 @@ from repro.kernels.fisher_merge import ops as jax_fm
 from repro.kernels.flash_attention import flash_attention as jax_fa
 from repro.kernels.flash_attention import ops as jax_fa_ops
 from repro.kernels.lora import ops as jax_lora
+from repro.kernels.ssd_scan import ops as jax_ssd
+from repro.kernels.ssd_scan import ref as jax_ssd_ref
 from repro_torch.kernels import harness
 from repro_torch.kernels.fisher_merge import ops as fm_ops
 from repro_torch.kernels.fisher_merge import ref as fm_ref
@@ -35,6 +44,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.lora import ops as lora_ops
 from repro_torch.kernels.lora import ref as lora_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 DTYPES = ("float32", "bfloat16")
 SCALE = 2.0
@@ -71,7 +82,10 @@ def test_port_grids_are_the_harness_grids():
     assert harness.GROUPED_LORA_SHAPES == kernel_harness.GROUPED_LORA_SHAPES
     assert harness.FLASH_SHAPES == kernel_harness.FLASH_SHAPES
     assert harness.FISHER_SHAPES == kernel_harness.FISHER_SHAPES
+    assert harness.SSD_SHAPES == kernel_harness.SSD_SHAPES
     assert harness.TOLERANCES == kernel_harness.TOLERANCES
+    for dtype, tol in harness.SSD_TOLERANCES.items():
+        assert tol == kernel_harness.tol_for("ssd_scan", getattr(jnp, dtype))
     for dtype, tol in harness.FLASH_GRAD_TOLERANCES.items():
         assert tol == kernel_harness.TOLERANCE_OVERRIDES[("flash_attention_grad", dtype)]
 
@@ -259,3 +273,81 @@ def test_fisher_fold_matches_pallas_and_batch_merge(k, n, bn, dtype):
     merged = fm_ref.fisher_merge(tt, tf, torch.from_numpy(w))
     assert_close(_np((num / (den + 1e-8)).to(tt.dtype)), _np(merged),
                  kernel="fisher_merge_stream", dtype=dtype, err_msg="finalized vs batch")
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan vs ssd_chunked_pallas and the jnp oracles
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(seed, b, s, h, p, n):
+    """The harness's input scales (``kernel_harness._ssd_args``) from numpy."""
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((b, s, h, p)) * 0.5).astype(np.float32),
+            rng.uniform(0.01, 0.2, (b, s, h)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, h).astype(np.float32),
+            (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32),
+            (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32))
+
+
+def _ssd_pairs(arrays, dtype):
+    """x, dt, B, C in ``dtype``; A stays f32 (the model's layout)."""
+    x, dt, A, B, C = arrays
+    pairs = [_pair(a, dtype) for a in (x, dt, B, C)]
+    jA, tA = jnp.asarray(A), torch.from_numpy(A)
+    return ([pairs[0][0], pairs[1][0], jA, pairs[2][0], pairs[3][0]],
+            [pairs[0][1], pairs[1][1], tA, pairs[2][1], pairs[3][1]])
+
+
+@pytest.mark.parametrize("b,s,h,p,n,q", harness.SSD_SHAPES)
+def test_ssd_plain_versions_match_reference(b, s, h, p, n, q):
+    """ssd_chunked, the sequential recurrence and the decode step, f32."""
+    j, t = _ssd_pairs(_ssd_inputs(s * 10 + p, b, s, h, p, n), "float32")
+    for name, got, want in (
+            ("ssd_chunked", ssd_ref.ssd_chunked(*t, chunk=q), jax_ssd_ref.ssd_chunked(*j, q)),
+            ("sequential", ssd_ref.ssd_reference_sequential(*t),
+             jax_ssd_ref.ssd_reference_sequential(*j))):
+        assert got.dtype == torch.float32 and got.shape == (b, s, h, p)
+        assert_close(_np(got), want, kernel="ssd_scan", dtype="float32", err_msg=name)
+    rng = np.random.default_rng(s)
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    want_y, want_h = jax_ssd_ref.ssd_decode_step(jnp.asarray(h0), *(a[:, 0] for a in j[:2]),
+                                                 j[2], *(a[:, 0] for a in j[3:]))
+    got_y, got_h = ssd_ref.ssd_decode_step(torch.from_numpy(h0), *(a[:, 0] for a in t[:2]),
+                                           t[2], *(a[:, 0] for a in t[3:]))
+    assert_close(_np(got_y), want_y, kernel="ssd_scan", dtype="float32", err_msg="decode y")
+    assert_close(_np(got_h), want_h, kernel="ssd_scan", dtype="float32", err_msg="decode h")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,p,n,q", harness.SSD_SHAPES)
+def test_ssd_matches_pallas(b, s, h, p, n, q, dtype):
+    j, t = _ssd_pairs(_ssd_inputs(s * 7 + n, b, s, h, p, n), dtype)
+    want = jax_ssd.ssd(*j, chunk=q, interpret=True)
+    before = ssd_ops.ssd.launches
+    got = ssd_ops.ssd(*t, chunk=q)
+    assert ssd_ops.ssd.launches == before  # the plain version on the CPU
+    assert got.dtype == t[0].dtype and got.shape == t[0].shape
+    assert_close(_np(got), want, kernel="ssd_scan", dtype=dtype, err_msg=f"b{b}s{s}q{q}")
+
+
+@pytest.mark.parametrize("b,s,h,p,n,q", harness.SSD_SHAPES)
+def test_ssd_grad_matches_jax_grad_of_oracle(b, s, h, p, n, q):
+    """dx, ddt, dA, dB, dC of SSDScan (f32) against jax.grad through
+    ``ssd_chunked`` and torch.autograd through the port's plain version."""
+    j, t = _ssd_pairs(_ssd_inputs(s * 3 + h, b, s, h, p, n), "float32")
+    want = _sq_loss_grads_jax(lambda *a: jax_ssd_ref.ssd_chunked(*a, q), *j)
+    got = _sq_loss_grads_torch(lambda *a: ssd_ops.ssd(*a, chunk=q), *t)
+    plain = _sq_loss_grads_torch(lambda *a: ssd_ref.ssd_chunked(*a, chunk=q), *t)
+    for name, g, w, pl in zip(("dx", "ddt", "dA", "dB", "dC"), got, want, plain):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert_close(_np(g), w, kernel="ssd_scan", dtype="float32", err_msg=f"{name} vs jax")
+        assert_close(_np(g), _np(pl), kernel="ssd_scan", dtype="float32",
+                     err_msg=f"{name} vs autograd")
+
+
+def test_ssd_grad_only_for_inputs_that_need_it():
+    """A frozen A (the model's parameter) gets no gradient."""
+    _, t = _ssd_pairs(_ssd_inputs(0, 1, 20, 2, 16, 8), "float32")
+    x = t[0].clone().requires_grad_(True)
+    ssd_ops.ssd(x, t[1], t[2], t[3], t[4], chunk=16).sum().backward()
+    assert x.grad is not None and t[2].grad is None

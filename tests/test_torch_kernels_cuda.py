@@ -7,10 +7,11 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.) Grids and
 tolerances are ``repro_torch.kernels.harness``, the port's copy of the JAX
-package's ``tests/kernel_harness.py``, plus the full-width llava-1.5-7b shapes.
-The gradients of ``lora_residual`` and ``flash_attention`` (kernel forward,
-hand-written backward) are held against ``torch.autograd`` through the plain
-versions; the Fisher-merge kernels against their plain versions.
+package's ``tests/kernel_harness.py``, plus the full-width llava-1.5-7b and
+mamba2-130m shapes. The gradients of ``lora_residual``, ``flash_attention``
+and ``ssd`` (kernel forward, hand-written or recomputed backward) are held
+against ``torch.autograd`` through the plain versions; the Fisher-merge and
+SSD kernels against their plain versions.
 """
 import pytest
 import torch
@@ -22,15 +23,20 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.lora import ops as lora_ops
 from repro_torch.kernels.lora import ref as lora_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 DTYPES = ("float32", "bfloat16")
 SCALE = 2.0
-LORA = harness.LORA_SHAPES + harness.FULL_LORA_SHAPES
-GROUPED = harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES
+LORA = harness.LORA_SHAPES + harness.FULL_LORA_SHAPES + harness.MAMBA_LORA_SHAPES
+GROUPED = harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES + harness.MAMBA_GROUPED_SHAPES
 FLASH = harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES
-LORA_GRAD = harness.LORA_GRAD_SHAPES + harness.FULL_LORA_GRAD_SHAPES
+LORA_GRAD = (harness.LORA_GRAD_SHAPES + harness.FULL_LORA_GRAD_SHAPES
+             + harness.MAMBA_LORA_GRAD_SHAPES)
 FLASH_GRAD = harness.FLASH_GRAD_SHAPES + harness.FULL_FLASH_GRAD_SHAPES
-FISHER = harness.FISHER_SHAPES + harness.FISHER_EXTRA_SHAPES + harness.FULL_FISHER_SHAPES
+FISHER = (harness.FISHER_SHAPES + harness.FISHER_EXTRA_SHAPES + harness.FULL_FISHER_SHAPES
+          + harness.MAMBA_FISHER_SHAPES)
+SSD = harness.SSD_SHAPES + harness.FULL_SSD_SHAPES
 
 
 @pytest.fixture
@@ -169,3 +175,68 @@ def test_fisher_kernels_match_plain(cuda, k, n, bn, dtype):
     torch.cuda.synchronize()
     harness.check_close(num, pnum, "float32", f"fold num k{k}n{n}")
     harness.check_close(den, pden, "float32", f"fold den k{k}n{n}")
+
+
+def _ssd_tol(*shape):
+    full = shape in harness.FULL_SSD_SHAPES
+    return harness.FULL_SSD_TOLERANCES if full else harness.SSD_TOLERANCES
+
+
+def _ssd_inputs(gen, b, s, h, p, n, dtype):
+    """The JAX harness's input scales: x·0.5, dt in [0.01, 0.2), A in (-2, -0.5]."""
+    x = _randn(gen, (b, s, h, p), 0.5, dtype)
+    dt = (torch.rand((b, s, h), generator=gen, device=gen.device) * 0.19 + 0.01).to(dtype)
+    A = -(torch.rand((h,), generator=gen, device=gen.device) * 1.5 + 0.5)
+    return x, dt, A, _randn(gen, (b, s, n), 0.3, dtype), _randn(gen, (b, s, n), 0.3, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,p,n,q", SSD)
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, q, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s * 13 + n)
+    args = _ssd_inputs(gen, b, s, h, p, n, getattr(torch, dtype))
+    before = ssd_ops.ssd.launches
+    got = ssd_ops.ssd(*args, chunk=q)
+    want = ssd_ref.ssd_chunked(*args, chunk=q)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches == before + 1
+    harness.check_close(got, want, dtype, f"ssd b{b}s{s}h{h}p{p}n{n}q{q}",
+                        _ssd_tol(b, s, h, p, n, q))
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_strided_views(cuda):
+    """x, B and C as slices of one projection, as the model passes them."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, s, h, p, n = 2, 70, 3, 32, 16
+    xbc = _randn(gen, (b, s, h * p + 2 * n), 0.4)
+    x, B, C = xbc[..., :h * p].reshape(b, s, h, p), xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    _, dt, A, _, _ = _ssd_inputs(gen, b, s, h, p, n, torch.float32)
+    got = ssd_ops.ssd(x, dt, A, B, C, chunk=32)
+    want = ssd_ref.ssd_chunked(x, dt, A, B, C, chunk=32)
+    torch.cuda.synchronize()
+    harness.check_close(got, want, "float32", "ssd strided", harness.SSD_TOLERANCES)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_wide_state(cuda):
+    x = torch.zeros((1, 8, 2, 16), device=cuda)
+    dt, A = torch.zeros((1, 8, 2), device=cuda), torch.zeros((2,), device=cuda)
+    B = torch.zeros((1, 8, ssd_ops.MAX_N + 1), device=cuda)
+    with pytest.raises(ValueError, match="N"):
+        ssd_ops.ssd(x, dt, A, B, B, chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,p,n,q", SSD)
+def test_ssd_grad_matches_plain(cuda, b, s, h, p, n, q, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s * 7 + p)
+    args = _ssd_inputs(gen, b, s, h, p, n, getattr(torch, dtype))
+    got = _grads(lambda *a: ssd_ops.ssd(*a, chunk=q), *args)
+    want = _grads(lambda *a: ssd_ref.ssd_chunked(*a, chunk=q), *args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        harness.check_close(g, w, dtype, f"ssd grad {name} b{b}s{s}q{q}",
+                            _ssd_tol(b, s, h, p, n, q))

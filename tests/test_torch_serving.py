@@ -1,10 +1,13 @@
 """The port's serving slice against the JAX package's serving engine.
 
-The slice test runs both ``ServingEngine``s on the same smoke llava-1.5-7b
-backbone, tenant adapters and ``make_requests`` traffic, the JAX engine with
-its three Pallas kernels in interpret mode and the port with ``use_pallas``
-(on the CPU its kernels' plain versions), and requires identical tokens.
-The rest are the pure-Python parts: the adapter cache and the page pool.
+The slice test runs both ``ServingEngine``s on the same smoke backbone,
+tenant adapters and ``make_requests`` traffic, the JAX engine with its
+Pallas kernels in interpret mode and the port with ``use_pallas`` (on the
+CPU its kernels' plain versions), and requires identical tokens: on
+llava-1.5-7b and on mamba2-130m, whose prompts (2 to 35 tokens, padded to
+40) cross its 32-step SSD chunk and include one shorter than the conv
+window. The rest are the pure-Python parts: the adapter cache and the page
+pool.
 """
 import functools
 
@@ -33,20 +36,24 @@ from repro_torch.serving import (
 ARCH = "llava-1.5-7b"
 TENANTS = ["tenant0", "tenant1"]
 ENGINE_KW = dict(max_slots=3, prefill_len=8, max_new_tokens=4, adapter_slots=4)
+# per arch: (engine settings, number of requests)
+TRAFFIC = {ARCH: (ENGINE_KW, 6),
+           "mamba2-130m": (dict(ENGINE_KW, prefill_len=40), 12)}
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_side():
-    jcfg = jax_smoke_config(ARCH).with_(use_pallas=True)
+def _jax_side(arch=ARCH):
+    jcfg = jax_smoke_config(arch).with_(use_pallas=True)
     key = jax.random.PRNGKey(0)
     backbone = jmodel.init_backbone(key, jcfg)
     tenants = jax_serve.synth_tenant_adapters(key, jcfg, TENANTS)
     return jcfg, backbone, tenants
 
 
-def _requests(make):
-    jcfg = jax_smoke_config(ARCH)
-    return make(jcfg, TENANTS, 6, ENGINE_KW["prefill_len"], ENGINE_KW["max_new_tokens"], 0)
+def _requests(make, arch=ARCH):
+    jcfg = jax_smoke_config(arch)
+    kw, n = TRAFFIC[arch]
+    return make(jcfg, TENANTS, n, kw["prefill_len"], kw["max_new_tokens"], 0)
 
 
 def test_make_requests_matches_reference():
@@ -59,25 +66,29 @@ def test_make_requests_matches_reference():
         assert a.max_new_tokens == b.max_new_tokens
 
 
-def test_engine_tokens_match_jax_engine():
-    jcfg, jbackbone, jtenants = _jax_side()
+@pytest.mark.parametrize("arch", list(TRAFFIC))
+def test_engine_tokens_match_jax_engine(arch):
+    kw, n = TRAFFIC[arch]
+    jcfg, jbackbone, jtenants = _jax_side(arch)
     jeng = JaxServingEngine(jcfg, jbackbone, adapter_loader=jtenants.__getitem__,
-                            use_pallas_grouped=True, **ENGINE_KW)
-    want = jeng.run(_requests(jax_serve.make_requests))
+                            use_pallas_grouped=True, **kw)
+    want = jeng.run(_requests(jax_serve.make_requests, arch))
 
-    cfg = get_smoke_config(ARCH).with_(use_pallas=True)
+    cfg = get_smoke_config(arch).with_(use_pallas=True)
     backbone = interop.backbone_from_numpy(cfg, jax.tree.map(np.asarray, jbackbone), "cpu")
     tenants = {t: interop.adapters_from_numpy(jax.tree.map(np.asarray, a), "cpu")
                for t, a in jtenants.items()}
     eng = ServingEngine(cfg, backbone, adapter_loader=tenants.__getitem__,
-                        use_pallas_grouped=True, **ENGINE_KW)
-    got = eng.run(_requests(serve.make_requests))
+                        use_pallas_grouped=True, **kw)
+    reqs = _requests(serve.make_requests, arch)
+    assert min(len(r.prompt) for r in reqs) == 2
+    got = eng.run(reqs)
 
-    assert sorted(got) == sorted(want) == list(range(6))
+    assert sorted(got) == sorted(want) == list(range(n))
     for rid in want:
         assert got[rid].tokens == want[rid].tokens, rid
-        assert len(got[rid].tokens) == ENGINE_KW["max_new_tokens"]
-    assert eng.stats["prefills"] == jeng.stats["prefills"] == 6
+        assert len(got[rid].tokens) == kw["max_new_tokens"]
+    assert eng.stats["prefills"] == jeng.stats["prefills"] == n
     assert eng.stats["decode_steps"] == jeng.stats["decode_steps"]
     assert eng.mean_occupancy() > 1.0
 
