@@ -9,9 +9,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. Build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a).
 3. Kernel parity: every kernel against its plain PyTorch version on the
    card, f32 and bf16, over the port's copy of the kernel-harness grids and
-   the full-width llava-1.5-7b shapes, at the harness tolerances; the grouped
-   kernel's rows bit-identical to the single-adapter kernel in f32, and its
-   identity rows exactly x.
+   the full-width llava-1.5-7b shapes and the bf16 tiles' edges, at the
+   harness tolerances; the grouped kernel's rows bit-identical to the
+   single-adapter kernel in f32, and its identity rows exactly x. The bf16
+   flash and LoRA kernels (tensor cores) also against their rounding models
+   at ``harness.BF16_MODEL_TOLERANCES`` (LoRA also at most
+   ``harness.LORA_MODEL_MAX_SHARE`` of its elements differing), and, at the
+   main-path shapes, against the f32 function beside the exact plain version
+   and the models beside the exact plain versions (``[accuracy]``).
 4. Smoke-size serving: the engine on the card (kernels, f32) and on the CPU
    (plain versions) give the same tokens and prefill logits.
 5. Full-width serving: ``ServingEngine`` on llava-1.5-7b (32 layers,
@@ -48,8 +53,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    a run on the plain versions.
 10. Time each kernel at its main-path shape (CUDA events), beside its plain
    version, one PyTorch library call where one computes the same function,
-   and the H100 bound; the gradients beside autograd through the plain
-   versions and SDPA; and the training step, Fisher batch, merge and round
+   and the H100 bound (LoRA also at (256, 4096) and (384, 4096), with its
+   bytes-only floor, an f32 ``torch.addmm`` beside the bf16 one and the
+   device time of each CUDA kernel it launches; flash also at (4, 96, 32,
+   128)); the gradients beside autograd through the plain versions and SDPA; and the training step, Fisher batch, merge and round
    end to end. The kernels' line is printed at the end.
 11. Profile a short full-width serving run and one full-width local step
    (torch.profiler): device busy share and device time by kernel.
@@ -92,7 +99,7 @@ from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s by type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 SCALE = 2.0
 # Full-width prefill logits, kernels vs their plain versions, relative to ‖ref‖∞.
 # f32 holds the kernels to their arithmetic through all 32 layers. In bf16 a
@@ -157,8 +164,17 @@ def card_line() -> str:
 # kernel parity
 # ---------------------------------------------------------------------------
 
+def rel_gap(got, want):
+    """-> (max |got - want| / max(1, ‖want‖∞), share of elements that differ)."""
+    g, w = got.float(), want.float()
+    scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+    diff = (g - w).abs()
+    return float(diff.max()) / scale, float((diff > 0).float().mean())
+
+
 def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
-    """-> {kernel: max |err| at its main-path shape in bf16}."""
+    """-> ({kernel: max |err| at its main-path shape in bf16}, {bf16 kernel:
+    its gaps to its rounding model and to the exact plain version})."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -166,15 +182,25 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     main_err = {}
+    gaps = {"lora_residual": [0.0, 0.0], "flash_attention": [0.0, 0.0]}  # vs model: err, share
     n_cases = 0
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for t, d, r, _ in harness.LORA_SHAPES + harness.FULL_LORA_SHAPES:
+        for t, d, r, _ in (harness.LORA_SHAPES + harness.FULL_LORA_SHAPES
+                           + harness.LORA_EDGE_SHAPES):
             x, down, up = randn((t, d), dtype=dtype), randn((d, r), 0.05), randn((r, d), 0.05)
             got = lora_ops.lora_residual(x, down, up, scale=SCALE)
             err = harness.check_close(got, lora_ref.lora_residual(x, down, up, scale=SCALE),
                                       dtype_name, f"lora t{t}d{d}r{r}")
             n_cases += 1
+            if dtype_name == "bfloat16":
+                model = lora_ref.lora_residual_split_tf32(x, down, up, scale=SCALE)
+                harness.check_close(got, model, dtype_name, f"lora t{t}d{d}r{r} vs model",
+                                    harness.BF16_MODEL_TOLERANCES)
+                harness.check_share(got, model, harness.LORA_MODEL_MAX_SHARE,
+                                    f"lora t{t}d{d}r{r} vs model")
+                g = rel_gap(got, model)
+                gaps["lora_residual"] = [max(a, b) for a, b in zip(gaps["lora_residual"], g)]
             if (t, d, r) == harness.FULL_LORA_SHAPES[0][:3] and dtype_name == "bfloat16":
                 main_err["lora_residual"] = err
         for t, d, r, n, _ in harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES:
@@ -195,17 +221,23 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
             n_cases += 1
             if (t, d, r, n) == harness.FULL_GROUPED_SHAPES[0][:4] and dtype_name == "bfloat16":
                 main_err["grouped_lora_residual"] = err
-        for shape in harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES:
+        for shape in harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.FLASH_EDGE_SHAPES:
             label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
             q = randn((b, sq, h, d), dtype=dtype)
             k, v = randn((b, sk, hkv, d), dtype=dtype), randn((b, sk, hkv, d), dtype=dtype)
-            got, got_lse = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                                  softcap=cap, return_lse=True)
-            want, want_lse = fa_ref.attention(q, k, v, causal=causal, window=window,
-                                              softcap=cap, return_lse=True)
+            kw = dict(causal=causal, window=window, softcap=cap, return_lse=True)
+            got, got_lse = fa_ops.flash_attention(q, k, v, **kw)
+            want, want_lse = fa_ref.attention(q, k, v, **kw)
             err = harness.check_close(got, want, dtype_name, f"flash {label}")
             harness.check_close(got_lse, want_lse, dtype_name, f"flash {label} lse")
             n_cases += 1
+            if dtype_name == "bfloat16":
+                model, model_lse = fa_ref.attention_bf16_model(q, k, v, **kw)
+                harness.check_close(got, model, dtype_name, f"flash {label} vs model",
+                                    harness.BF16_MODEL_TOLERANCES)
+                harness.check_close(got_lse, model_lse, "float32", f"flash {label} lse vs model")
+                g = rel_gap(got, model)
+                gaps["flash_attention"] = [max(a, b) for a, b in zip(gaps["flash_attention"], g)]
             if label == harness.FULL_FLASH_SHAPES[0][0] and dtype_name == "bfloat16":
                 main_err["flash_attention"] = err
     try:
@@ -216,9 +248,63 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
     else:
         raise AssertionError("flash_attention accepted head dim 96")
     torch.cuda.synchronize()
-    log(f"[parity] {n_cases} kernel-vs-plain cases passed (f32 and bf16); "
-        f"main-path bf16 max |err|: {json.dumps(main_err)}")
+    log(f"[parity] {n_cases} kernel-vs-plain cases passed (f32 and bf16, tile edges "
+        f"included); main-path bf16 max |err|: {json.dumps(main_err)}")
+    bound = harness.BF16_MODEL_TOLERANCES["bfloat16"]
+    for name, (err, share) in gaps.items():
+        log(f"[parity] {name} bf16 kernel vs its rounding model over the grid, full-width and "
+            f"edge shapes: max |err| / max(1, ‖ref‖∞) {err:.3e}, elements that differ "
+            f"{share:.3e} (bound rtol {bound['rtol']}, atol {bound['atol_scale']})")
+    accuracy_gaps(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, randn)
     return main_err
+
+
+def accuracy_gaps(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, randn):
+    """Log what the bf16 kernels' arithmetic costs at the main-path shapes:
+    each kernel's bf16 output and the exact plain version's bf16 output,
+    both against the exact function in f32 (bf16 inputs upcast); each
+    rounding model against the exact plain version (LoRA in f32, flash in
+    bf16); and, for LoRA, the share of bf16 outputs that differ from the
+    split-TF32 model for the kernel and for the designs it does not use."""
+    bf16 = torch.bfloat16
+    out = {}
+    for t, d, r, _ in harness.FULL_LORA_SHAPES[:1] + harness.MAMBA_LORA_SHAPES[1:]:
+        x, down, up = randn((t, d), dtype=bf16), randn((d, r), 0.05), randn((r, d), 0.05)
+        exact = lora_ref.lora_residual(x.float(), down, up, scale=SCALE)
+        got = lora_ops.lora_residual(x, down, up, scale=SCALE)
+        plain = lora_ref.lora_residual(x, down, up, scale=SCALE)
+        model = lora_ref.lora_residual_split_tf32(x, down, up, scale=SCALE)
+        shares = {"kernel": got, "exact plain": plain,
+                  "single-pass TF32": lora_ref.lora_residual_tf32(x, down, up, scale=SCALE),
+                  "bf16 adapters": lora_ref.lora_residual(x, down.to(bf16).float(),
+                                                          up.to(bf16).float(), scale=SCALE)}
+        out[f"lora x ({t}, {d})"] = dict(
+            kernel=rel_gap(got, exact), plain=rel_gap(plain, exact),
+            kernel_vs_plain=rel_gap(got, plain),
+            model=rel_gap(lora_ref.lora_residual_split_tf32(x.float(), down, up, scale=SCALE),
+                          exact),
+            shares={k: rel_gap(y, model)[1] for k, y in shares.items()})
+    for shape in harness.FULL_FLASH_SHAPES[:1] + harness.FULL_FLASH_GRAD_SHAPES:
+        label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
+        q, k, v = (randn(s, dtype=bf16) for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+        exact = fa_ref.attention(q.float(), k.float(), v.float(), causal=causal)
+        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        plain = fa_ref.attention(q, k, v, causal=causal)
+        out[f"flash {label}"] = dict(
+            kernel=rel_gap(got, exact), plain=rel_gap(plain, exact),
+            kernel_vs_plain=rel_gap(got, plain),
+            model=rel_gap(fa_ref.attention_bf16_model(q, k, v, causal=causal), plain))
+    torch.cuda.synchronize()
+    for key, g in out.items():
+        log(f"[accuracy] {key} bf16, max |err| / max(1, ‖ref‖∞) against the f32 function of "
+            f"the same inputs: kernel {g['kernel'][0]:.3e} | exact plain version rounded to "
+            f"bf16 {g['plain'][0]:.3e} | kernel vs plain {g['kernel_vs_plain'][0]:.3e}, "
+            f"elements that differ {g['kernel_vs_plain'][1]:.3e} | rounding model vs exact "
+            f"plain version {g['model'][0]:.3e}")
+        if "shares" in g:
+            log(f"[accuracy] {key} bf16, share of elements that differ from the split-TF32 "
+                f"model (limit {harness.LORA_MODEL_MAX_SHARE}): "
+                + ", ".join(f"{k} {v:.3e}" for k, v in g["shares"].items()))
 
 
 # ---------------------------------------------------------------------------
@@ -864,35 +950,98 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def kernel_breakdown(torch, fn, what, calls: int = 20):
+    """Log the mean device time of each CUDA kernel ``fn`` launches, from
+    torch.profiler over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
+    parts = [f"{name.replace('(anonymous namespace)::', '').split('(')[0][-40:]} "
+             f"{t / n:.3f} us ({n} launches)" for name, (t, n) in by_name.items()]
+    log(f"[time] {what} device kernels per call (torch.profiler, {calls} calls): "
+        + ("; ".join(parts) or "none recorded"))
+
+
+def lora_timing(torch, lora_ops, lora_ref, x, A, B, what=""):
+    """The LoRA kernel at x (T, D) bf16 beside its plain version, two
+    torch.addmm yardsticks (adapters cast to bf16, as a bf16 model would
+    run them; and the f32 form on x upcast, the kernel's own precision), its
+    bound and its bytes-only floor. The bound counts the split-TF32 work the
+    f32-accurate products need on the tensor cores: x·A in two TF32
+    products and h·B in three, 10·T·D·r operations at the TF32 rate.
+    -> a kernel-table row."""
+    T, D = x.shape
+    r = A.shape[1]
+    y = lora_ops.lora_residual(x, A, B, scale=SCALE)
+    A16, B16, xf = A.to(torch.bfloat16), B.to(torch.bfloat16), x.float()
+    (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: lora_ops.lora_residual(x, A, B, scale=SCALE)),
+                                  time_ms(torch, lambda: lora_ref.lora_residual(x, A, B, scale=SCALE)))
+    l_ms, l_is = time_ms(torch, lambda: torch.addmm(x, x @ A16, B16, alpha=SCALE))
+    l32_ms, _ = time_ms(torch, lambda: torch.addmm(xf, xf @ A, B, alpha=SCALE))
+    n_bytes = nbytes(x, A, B, y)
+    b_ms, b_by = bound(n_bytes, 10 * T * D * r, "tf32")
+    floor_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    log(f"[time] lora_residual at x ({T}, {D}) bf16, r {r}{what}, device ms per call (issued "
+        f"from Python): kernel {k_ms:.5f} ({k_is:.5f}) | plain {p_ms:.5f} ({p_is:.5f}) | "
+        f"library torch.addmm with bf16 adapters {l_ms:.5f} ({l_is:.5f}), f32 "
+        f"torch.addmm(xf, xf @ A, B) {l32_ms:.5f} | bound {b_ms:.5f} ({b_by}; 10·T·D·r "
+        f"operations at the TF32 rate) | bytes-only floor {floor_ms:.5f}")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                library_f32_ms=l32_ms, bytes_floor_ms=floor_ms, shape=[T, D, r])
+
+
+def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what=""):
+    """The flash kernel (causal) beside its plain version, SDPA and its
+    bound. -> a kernel-table row."""
+    B, S, H, hd = q.shape
+    o, lse = fa_ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    pairs = S * (S + 1) // 2 * H * B
+    b_ms, b_by = bound(nbytes(q, k, v, o, lse), 4 * hd * pairs, "bf16")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, causal=True)),
+                                  time_ms(torch, lambda: fa_ref.attention(q, k, v, causal=True)))
+    l_ms, l_is = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    log(f"[time] flash_attention at q/k/v ({B}, {S}, {H}, {hd}) bf16 causal{what}, device ms per "
+        f"call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}) | plain {p_ms:.5f} "
+        f"({p_is:.5f}) | library SDPA {l_ms:.5f} ({l_is:.5f}) | bound {b_ms:.5f} ({b_by})")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                shape=[B, S, H, hd])
+
+
 def timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
     """Each kernel at its main-path shape: llava-1.5-7b, prefill_len 128,
-    64 patches, 8 decode slots, 8 adapter slots, rank 64, bf16 activations."""
+    64 patches, 8 decode slots, 8 adapter slots, rank 64, bf16 activations;
+    LoRA also at training's (256, 4096) image rows and (384, 4096), flash
+    also at training's (4, 96, 32, 128)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def row(kernel, plain, library, bound_ms, bound_by, shape):
-        (k_ms, k_is), (p_ms, p_is) = time_ms(torch, kernel), time_ms(torch, plain)
-        l_ms, l_is = time_ms(torch, library) if library else (None, None)
-        return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, shape=shape, issued=(k_is, p_is, l_is))
-
     bf16 = torch.bfloat16
     out = {}
     T, D, r, N = 128, 4096, 64, 8
 
-    # text NanoAdapter at prefill: x (T, D) bf16, adapters f32
+    # text NanoAdapter at prefill: x (T, D) bf16, adapters f32; then training's rows
+    lora = {}
+    for t in (T, 256, 384):
+        lora[t] = lora_timing(torch, lora_ops, lora_ref, randn((t, D), dtype=bf16),
+                              randn((D, r), 0.05), randn((r, D), 0.05))
+    out["lora_residual"] = dict(lora[T], shapes={f"x ({t}, {D})": row for t, row in lora.items()})
     x, A, B = randn((T, D), dtype=bf16), randn((D, r), 0.05), randn((r, D), 0.05)
-    A16, B16 = A.to(bf16), B.to(bf16)
-    y = lora_ops.lora_residual(x, A, B, scale=SCALE)
-    b_ms, b_by = bound(nbytes(x, A, B, y), 4 * T * D * r + 2 * T * D, "f32")
-    out["lora_residual"] = row(
-        lambda: lora_ops.lora_residual(x, A, B, scale=SCALE),
-        lambda: lora_ref.lora_residual(x, A, B, scale=SCALE),
-        lambda: torch.addmm(x, x @ A16, B16, alpha=SCALE),
-        b_ms, b_by, f"x ({T}, {D}) bf16, r {r}")
+    kernel_breakdown(torch, lambda: lora_ops.lora_residual(x, A, B, scale=SCALE),
+                     f"lora_residual at x ({T}, {D})")
 
     # text bank at decode: 8 slots, 4 tenants + 1 base row + adapters reused
     xs = randn((N, D), dtype=bf16)
@@ -903,28 +1052,24 @@ def timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
     ys = lora_ops.grouped_lora_residual(xs, downs, ups, idx, scale=SCALE)
     b_ms, b_by = bound(nbytes(xs, ys, idx) + len(used) * nbytes(downs[0], ups[0]),
                        4 * live * D * r + 2 * live * D, "f32")
-    out["grouped_lora_residual"] = row(
-        lambda: lora_ops.grouped_lora_residual(xs, downs, ups, idx, scale=SCALE),
-        lambda: lora_ref.grouped_lora_residual(xs, downs, ups, idx, scale=SCALE),
-        None, b_ms, b_by, f"x ({N}, {D}) bf16, idx {idx.tolist()}, bank ({N}, {D}, {r}) f32")
+    (k_ms, k_is), (p_ms, p_is) = (
+        time_ms(torch, lambda: lora_ops.grouped_lora_residual(xs, downs, ups, idx, scale=SCALE)),
+        time_ms(torch, lambda: lora_ref.grouped_lora_residual(xs, downs, ups, idx, scale=SCALE)))
+    out["grouped_lora_residual"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                                        bound_by=b_by)
+    log(f"[time] grouped_lora_residual at x ({N}, {D}) bf16, idx {idx.tolist()}, bank ({N}, "
+        f"{D}, {r}) f32, device ms per call (issued from Python): kernel {k_ms:.5f} "
+        f"({k_is:.5f}) | plain {p_ms:.5f} ({p_is:.5f}) | library None | bound {b_ms:.5f} "
+        f"({b_by})")
 
-    # prefill attention: 64 image + 128 text positions, 32 heads of 128, causal
-    S, H, hd = 64 + T, 32, 128
-    q, k, v = (randn((1, S, H, hd), dtype=bf16) for _ in range(3))
-    o, lse = fa_ops.flash_attention(q, k, v, causal=True, return_lse=True)
-    pairs = S * (S + 1) // 2 * H
-    b_ms, b_by = bound(nbytes(q, k, v, o, lse), 4 * hd * pairs, "bf16")
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    out["flash_attention"] = row(
-        lambda: fa_ops.flash_attention(q, k, v, causal=True),
-        lambda: fa_ref.attention(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-        b_ms, b_by, f"q/k/v (1, {S}, {H}, {hd}) bf16 causal")
-    for name, t in out.items():
-        log(f"[time] {name} at {t['shape']}, device ms per call (issued from Python): "
-            f"kernel {t['ms']:.5f} ({t['issued'][0]:.5f}) | plain {t['plain_ms']:.5f} "
-            f"({t['issued'][1]:.5f}) | library {t['library_ms']} ({t['issued'][2]}) | "
-            f"bound {t['bound_ms']:.5f} ({t['bound_by']})")
+    # prefill attention: 64 image + 128 text positions, 32 heads of 128, causal;
+    # then the training step's batch 4 of 96 positions
+    H, hd = 32, 128
+    flash = {}
+    for label, (b, s_) in (("prefill", (1, 64 + T)), ("train", (4, 96))):
+        q, k, v = (randn((b, s_, H, hd), dtype=bf16) for _ in range(3))
+        flash[label] = flash_timing(torch, F, fa_ops, fa_ref, q, k, v, f" ({label})")
+    out["flash_attention"] = dict(flash["prefill"], shapes=flash)
     return out
 
 
@@ -1058,7 +1203,8 @@ def mamba_parity(torch, harness, ssd_ops, ssd_ref, lora_ops, lora_ref, fm_ops, f
 
 def mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness):
     """The SSD kernel at both full-width shapes and the LoRA kernel at d_model
-    768, bf16 activations, beside their plain versions and bounds."""
+    768, bf16 activations, beside their plain versions and bounds.
+    -> (SSD kernel-table row, LoRA rows by shape)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     bf16 = torch.bfloat16
@@ -1096,24 +1242,18 @@ def mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness):
                 f"device ms: SSDScan {f_ms:.5f} (kernel forward + plain recompute and backward) "
                 f"| plain autograd {a_ms:.5f} | so the backward alone about "
                 f"{a_ms - p_ms:.5f} and the kernel forward adds {f_ms - a_ms:.5f}")
+    lora = {}
     for t, d, r, _ in harness.MAMBA_LORA_SHAPES:
         x = torch.randn((t, d), generator=gen, device=dev).to(bf16)
         A = torch.randn((d, r), generator=gen, device=dev) * 0.05
         Bm = torch.randn((r, d), generator=gen, device=dev) * 0.05
-        y = lora_ops.lora_residual(x, A, Bm, scale=SCALE)
-        A16, B16 = A.to(bf16), Bm.to(bf16)
-        (k_ms, _), (p_ms, _), (l_ms, _) = (
-            time_ms(torch, lambda: lora_ops.lora_residual(x, A, Bm, scale=SCALE)),
-            time_ms(torch, lambda: lora_ref.lora_residual(x, A, Bm, scale=SCALE)),
-            time_ms(torch, lambda: torch.addmm(x, x @ A16, B16, alpha=SCALE)))
-        b_ms, b_by = bound(nbytes(x, A, Bm, y), 4 * t * d * r + 2 * t * d, "f32")
-        log(f"[time] lora_residual at x ({t}, {d}) bf16, r {r} (mamba2-130m): device ms per "
-            f"call: kernel {k_ms:.5f} | plain {p_ms:.5f} | library {l_ms:.5f} (torch.addmm) | "
-            f"bound {b_ms:.5f} ({b_by})")
+        lora[f"x ({t}, {d})"] = lora_timing(torch, lora_ops, lora_ref, x, A, Bm, " (mamba2-130m)")
+    kernel_breakdown(torch, lambda: lora_ops.lora_residual(x, A, Bm, scale=SCALE),
+                     f"lora_residual at x {tuple(x.shape)} (mamba2-130m)")
     main = shapes["train"]
     return {"ssd_scan": dict(ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
                              bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                             shapes=shapes)}
+                             shapes=shapes)}, lora
 
 
 def breakdown(torch, get_config, init_backbone, synth, make_requests, Engine):
@@ -1187,6 +1327,17 @@ def profile_summary(torch, prof, wall, what):
         f"({len(spans)} device activities)")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"[profile]   {t / 1e3:9.3f} ms  {n:6d} x  {name[:90]}")
+    # the port's kernels by the names of their CUDA functions
+    ours = {"flash_attention": ("flash_fwd",), "lora_residual": ("lora_", "tc::"),
+            "ssd_scan": ("ssd_",), "fisher": ("fisher_",)}
+    parts = []
+    for kernel, keys in ours.items():
+        t = sum(v[0] for name, v in by_name.items() if any(key in name for key in keys))
+        n = sum(v[1] for name, v in by_name.items() if any(key in name for key in keys))
+        if n:
+            parts.append(f"{kernel} {t / 1e3:.3f} ms over {n} launches "
+                         f"({t / busy_us:.3f} of busy)")
+    log(f"[profile]   the port's kernels: {'; '.join(parts) or 'none'}")
 
 
 SOURCES = {
@@ -1300,7 +1451,9 @@ def main() -> int:
     st, train_launches = training_full(torch, tr, counters, arch=MAMBA)
     launches.update(train_launches)
     training_check(torch, tr, st, counters)
-    times.update(mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness))
+    ssd_times, lora_times = mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness)
+    times.update(ssd_times)
+    times["lora_residual"]["shapes"].update(lora_times)
     loop_timings(torch, tr, st)
     step_profile(torch, tr, st)
 

@@ -10,19 +10,51 @@
 // position (Sk - Sq) + i; rows that see no key give 0 and lse = m + log(1e-30)
 // with m = NEG_INF as the marker (flash_attention.py:57-84).
 //
-// Layout: one block per (query tile of kBQ rows, head, batch). The TPU grid's
-// sequential k axis becomes a loop over K/V tiles of kBK keys staged in shared
-// memory as fp32. Tiles that the causal or window mask hides entirely are not
-// visited: on the TPU they are exact no-ops (alpha = 1, p = 0), so skipping
-// them changes no bit of the result.
-//
 // What bounds it on an H100: at the prefill shape (B = 1, S = 192, H = 32,
 // D = 128, bf16, causal) the function needs 4*D operations per unmasked
 // (query, key) pair, about 0.3 GFLOP, and moves about 6.3 MB: 1.9 us at
 // 3.35 TB/s, 0.3 us at the bf16 tensor-core rate, so device memory bounds it.
-// This first version does its products with fp32 FMAs on the CUDA cores, one
-// (query, key) score per thread per tile row group, so it runs far from that
-// bound; wgmma tiles with TMA loads are the later, fast version.
+//
+// Two designs, chosen by dtype at the C entry point (no fallback between them):
+//
+// * f32 (the parity tests' 1e-6 path): one block per (query tile of kBQ
+//   rows, head, batch). The TPU grid's sequential k axis becomes a loop over
+//   K/V tiles of kBK keys staged in shared memory as fp32, products as fp32
+//   FMAs on the CUDA cores. Tensor-core products (TF32, bf16) cannot hold 1e-6.
+//   Tiles that the causal or window mask hides entirely are not visited (in
+//   both designs): on the TPU they are exact no-ops (alpha = 1, p = 0), so
+//   skipping them changes no bit of the result.
+//
+// * bf16 (the main path): flash_fwd_bf16, tensor cores. One block of 4 warps
+//   per (64 query rows, head, batch); each warp owns 16 rows. Q is copied
+//   once into shared memory with 16-byte cp.async; K and V tiles of 64 keys
+//   stay bf16 in shared memory (rows padded by 16 bytes, so ldmatrix hits
+//   every bank once) in a two-stage ring: the copy of tile i + 1 is in flight
+//   while tile i is multiplied. S = Q K^T and O += P V run as
+//   mma.sync.m16n8k16 bf16 with f32 accumulation, fed by ldmatrix (V through
+//   ldmatrix.trans). mma.sync, not wgmma: the S accumulator's register layout
+//   is exactly the A-operand layout P needs for the second product, so P
+//   never leaves registers, and a 16-row warp tile keeps D = 256's
+//   accumulator at 128 registers a thread; the price is about half of
+//   wgmma's issue rate, which PERF.md weighs against SDPA on the main path's
+//   short sequences (at most three 64-key tiles a block at S = 192). The
+//   online softmax runs in registers on log2-scaled scores (scale * log2(e)
+//   folded into one multiply, exp2f), each row reduced across its quad of
+//   lanes with shuffles; masks are evaluated only on tiles that cross the
+//   diagonal, the window edge or Sk. The running max, the sum l and the
+//   accumulator are f32; l and the LSE sum the f32 p. The one arithmetic
+//   difference from the TPU kernel: P is rounded to bf16 before P V (the TPU
+//   kernel multiplies f32 p). ref.py's attention_bf16_model models that
+//   rounding; PERF.md gives its measured size. The output goes through
+//   shared memory and out with 16-byte stores.
+//   Grid (H, B, query tiles) with causal tiles in reverse, so the blocks
+//   with the most keys start first. 64-row tiles: measured on the
+//   H100 (PERF.md), 32-row tiles, which double the blocks where 64-row ones
+//   leave SMs idle (96 blocks at the prefill shape), were slower at both
+//   main-path shapes, and longest-first was as fast as or faster than
+//   in-order launch.
+//
+// Rows that see no key are handled as on the TPU in both designs.
 
 #include "common.cuh"
 
@@ -220,6 +252,277 @@ int dispatch_head_dim(int D, const void* q, const void* k, const void* v, void* 
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (see the note at the top)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcBK = 64;     // keys per K/V tile
+constexpr int kKVStages = 2;  // K/V tiles in the shared-memory ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kTcW = 4;       // warps a block, 16 query rows each
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(bf16) * (size_t)(16 * kTcW + 2 * kKVStages * kTcBK) * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcW * 32)
+    flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                   int Sq, int Sk, int H, int Hkv, int causal, int window, float softcap,
+                   float scale) {
+  constexpr int BQ = 16 * kTcW, NT = 32 * kTcW;
+  constexpr int LD = D + 8;      // shared row stride in elements (16 bytes of padding)
+  constexpr int CH = D / 8;      // 16-byte chunks in a row
+  constexpr int NS = kTcBK / 8;  // n-tiles of S
+  constexpr int NO = D / 8;      // n-tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
+  bf16* ks = qs + BQ * LD;                       // [kKVStages][kTcBK][LD]
+  bf16* vs = ks + kKVStages * kTcBK * LD;        // [kKVStages][kTcBK][LD]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z) * BQ;  // longest first
+  const int kh = h / (H / Hkv);
+  const int q_offset = Sk - Sq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const bf16* qb = q + ((int64_t)b * Sq * H + h) * D;
+  const bf16* kb = k + ((int64_t)b * Sk * Hkv + kh) * D;
+  const bf16* vb = v + ((int64_t)b * Sk * Hkv + kh) * D;
+
+  for (int e = tid; e < BQ * CH; e += NT) {
+    const int i = e / CH, c = e % CH, qi = q0 + i;
+    repro::cp_async16(qs + i * LD + c * 8, qi < Sq ? qb + qi * q_stride + c * 8 : q, qi < Sq);
+  }
+
+  // Keys any real row of this tile can see, in whole 64-key tiles.
+  const int q_last = min(q0 + BQ, Sq) - 1 + q_offset;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
+  const int k_first = (k_begin / kTcBK) * kTcBK;
+  const int n_tiles = k_end > k_first ? (k_end - k_first + kTcBK - 1) / kTcBK : 0;
+
+  auto load_kv = [&](int it) {  // tile it, or an empty group past the end
+    if (it < n_tiles) {
+      const int k0 = k_first + it * kTcBK;
+      bf16* kd = ks + (it % kKVStages) * kTcBK * LD;
+      bf16* vd = vs + (it % kKVStages) * kTcBK * LD;
+      for (int e = tid; e < kTcBK * CH; e += NT) {
+        const int j = e / CH, c = e % CH, kj = k0 + j;
+        const bool ok = kj < Sk;
+        repro::cp_async16(kd + j * LD + c * 8, ok ? kb + kj * kv_stride + c * 8 : k, ok);
+        repro::cp_async16(vd + j * LD + c * 8, ok ? vb + kj * kv_stride + c * 8 : v, ok);
+      }
+    }
+    repro::cp_async_commit();
+  };
+#pragma unroll
+  for (int it = 0; it < kKVStages - 1; ++it) load_kv(it);  // with Q in the first group
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};  // log2 units, rows g and g + 8
+  float l_run[2] = {0.f, 0.f};          // this lane's share of the row sums
+
+  const int g = lane / 4, t4 = lane % 4;
+  const int row_g = q0 + warp * 16 + g;  // query row of c[0..1]; c[2..3] are row_g + 8
+  const bf16* qw = qs + warp * 16 * LD;
+  const float qk_scale = softcap > 0.f ? scale : scale * kLog2e;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_first + it * kTcBK, stage = it % kKVStages;
+    load_kv(it + kKVStages - 1);
+    repro::cp_async_wait<kKVStages - 1>();
+    __syncthreads();
+    const bf16* kt = ks + stage * kTcBK * LD;
+    const bf16* vt = vs + stage * kTcBK * LD;
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t a[4];
+      repro::ldmatrix_x4(a, qw + (lane % 16) * LD + kk + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bk[4];
+        repro::ldmatrix_x4(bk, kt + (np * 16 + lane % 8 + (lane / 16) * 8) * LD + kk +
+                                   ((lane / 8) % 2) * 8);
+        repro::mma_bf16(s[2 * np], a, bk[0], bk[1]);
+        repro::mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale (and cap) into log2 units; mask only tiles that cross an edge
+    const bool edge = k0 + kTcBK > Sk || (causal && k0 + kTcBK - 1 > q0 + q_offset) ||
+                      (window > 0 && q0 + BQ - 1 + q_offset - k0 >= window);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * qk_scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap * kLog2e;
+        if (edge) {
+          const int qpos = row_g + (e >= 2 ? 8 : 0) + q_offset;
+          const int kpos = k0 + n * 8 + 2 * t4 + (e & 1);
+          bool ok = kpos < Sk;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && (qpos - kpos < window);
+          if (!ok) x = kNegInf;
+        }
+        s[n][e] = x;
+      }
+    }
+
+    // online softmax, rows g (r = 0) and g + 8 (r = 1)
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      const bool dead = m_new <= kNegInf * 0.5f;  // no unmasked key yet
+      alpha[r] = m_run[r] <= kNegInf * 0.5f ? 0.f : exp2f(m_run[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = dead ? 0.f : exp2f(s[n][2 * r + c] - m_new);
+          s[n][2 * r + c] = p;
+          sum += p;
+        }
+      }
+      l_run[r] = l_run[r] * alpha[r] + sum;
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V, P rounded to bf16 as the A operand straight from registers
+#pragma unroll
+    for (int j = 0; j < NS / 2; ++j) {
+      const uint32_t a[4] = {repro::pack_bf16(s[2 * j][0], s[2 * j][1]),
+                             repro::pack_bf16(s[2 * j][2], s[2 * j][3]),
+                             repro::pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                             repro::pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        uint32_t bv[4];
+        repro::ldmatrix_x4_trans(bv, vt + (j * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
+                                         dp * 16 + (lane / 16) * 8);
+        repro::mma_bf16(o[2 * dp], a, bv[0], bv[1]);
+        repro::mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  // Q's copy when no tile was visited, and the empty groups. The barrier keeps
+  // another warp's Q copy from landing in qs after this warp writes O there.
+  repro::cp_async_wait<0>();
+  __syncthreads();
+
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_run[r] = l;
+    denom[r] = fmaxf(l, 1e-30f);
+  }
+  // this warp's 16 rows of O through its own rows of qs, then 16-byte stores
+  bf16* ow = qs + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int col = n * 8 + 2 * t4;
+    *reinterpret_cast<uint32_t*>(ow + g * LD + col) =
+        repro::pack_bf16(o[n][0] / denom[0], o[n][1] / denom[0]);
+    *reinterpret_cast<uint32_t*>(ow + (g + 8) * LD + col) =
+        repro::pack_bf16(o[n][2] / denom[1], o[n][3] / denom[1]);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int i = e / CH, c = e % CH, qi = q0 + warp * 16 + i;
+    if (qi < Sq) {
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + qi) * H + h) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(ow + i * LD + c * 8);
+    }
+  }
+  if (t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row_g + 8 * r;
+      if (qi < Sq) {
+        const bool dead = m_run[r] <= kNegInf * 0.5f;
+        lse[((int64_t)b * Sq + qi) * H + h] =
+            dead ? kNegInf + logf(1e-30f) : m_run[r] * kLn2 + logf(l_run[r]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int Sq, int Sk, int H, int Hkv, int causal, int window, float softcap,
+                float scale, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  static bool configured = false;  // above 48 KB only after opting in
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int tiles = (Sq + 16 * kTcW - 1) / (16 * kTcW);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(H, B, tiles);
+  flash_fwd_bf16<D><<<grid, kTcW * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), lse, Sq, Sk, H, Hkv, causal, window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_bf16(int D, const void* q, const void* k, const void* v, void* out, float* lse,
+                  int B, int Sq, int Sk, int H, int Hkv, int causal, int window, float softcap,
+                  float scale, cudaStream_t stream) {
+  if (!repro::aligned16(q) || !repro::aligned16(k) || !repro::aligned16(v) ||
+      !repro::aligned16(out)) {
+    return (int)cudaErrorMisalignedAddress;  // 16-byte copies and stores
+  }
+  switch (D) {
+    case 32:
+      return launch_bf16<32>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window,
+                                  softcap, scale, stream);
+    case 64:
+      return launch_bf16<64>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window,
+                                  softcap, scale, stream);
+    case 128:
+      return launch_bf16<128>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window,
+                                   softcap, scale, stream);
+    case 256:
+      return launch_bf16<256>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window,
+                                   softcap, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Sk, Hkv, D), out (B, Sq, H, D), lse (B, Sq, H) fp32;
@@ -236,8 +539,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                     softcap, scale, s);
   }
   if (dtype == repro::kBF16) {
-    return dispatch_head_dim<__nv_bfloat16>(D, q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal,
-                                            window, softcap, scale, s);
+    return dispatch_bf16(D, q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window, softcap,
+                         scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -53,6 +53,36 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return out, lse.permute(0, 2, 1).contiguous()
 
 
+def attention_bf16_model(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                         softcap: float = 0.0, return_lse: bool = False):
+    """Plain model of the bf16 kernel's rounding (``csrc/flash_attention.cu``,
+    ``flash_fwd_bf16``): f32 scores, p = exp(s - m) in f32, P rounded to bf16
+    before the product with V, the normaliser l and the LSE summed from the
+    f32 p. Same arguments and result as ``attention``. Only the tests and
+    ``chip_smoke.py`` use it; the kernel rounds P against its running max,
+    this model against the row's final max.
+    """
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // Hkv, dim=2)
+    vf = v.float().repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (D ** -0.5)
+    if softcap and softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    mask = attention_mask(Sq, Sk, causal=causal, window=window, device=q.device)
+    live = mask.any(dim=-1)                                # (Sq,)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask & live[:, None], torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), vf)
+    out = (pv / l.clamp_min(1e-30).permute(0, 2, 1, 3)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(live, (m + torch.log(l)).squeeze(-1), NEG_INF)
+    return out, lse.permute(0, 2, 1).contiguous()
+
+
 def attention_bwd(q, k, v, out, lse, g, *, causal: bool, window: Optional[int],
                   softcap: float):
     """(dq, dk, dv) of ``attention`` from its output and logsumexp

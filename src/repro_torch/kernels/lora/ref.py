@@ -29,3 +29,44 @@ def grouped_lora_residual(x, down, up, idx, *, scale: float):
     h = torch.einsum("...d,...dr->...r", xf, down[safe].float())
     y = torch.einsum("...r,...rd->...d", h, up[safe].float())
     return torch.where(live, (xf + scale * y).to(x.dtype), x)
+
+
+def tf32_round(t):
+    """f32 rounded to nearest at TF32's 10 mantissa bits, ties away from zero
+    (``cvt.rna.tf32.f32``): add half of the dropped 13 bits' weight to the
+    magnitude, then clear them."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(t):
+    """t = hi + lo to about 2^-22 relative, both exact in TF32."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+def lora_residual_split_tf32(x, down, up, *, scale: float):
+    """Plain model of the bf16 kernel's arithmetic (``csrc/lora.cu``,
+    namespace tc): x·A = x·A_hi + x·A_lo and h·B = h_hi·B_hi + h_hi·B_lo +
+    h_lo·B_hi in f32, the residual in f32, one cast to x's dtype. x must be
+    exact in TF32, as bf16 values are. Only the tests and ``chip_smoke.py``
+    use it.
+    """
+    xf = x.float()
+    a_hi, a_lo = split_tf32(down)
+    h = xf @ a_hi + xf @ a_lo
+    h_hi, h_lo = split_tf32(h)
+    b_hi, b_lo = split_tf32(up)
+    y = h_hi @ b_hi + h_hi @ b_lo + h_lo @ b_hi
+    return (xf + scale * y).to(x.dtype)
+
+
+def lora_residual_tf32(x, down, up, *, scale: float):
+    """Single-pass TF32 (A, h and B each rounded once to TF32), which the bf16
+    kernel does not use. The tests and ``chip_smoke.py`` hold it against
+    ``lora_residual_split_tf32`` to show that ``harness.LORA_MODEL_MAX_SHARE``
+    tells the two apart."""
+    xf = x.float()
+    h = xf @ tf32_round(down)
+    y = tf32_round(h) @ tf32_round(up)
+    return (xf + scale * y).to(x.dtype)

@@ -156,6 +156,82 @@ def test_cpu_wrappers_count_no_launch():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 tensor-core kernels' rounding models vs the exact plain versions
+# ---------------------------------------------------------------------------
+
+MODEL_LORA = (LORA_SHAPES + harness.FULL_LORA_SHAPES + harness.MAMBA_LORA_SHAPES
+              + harness.LORA_EDGE_SHAPES + harness.FULL_LORA_GRAD_SHAPES[1:])
+MODEL_FLASH = (FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.FLASH_EDGE_SHAPES
+               + harness.FULL_FLASH_GRAD_SHAPES)
+
+
+def test_tf32_round_is_cvt_rna():
+    """Nearest at 10 mantissa bits, ties away from zero, sign kept."""
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + one_ulp / 2, 1 + one_ulp * 1.5, -(1 + one_ulp / 2),
+                      1 + one_ulp / 2 - 2.0 ** -23, 3.0e-39, 0.0])
+    want = torch.tensor([1.0, 1 + one_ulp, 1 + 2 * one_ulp, -(1 + one_ulp), 1.0,
+                         float(np.float32(3.0e-39)), 0.0])
+    got = lora_ref.tf32_round(x)
+    assert torch.equal(got[:5], want[:5])
+    assert torch.equal(got[6:], want[6:])
+    hi, lo = lora_ref.split_tf32(torch.tensor([0.1, -7.3e-5, 1234.567]))
+    assert torch.equal(lora_ref.tf32_round(hi), hi) and torch.equal(lora_ref.tf32_round(lo), lo)
+    assert float(((hi + lo) - torch.tensor([0.1, -7.3e-5, 1234.567])).abs().max()) <= \
+        2.0 ** -22 * 1234.567
+
+
+@pytest.mark.parametrize("t,d,r,bt", MODEL_LORA)
+def test_lora_split_tf32_model_holds_f32_tolerance(t, d, r, bt):
+    """Split TF32 (bf16 x exact; f32 adapters and h as hi + lo) against the
+    exact f32 plain version at the f32 tolerance, 1e-6 (chip_smoke.py's
+    [accuracy] lines print the gap at the main-path shapes)."""
+    x, down, up, _ = _lora_inputs(t + d, t, d, r)
+    xb = torch.from_numpy(x).to(torch.bfloat16).float()  # bf16 values, held in f32
+    down, up = torch.from_numpy(down), torch.from_numpy(up)
+    got = lora_ref.lora_residual_split_tf32(xb, down, up, scale=SCALE)
+    harness.check_close(got, lora_ref.lora_residual(xb, down, up, scale=SCALE), "float32",
+                        f"split-tf32 model t{t}d{d}r{r}")
+
+
+@pytest.mark.parametrize("t,d,r,bt", harness.FULL_LORA_SHAPES + harness.MAMBA_LORA_SHAPES)
+def test_lora_model_share_tells_designs_apart(t, d, r, bt):
+    """harness.LORA_MODEL_MAX_SHARE, the share of bf16 outputs that may differ
+    from the split-TF32 model, passes the exact f32 arithmetic and fails the
+    designs that drop adapter bits (single-pass TF32, bf16 adapters), so
+    the card's check of the kernel against its model has teeth."""
+    x, down, up, _ = _lora_inputs(t * 7 + d, t, d, r)
+    x = torch.from_numpy(x).to(torch.bfloat16)
+    down, up = torch.from_numpy(down), torch.from_numpy(up)
+    model = lora_ref.lora_residual_split_tf32(x, down, up, scale=SCALE)
+    limit = harness.LORA_MODEL_MAX_SHARE
+    harness.check_share(lora_ref.lora_residual(x, down, up, scale=SCALE), model, limit,
+                        f"exact f32 t{t}d{d}r{r}")
+    others = {"single-pass TF32": lora_ref.lora_residual_tf32(x, down, up, scale=SCALE),
+              "bf16 adapters": lora_ref.lora_residual(x, down.bfloat16().float(),
+                                                      up.bfloat16().float(), scale=SCALE)}
+    for name, y in others.items():
+        with pytest.raises(AssertionError, match="elements differ"):
+            harness.check_share(y, model, limit, f"{name} t{t}d{d}r{r}")
+
+
+@pytest.mark.parametrize("shape", MODEL_FLASH, ids=[s[0] for s in MODEL_FLASH])
+def test_flash_bf16_model_holds_bf16_tolerance(shape):
+    """P rounded to bf16 before P·V (l and the LSE from the f32 p) against
+    the exact plain version in bf16, at the bf16 tolerance (chip_smoke.py's
+    [accuracy] lines print the gap at the main-path shapes); the LSE is
+    identical."""
+    label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _flash_inputs(sq * 31 + d, b, sq, sk, h, hkv, d))
+    kw = dict(causal=causal, window=window, softcap=cap, return_lse=True)
+    got, got_lse = fa_ref.attention_bf16_model(q, k, v, **kw)
+    want, want_lse = fa_ref.attention(q, k, v, **kw)
+    harness.check_close(got, want, "bfloat16", f"bf16 model {label}")
+    harness.check_close(got_lse, want_lse, "float32", f"bf16 model {label} lse")
+
+
+# ---------------------------------------------------------------------------
 # gradients: the autograd.Functions vs jax.grad through the custom VJPs
 # ---------------------------------------------------------------------------
 

@@ -31,6 +31,11 @@ SCALE = 2.0
 LORA = harness.LORA_SHAPES + harness.FULL_LORA_SHAPES + harness.MAMBA_LORA_SHAPES
 GROUPED = harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES + harness.MAMBA_GROUPED_SHAPES
 FLASH = harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES
+LORA_EDGE = harness.LORA_EDGE_SHAPES
+FLASH_EDGE = harness.FLASH_EDGE_SHAPES
+# the bf16 tensor-core kernels against their rounding models
+LORA_MODEL = LORA + LORA_EDGE + harness.FULL_LORA_GRAD_SHAPES[1:]
+FLASH_MODEL = FLASH + FLASH_EDGE + harness.FULL_FLASH_GRAD_SHAPES
 LORA_GRAD = (harness.LORA_GRAD_SHAPES + harness.FULL_LORA_GRAD_SHAPES
              + harness.MAMBA_LORA_GRAD_SHAPES)
 FLASH_GRAD = harness.FLASH_GRAD_SHAPES + harness.FULL_FLASH_GRAD_SHAPES
@@ -99,6 +104,83 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     harness.check_close(got, want, dtype, label)
     harness.check_close(got_lse, want_lse, dtype, f"{label} lse")
+
+
+def _flash_qkv(gen, shape, dtype):
+    label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
+    dt = getattr(torch, dtype)
+    q = _randn(gen, (b, sq, h, d), dtype=dt)
+    k, v = _randn(gen, (b, sk, hkv, d), dtype=dt), _randn(gen, (b, sk, hkv, d), dtype=dt)
+    return (q, k, v), dict(causal=causal, window=window, softcap=cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", FLASH_EDGE, ids=[s[0] for s in FLASH_EDGE])
+def test_flash_kernel_tile_edges_match_plain(cuda, shape, dtype):
+    """Sq and Sk around the bf16 kernel's 64-row and 64-key tiles, Sq != Sk,
+    head dims 32 and 256, window, softcap and decode; rows that see no key
+    (whole tiles of them) give exactly 0 and lse = NEG_INF."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[2] * 131 + shape[3] + shape[6])
+    qkv, kw = _flash_qkv(gen, shape, dtype)
+    got, got_lse = fa_ops.flash_attention(*qkv, return_lse=True, **kw)
+    want, want_lse = fa_ref.attention(*qkv, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    harness.check_close(got, want, dtype, shape[0])
+    harness.check_close(got_lse, want_lse, dtype, f"{shape[0]} lse")
+    sq, sk = shape[2], shape[3]
+    dead = ~fa_ref.attention_mask(sq, sk, causal=kw["causal"], window=kw["window"],
+                                  device=cuda).any(dim=-1)
+    assert torch.equal(got[:, dead], torch.zeros_like(got[:, dead]))
+    assert bool((got_lse[:, dead] == fa_ref.NEG_INF).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_MODEL, ids=[s[0] for s in FLASH_MODEL])
+def test_flash_bf16_kernel_matches_its_model(cuda, shape):
+    """The bf16 tensor-core kernel against ref.attention_bf16_model (P in
+    bf16) at harness.BF16_MODEL_TOLERANCES; the LSE, which both sum from
+    the f32 p, at the f32 tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[2] * 7 + shape[6])
+    qkv, kw = _flash_qkv(gen, shape, "bfloat16")
+    got, got_lse = fa_ops.flash_attention(*qkv, return_lse=True, **kw)
+    want, want_lse = fa_ref.attention_bf16_model(*qkv, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    harness.check_close(got, want, "bfloat16", f"{shape[0]} vs model",
+                        harness.BF16_MODEL_TOLERANCES)
+    harness.check_close(got_lse, want_lse, "float32", f"{shape[0]} lse vs model")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,d,r,bt", LORA_EDGE)
+def test_lora_kernel_ragged_edges_match_plain(cuda, t, d, r, bt, dtype):
+    """T off the 64-row tile, D and r off multiples of 8 and 16 (element and
+    4-byte copies instead of 16-byte ones), rank 129 and 256."""
+    gen = torch.Generator(device=cuda).manual_seed(t * 5 + d + r)
+    x = _randn(gen, (t, d), dtype=getattr(torch, dtype))
+    down, up = _randn(gen, (d, r), 0.05), _randn(gen, (r, d), 0.05)
+    got = lora_ops.lora_residual(x, down, up, scale=SCALE)
+    want = lora_ref.lora_residual(x, down, up, scale=SCALE)
+    torch.cuda.synchronize()
+    harness.check_close(got, want, dtype, f"lora edge t{t}d{d}r{r}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,r,bt", LORA_MODEL)
+def test_lora_bf16_kernel_matches_its_model(cuda, t, d, r, bt):
+    """The bf16 tensor-core kernel against ref.lora_residual_split_tf32 at
+    harness.BF16_MODEL_TOLERANCES, with at most harness.LORA_MODEL_MAX_SHARE
+    of the elements differing."""
+    gen = torch.Generator(device=cuda).manual_seed(t * 3 + d + r)
+    x = _randn(gen, (t, d), dtype=torch.bfloat16)
+    down, up = _randn(gen, (d, r), 0.05), _randn(gen, (r, d), 0.05)
+    got = lora_ops.lora_residual(x, down, up, scale=SCALE)
+    want = lora_ref.lora_residual_split_tf32(x, down, up, scale=SCALE)
+    torch.cuda.synchronize()
+    harness.check_close(got, want, "bfloat16", f"lora t{t}d{d}r{r} vs model",
+                        harness.BF16_MODEL_TOLERANCES)
+    harness.check_share(got, want, harness.LORA_MODEL_MAX_SHARE, f"lora t{t}d{d}r{r} vs model")
 
 
 @pytest.mark.cuda
