@@ -63,10 +63,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 12. The ssm family (mamba2-130m, 24 layers, d_model 768, 24 SSD heads of 64,
    state 128, chunk 256), through the SSD scan kernel:
    a. kernel parity: the SSD kernel against its plain version over the
-      harness grid and the full-width shapes (1, 512) and (4, 1024), f32 at
-      1e-6 and bf16 at 5e-2, its gradients (kernel forward, backward
-      recomputed through the plain version) against autograd, and the LoRA
-      and Fisher kernels at d_model 768;
+      harness grid, its phase and tile edges and the full-width shapes
+      (1, 512) and (4, 1024), f32 at 1e-6 (1e-5 at full width) and bf16 at
+      5e-2, its gradients (kernel forward, backward recomputed through the
+      plain version) against autograd, the bf16 kernel (tensor cores)
+      against its rounding model at ``harness.BF16_MODEL_TOLERANCES`` with at
+      most ``harness.SSD_MODEL_MAX_SHARE`` of its elements differing, the
+      accuracy of both against the f32 function at full width
+      (``[accuracy]``), and the LoRA and Fisher kernels at d_model 768;
    b. smoke mamba2 in f32, card (kernels) against CPU (plain versions):
       serving tokens equal, two FedNano rounds within 1e-5;
    c. full-width serving, bf16 weights from seed 0: 16 requests from 4
@@ -80,8 +84,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       loss and adapter gradients of one step, kernels against plain
       versions, in f32 (1e-4) and bf16;
    e. timings: the SSD kernel at both full-width shapes against its plain
-      version and its bound, the LoRA kernel at d_model 768, the local step,
-      Fisher batch, merge and round; a profiled local step.
+      version and its bound (bf16 tensor-core rate, and the f32 CUDA-core
+      rate beside it), with the device time of each of its three launches;
+      the LoRA kernel at d_model 768, the local step, Fisher batch, merge and
+      round; a profiled local step, and a profiled full-width prefill of 512
+      tokens with four decode steps.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
@@ -1089,7 +1096,7 @@ def ssd_inputs(torch, gen, b, s, h, p, n, dtype):
 
 
 def ssd_work(b, s, h, p, n, q, itemsize):
-    """-> (bytes, f32 operations) the SSD scan needs at these shapes: each
+    """-> (bytes, operations) the SSD scan needs at these shapes: each
     input read once and y written once; per (b, chunk) C·Bᵀ once (it does not
     depend on the head) over the causal pairs j <= i, and per head the masked
     product with x over those pairs, the carried state's read (C·h) on every
@@ -1119,10 +1126,10 @@ def mamba_parity(torch, harness, ssd_ops, ssd_ref, lora_ops, lora_ref, fm_ops, f
 
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for shape in harness.SSD_SHAPES + harness.FULL_SSD_SHAPES:
+        for shape in harness.SSD_SHAPES + harness.SSD_EDGE_SHAPES + harness.FULL_SSD_SHAPES:
             b, s, h, p, n, q = shape
             is_full = shape in harness.FULL_SSD_SHAPES
-            tol = harness.FULL_SSD_TOLERANCES if is_full else harness.SSD_TOLERANCES
+            tol = harness.ssd_tolerances(*shape)
             args = ssd_inputs(torch, gen, b, s, h, p, n, dtype)
             y_k = ssd_ops.ssd(*args, chunk=q)
             y_p = ssd_ref.ssd_chunked(*args, chunk=q)
@@ -1194,11 +1201,51 @@ def mamba_parity(torch, harness, ssd_ops, ssd_ref, lora_ops, lora_ref, fm_ops, f
             n_cases += 2
     torch.cuda.synchronize()
     log(f"[ssd-parity] {n_cases} kernel-vs-plain cases passed (SSD forward and gradients over "
-        f"the harness grid and the full-width shapes; LoRA, grouped LoRA, LoRA gradients and "
-        f"Fisher kernels at d_model 768; f32 and bf16)")
+        f"the harness grid, the edges and the full-width shapes; LoRA, grouped LoRA, LoRA "
+        f"gradients and Fisher kernels at d_model 768; f32 and bf16)")
     for key, line in full.items():
         log(f"[ssd-parity] full width {key}: {line}")
+    ssd_model_gaps(torch, harness, ssd_ops, ssd_ref, gen)
     return main_err
+
+
+def ssd_model_gaps(torch, harness, ssd_ops, ssd_ref, gen):
+    """The bf16 SSD kernel against its rounding model over the grid, edge and
+    full-width shapes (held at harness.BF16_MODEL_TOLERANCES and
+    harness.SSD_MODEL_MAX_SHARE), and at the full-width shapes what its
+    arithmetic costs: the kernel, the exact plain version and the model
+    against the f32 function of the same bf16 inputs."""
+    bf16 = torch.bfloat16
+    worst, acc = [0.0, 0.0], {}
+    for shape in harness.SSD_SHAPES + harness.SSD_EDGE_SHAPES + harness.FULL_SSD_SHAPES:
+        b, s, h, p, n, q = shape
+        args = ssd_inputs(torch, gen, b, s, h, p, n, bf16)
+        got = ssd_ops.ssd(*args, chunk=q)
+        model = ssd_ref.ssd_chunked_bf16_model(*args, chunk=q)
+        what = f"ssd {shape} vs model"
+        harness.check_close(got, model, "bfloat16", what, harness.BF16_MODEL_TOLERANCES)
+        harness.check_share(got, model, harness.SSD_MODEL_MAX_SHARE, what)
+        worst = [max(a, b_) for a, b_ in zip(worst, rel_gap(got, model))]
+        if shape in harness.FULL_SSD_SHAPES:
+            exact = ssd_ref.ssd_chunked(*(t.float() for t in args), chunk=q)
+            plain = ssd_ref.ssd_chunked(*args, chunk=q)
+            acc[shape[:2]] = dict(kernel_model=rel_gap(got, model), plain_model=rel_gap(plain, model),
+                                  kernel=rel_gap(got, exact), plain=rel_gap(plain, exact),
+                                  model=rel_gap(model, exact), kernel_plain=rel_gap(got, plain))
+    torch.cuda.synchronize()
+    bound = harness.BF16_MODEL_TOLERANCES["bfloat16"]
+    log(f"[ssd-parity] ssd_scan bf16 kernel vs its rounding model over the grid, edge and "
+        f"full-width shapes: max |err| / max(1, ‖ref‖∞) {worst[0]:.3e}, elements that differ "
+        f"{worst[1]:.3e} (bound rtol {bound['rtol']}, atol {bound['atol_scale']}; share limit "
+        f"{harness.SSD_MODEL_MAX_SHARE})")
+    for key, g in acc.items():
+        log(f"[accuracy] ssd x {key} bf16, max |err| / max(1, ‖ref‖∞) against the f32 function "
+            f"of the same inputs: kernel {g['kernel'][0]:.3e} | exact plain version rounded to "
+            f"bf16 {g['plain'][0]:.3e} | rounding model {g['model'][0]:.3e} | kernel vs plain "
+            f"{g['kernel_plain'][0]:.3e}, elements that differ {g['kernel_plain'][1]:.3e} | "
+            f"against the rounding model: kernel {g['kernel_model'][0]:.3e}, elements that "
+            f"differ {g['kernel_model'][1]:.3e}; exact plain version {g['plain_model'][0]:.3e}, "
+            f"elements that differ {g['plain_model'][1]:.3e}")
 
 
 def mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness):
@@ -1215,14 +1262,20 @@ def mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness):
         (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: ssd_ops.ssd(*args, chunk=q)),
                                       time_ms(torch, lambda: ssd_ref.ssd_chunked(*args, chunk=q)))
         n_bytes, n_ops = ssd_work(b, s, h, p, n, q, 2)
-        b_ms, b_by = bound(n_bytes, n_ops, "f32")
+        # the bf16 kernel's products run on the tensor cores; the f32 CUDA-core
+        # figure is the bound of the same products at f32
+        b_ms, b_by = bound(n_bytes, n_ops, "bf16")
+        b32_ms, b32_by = bound(n_bytes, n_ops, "f32")
         shapes[label] = dict(shape=list(shape), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by)
+                             bound_by=b_by, bound_f32_ms=b32_ms)
         log(f"[time] ssd_scan at x ({b}, {s}, {h}, {p}) bf16, N {n}, chunk {q} ({label}): "
             f"device ms per call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}) | plain "
             f"{p_ms:.5f} ({p_is:.5f}) | library None | bound {b_ms:.5f} ({b_by}; "
-            f"{n_ops / 1e9:.4f} GFLOP f32, {n_bytes / 1e6:.3f} MB) | kernel at "
+            f"{n_ops / 1e9:.4f} GFLOP at the bf16 tensor-core rate, {n_bytes / 1e6:.3f} MB) | "
+            f"bound at the f32 CUDA-core rate {b32_ms:.5f} ({b32_by}) | kernel at "
             f"{n_ops / k_ms / 1e9:.3f} TFLOP/s")
+        kernel_breakdown(torch, lambda: ssd_ops.ssd(*args, chunk=q),
+                         f"ssd_scan at x ({b}, {s}, {h}, {p}) ({label})")
         if label == "train":
             # what a local step pays per layer: SSDScan (kernel forward, then the
             # plain forward recomputed and differentiated) against plain autograd.
@@ -1256,18 +1309,25 @@ def mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness):
                              shapes=shapes)}, lora
 
 
-def breakdown(torch, get_config, init_backbone, synth, make_requests, Engine):
-    """Device busy share and device time by kernel over one prefill and a few
-    decode steps at full width, from torch.profiler."""
+def breakdown(torch, get_config, init_backbone, synth, make_requests, Engine,
+              arch="llava-1.5-7b"):
+    """Device busy share and device time by kernel over a short full-width
+    serving run, from torch.profiler: for llava-1.5-7b 8 requests of 5
+    tokens, for mamba2-130m one prefill of prefill_len tokens and 4 decode
+    steps."""
+    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = get_config("llava-1.5-7b").with_(use_pallas=True)
+    cfg = get_config(arch).with_(use_pallas=True)
     backbone = init_backbone(cfg, seed=0, device="cuda")
     names = ["tenant0", "tenant1"]
     tenants = synth(0, cfg, names, "cuda")
-    reqs = make_requests(cfg, names, 8, 128, 5, 0)
-    kw = dict(max_slots=8, prefill_len=128, max_new_tokens=5, adapter_slots=8,
-              adapter_loader=tenants.__getitem__, use_pallas_grouped=True)
+    top = SERVE_KW[arch]["prefill_len"]
+    reqs = make_requests(cfg, names, 8 if arch != MAMBA else 1, top, 5, 0)
+    if arch == MAMBA:
+        reqs[0].prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, top).astype(np.int32)
+    kw = dict(SERVE_KW[arch], max_new_tokens=5, adapter_loader=tenants.__getitem__,
+              use_pallas_grouped=True)
     Engine(cfg, backbone, **kw).run(reqs[:1])  # warm-up
     eng = Engine(cfg, backbone, **kw)
     torch.cuda.synchronize()
@@ -1277,7 +1337,8 @@ def breakdown(torch, get_config, init_backbone, synth, make_requests, Engine):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     profile_summary(torch, prof, wall,
-                    f"8 requests x 5 tokens ({eng.stats['prefills']} prefills, "
+                    f"{arch} serving, {len(reqs)} request(s) of {[len(r.prompt) for r in reqs]} "
+                    f"prompt tokens x 5 tokens ({eng.stats['prefills']} prefills, "
                     f"{eng.stats['decode_steps']} decode steps)")
 
 
@@ -1329,7 +1390,7 @@ def profile_summary(torch, prof, wall, what):
         log(f"[profile]   {t / 1e3:9.3f} ms  {n:6d} x  {name[:90]}")
     # the port's kernels by the names of their CUDA functions
     ours = {"flash_attention": ("flash_fwd",), "lora_residual": ("lora_", "tc::"),
-            "ssd_scan": ("ssd_",), "fisher": ("fisher_",)}
+            "ssd_scan": ("chunk_state", "state_passing", "chunk_output"), "fisher": ("fisher_",)}
     parts = []
     for kernel, keys in ours.items():
         t = sum(v[0] for name, v in by_name.items() if any(key in name for key in keys))
@@ -1456,6 +1517,10 @@ def main() -> int:
     times["lora_residual"]["shapes"].update(lora_times)
     loop_timings(torch, tr, st)
     step_profile(torch, tr, st)
+    del st
+    torch.cuda.empty_cache()
+    breakdown(torch, get_config, init_backbone, synth_tenant_adapters, make_requests,
+              ServingEngine, arch=MAMBA)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

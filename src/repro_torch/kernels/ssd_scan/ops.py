@@ -2,7 +2,9 @@
 
 A tensor on the CPU takes the plain version ``ref.ssd_chunked``. A tensor on
 a CUDA device launches the hand-written kernel of ``csrc/ssd_scan.cu`` or
-raises. ``ssd.launches`` counts kernel launches (one per call).
+raises. ``ssd.launches`` counts the calls that launch the kernel, one per
+call, whatever the number of device launches it makes (up to three, one a
+phase: ``csrc/ssd_scan.cu``).
 
 ``ssd`` is differentiable in (x, dt, A, B, C) through ``SSDScan``: the
 forward is the kernel; the backward recomputes ``ref.ssd_chunked`` on the

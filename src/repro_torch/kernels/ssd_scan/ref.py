@@ -8,7 +8,8 @@ computed three ways, as in the JAX package: the literal O(S) recurrence
 (ground truth), the chunked form the kernel computes (per chunk of Q steps
 with L = cumsum(dt·A): a masked intra-chunk product, the chunk's state
 summary, and the carried state's contribution), and one decode step. All
-arithmetic is f32; outputs come back in ``x``'s dtype.
+arithmetic is f32; outputs come back in ``x``'s dtype. Beside them,
+``ssd_chunked_bf16_model`` models what the bf16 kernel rounds.
 
 Shapes: x (Bt, S, H, P); dt (Bt, S, H); A (H,); B, C (Bt, S, N).
 """
@@ -113,6 +114,65 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     # the carried state's contribution
     y_inter = torch.einsum("bcin,bcih,bchnp->bcihp", Cf, torch.exp(L.movedim(2, -1)), Hs)
     y = (y_intra + y_inter).reshape(Bt, nc * Q, H, P)[:, :S]
+    return y.to(x.dtype)
+
+
+def ssd_chunked_bf16_model(x, dt, A, B, C, chunk: int, *, rounded: bool = True):
+    """Plain model of the bf16 kernel's arithmetic (``csrc/ssd_scan.cu``).
+
+    Q = min(chunk, S) as the wrapper passes it. Per chunk, L is the f32
+    value nearest the exact prefix of the f32 terms dt·A (summed in float64,
+    rounded once); then the kernel's three phases, with what it rounds to
+    bf16 before a tensor-core product (f32 accumulation throughout):
+
+    1. chunk states S_c = Σ_j bf16(w_j B_j) x_jᵀ, w_j = dt_j exp(L_last − L_j);
+    2. carried states H_1 = S_0, H_{c+1} = exp(L_last,c) H_c + S_c;
+    3. y_i = exp(L_i) (C_i · bf16(H_c)) + Σ_{j≤i} bf16((C_i·B_j) exp(L_i − L_j) dt_j) x_j.
+
+    With ``rounded=False`` nothing is rounded: the same arithmetic in f32, which
+    the f32 kernel computes (and the tests hold against the Pallas kernel).
+    Only the tests and ``chip_smoke.py`` use it. Returns y in x's dtype.
+    """
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, max(S, 1))
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float() if rounded else t
+
+    def chunks(a, *tail):
+        return _pad_time(a, pad).float().reshape(Bt, nc, Q, *tail)
+
+    xf, dtf = chunks(x, H, P), chunks(dt, H)
+    Bf, Cf = chunks(B, N), chunks(C, N)
+    dth = dtf.movedim(-1, 2)                                       # (Bt, nc, H, Q)
+    L = torch.cumsum((dth * A.float()[:, None]).double(), dim=-1).float()
+
+    # 1. chunk states from w_j B_j rounded to bf16
+    w = dth * torch.exp(L[..., -1:] - L)                           # (Bt, nc, H, Q)
+    Bw = rnd(Bf[:, :, None] * w[..., None])                        # (Bt, nc, H, Q, N)
+    states = torch.einsum("bchjn,bcjhp->bchnp", Bw, xf)            # (Bt, nc, H, N, P)
+
+    # 2. carried states, H before each chunk
+    decay = torch.exp(L[..., -1])                                  # (Bt, nc, H)
+    h = torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    before = []
+    for c in range(nc):
+        before.append(h)
+        h = h * decay[:, c, :, None, None] + states[:, c]
+    Hs = rnd(torch.stack(before, dim=1))                           # (Bt, nc, H, N, P)
+
+    # 3. outputs: the carried state's part, then the scaled score tile rounded
+    y_inter = torch.einsum("bcin,bchnp->bcihp", Cf, Hs) * torch.exp(L).movedim(2, -1)[..., None]
+    CB = torch.einsum("bcin,bcjn->bcij", Cf, Bf)                   # (Bt, nc, Q, Q)
+    diff = L[..., :, None] - L[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    decayed = torch.exp(torch.where(mask, diff, torch.full_like(diff, float("-inf"))))
+    att = rnd(CB[:, :, None] * decayed * dth[..., None, :])        # (Bt, nc, H, Q, Q)
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", att, xf)
+    y = (y_inter + y_intra).reshape(Bt, nc * Q, H, P)[:, :S]
     return y.to(x.dtype)
 
 

@@ -421,6 +421,51 @@ def test_ssd_grad_matches_jax_grad_of_oracle(b, s, h, p, n, q):
                      err_msg=f"{name} vs autograd")
 
 
+MODEL_SSD = harness.SSD_SHAPES + harness.SSD_EDGE_SHAPES + harness.FULL_SSD_SHAPES[:1]
+
+
+def _ssd_bf16(seed, b, s, h, p, n):
+    """x, dt, B, C in bf16 and A in f32, from the harness's input scales."""
+    return _ssd_pairs(_ssd_inputs(seed, b, s, h, p, n), "bfloat16")[1]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,q", MODEL_SSD)
+def test_ssd_bf16_model_holds_bf16_tolerance(b, s, h, p, n, q):
+    """The bf16 kernel's rounding model (w·B, the scaled score tile and the
+    carried state in bf16) against the exact plain version at the bf16
+    tolerance (chip_smoke.py's [accuracy] lines print the gap at the
+    full-width shapes)."""
+    t = _ssd_bf16(s * 5 + h + n, b, s, h, p, n)
+    got = ssd_ref.ssd_chunked_bf16_model(*t, chunk=q)
+    assert got.dtype == torch.bfloat16 and got.shape == t[0].shape
+    harness.check_close(got, ssd_ref.ssd_chunked(*t, chunk=q), "bfloat16",
+                        f"bf16 model b{b}s{s}h{h}p{p}n{n}q{q}", harness.SSD_TOLERANCES)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,q", harness.SSD_SHAPES)
+def test_ssd_f32_model_matches_pallas(b, s, h, p, n, q):
+    """The model's f32 instantiation (nothing rounded: the f32 kernel's
+    three phases, L summed in float64) against ssd_chunked_pallas in
+    interpret mode at the f32 tolerance."""
+    j, t = _ssd_pairs(_ssd_inputs(s * 13 + p, b, s, h, p, n), "float32")
+    want = jax_ssd.ssd(*j, chunk=q, interpret=True)
+    got = ssd_ref.ssd_chunked_bf16_model(*t, chunk=q, rounded=False)
+    assert_close(_np(got), want, kernel="ssd_scan", dtype="float32", err_msg=f"b{b}s{s}q{q}")
+
+
+@pytest.mark.parametrize("b,s,h,p,n,q", [harness.FULL_SSD_SHAPES[0], harness.SSD_EDGE_SHAPES[1]])
+def test_ssd_model_share_tells_rounding_apart(b, s, h, p, n, q):
+    """harness.SSD_MODEL_MAX_SHARE, the share of bf16 outputs that may differ
+    from the rounding model, fails the exact plain version (nothing rounded
+    before a product), so the card's check of the kernel against its model
+    has teeth."""
+    t = _ssd_bf16(s + n, b, s, h, p, n)
+    model = ssd_ref.ssd_chunked_bf16_model(*t, chunk=q)
+    with pytest.raises(AssertionError, match="elements differ"):
+        harness.check_share(ssd_ref.ssd_chunked(*t, chunk=q), model,
+                            harness.SSD_MODEL_MAX_SHARE, f"exact b{b}s{s}")
+
+
 def test_ssd_grad_only_for_inputs_that_need_it():
     """A frozen A (the model's parameter) gets no gradient."""
     _, t = _ssd_pairs(_ssd_inputs(0, 1, 20, 2, 16, 8), "float32")

@@ -42,6 +42,8 @@ FLASH_GRAD = harness.FLASH_GRAD_SHAPES + harness.FULL_FLASH_GRAD_SHAPES
 FISHER = (harness.FISHER_SHAPES + harness.FISHER_EXTRA_SHAPES + harness.FULL_FISHER_SHAPES
           + harness.MAMBA_FISHER_SHAPES)
 SSD = harness.SSD_SHAPES + harness.FULL_SSD_SHAPES
+SSD_EDGE = harness.SSD_EDGE_SHAPES
+SSD_MODEL = SSD + SSD_EDGE  # the bf16 tensor-core SSD kernel against its rounding model
 
 
 @pytest.fixture
@@ -259,9 +261,7 @@ def test_fisher_kernels_match_plain(cuda, k, n, bn, dtype):
     harness.check_close(den, pden, "float32", f"fold den k{k}n{n}")
 
 
-def _ssd_tol(*shape):
-    full = shape in harness.FULL_SSD_SHAPES
-    return harness.FULL_SSD_TOLERANCES if full else harness.SSD_TOLERANCES
+_ssd_tol = harness.ssd_tolerances
 
 
 def _ssd_inputs(gen, b, s, h, p, n, dtype):
@@ -285,6 +285,41 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, q, dtype):
     assert ssd_ops.ssd.launches == before + 1
     harness.check_close(got, want, dtype, f"ssd b{b}s{s}h{h}p{p}n{n}q{q}",
                         _ssd_tol(b, s, h, p, n, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,p,n,q", SSD_EDGE)
+def test_ssd_kernel_edges_match_plain(cuda, b, s, h, p, n, q, dtype):
+    """More chunks than the main shapes (the carried state passed over three),
+    batch 3, S = 1, P and N off the tensor-core tiles, S below the chunk
+    (Q off 16 and 64), and a one-tile chunk with a two-step last chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(s * 11 + p + n)
+    args = _ssd_inputs(gen, b, s, h, p, n, getattr(torch, dtype))
+    before = ssd_ops.ssd.launches
+    got = ssd_ops.ssd(*args, chunk=q)
+    want = ssd_ref.ssd_chunked(*args, chunk=q)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches == before + 1
+    harness.check_close(got, want, dtype, f"ssd edge b{b}s{s}h{h}p{p}n{n}q{q}",
+                        _ssd_tol(b, s, h, p, n, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,q", SSD_MODEL)
+def test_ssd_bf16_kernel_matches_its_model(cuda, b, s, h, p, n, q):
+    """The bf16 tensor-core kernel against ref.ssd_chunked_bf16_model (w·B,
+    the scaled score tile and the carried state rounded to bf16) at
+    harness.BF16_MODEL_TOLERANCES, with at most harness.SSD_MODEL_MAX_SHARE
+    of the elements differing."""
+    gen = torch.Generator(device=cuda).manual_seed(s * 5 + h + n)
+    args = _ssd_inputs(gen, b, s, h, p, n, torch.bfloat16)
+    got = ssd_ops.ssd(*args, chunk=q)
+    want = ssd_ref.ssd_chunked_bf16_model(*args, chunk=q)
+    torch.cuda.synchronize()
+    what = f"ssd b{b}s{s}h{h}p{p}n{n}q{q} vs model"
+    harness.check_close(got, want, "bfloat16", what, harness.BF16_MODEL_TOLERANCES)
+    harness.check_share(got, want, harness.SSD_MODEL_MAX_SHARE, what)
 
 
 @pytest.mark.cuda
