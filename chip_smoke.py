@@ -10,8 +10,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3. Kernel parity: every kernel against its plain PyTorch version on the
    card, f32 and bf16, over the port's copy of the kernel-harness grids and
    the full-width llava-1.5-7b shapes and the bf16 tiles' edges, at the
-   harness tolerances; the grouped kernel's rows bit-identical to the
-   single-adapter kernel in f32, and its identity rows exactly x. The bf16
+   harness tolerances; the grouped kernel also at the mamba2 decode shape
+   and its own edges (``harness.GROUPED_LORA_EDGE_SHAPES``), its rows
+   bit-identical to the single-adapter kernel in f32, and its identity rows
+   (ids outside [0, N)) exactly x. The bf16
    flash and LoRA kernels (tensor cores) also against their rounding models
    at ``harness.BF16_MODEL_TOLERANCES`` (LoRA also at most
    ``harness.LORA_MODEL_MAX_SHARE`` of its elements differing), and, at the
@@ -56,8 +58,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and the H100 bound (LoRA also at (256, 4096) and (384, 4096), with its
    bytes-only floor, an f32 ``torch.addmm`` beside the bf16 one and the
    device time of each CUDA kernel it launches; flash also at (4, 96, 32,
-   128)); the gradients beside autograd through the plain versions and SDPA; and the training step, Fisher batch, merge and round
-   end to end. The kernels' line is printed at the end.
+   128); grouped LoRA at the decode step with 4, 1 and 8 of its 8 adapters
+   in use); the gradients beside autograd through the plain versions and
+   SDPA; and the training step, Fisher batch, merge and round end to end.
+   Warm times replay 50 calls on the same inputs; the kernels whose inputs
+   fit in the 50 MB L2 (LoRA, grouped LoRA, Fisher merge and fold) are also
+   timed cold (``time_ms_cold``: the calls rotate over copies of the inputs,
+   more than 100 MB apart), and their ``[time]`` lines give both times'
+   share of the bound. The kernels' line is printed at the end.
 11. Profile a short full-width serving run and one full-width local step
    (torch.profiler): device busy share and device time by kernel.
 12. The ssm family (mamba2-130m, 24 layers, d_model 768, 24 SSD heads of 64,
@@ -86,7 +94,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    e. timings: the SSD kernel at both full-width shapes against its plain
       version and its bound (bf16 tensor-core rate, and the f32 CUDA-core
       rate beside it), with the device time of each of its three launches;
-      the LoRA kernel at d_model 768, the local step, Fisher batch, merge and
+      the LoRA kernel at d_model 768 and the grouped kernel at mamba2's
+      decode step (x (8, 768), 4 adapters in use), the local step, Fisher batch, merge and
       round; a profiled local step, and a profiled full-width prefill of 512
       tokens with four decode steps.
 
@@ -210,23 +219,34 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
                 gaps["lora_residual"] = [max(a, b) for a, b in zip(gaps["lora_residual"], g)]
             if (t, d, r) == harness.FULL_LORA_SHAPES[0][:3] and dtype_name == "bfloat16":
                 main_err["lora_residual"] = err
-        for t, d, r, n, _ in harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES:
-            x = randn((t, d), dtype=dtype)
+        # the grid and the full-width decode shapes (ids uniform in [-1, n)),
+        # then the grouped kernel's edges (id patterns, ranks, widths, x off
+        # 16-byte alignment)
+        grouped = ([(f"t{t}d{d}n{n}", t, d, r, n, None, 0) for t, d, r, n, _ in
+                    harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES
+                    + harness.MAMBA_GROUPED_SHAPES] + harness.GROUPED_LORA_EDGE_SHAPES)
+        for label, t, d, r, n, ids, offset in grouped:
+            x = harness.offset_view(randn((t, d), dtype=dtype), offset)
             down, up = randn((n, d, r), 0.05), randn((n, r, d), 0.05)
-            idx = torch.randint(-1, n, (t,), generator=gen, device=dev, dtype=torch.int32)
+            if ids is None:
+                idx = torch.randint(-1, n, (t,), generator=gen, device=dev, dtype=torch.int32)
+            else:
+                idx = harness.grouped_ids(ids, t, n, seed=t + d + n).to(dev)
             got = lora_ops.grouped_lora_residual(x, down, up, idx, scale=SCALE)
             want = lora_ref.grouped_lora_residual(x, down, up, idx, scale=SCALE)
-            err = harness.check_close(got, want, dtype_name, f"grouped t{t}d{d}n{n}")
-            if not torch.equal(got[idx < 0], x[idx < 0]):
-                raise AssertionError(f"grouped t{t}d{d}n{n}: identity rows differ from x")
+            err = harness.check_close(got, want, dtype_name, f"grouped {label}")
+            ident = (idx < 0) | (idx >= n)
+            if not torch.equal(got[ident], x[ident]):
+                raise AssertionError(f"grouped {label}: identity rows differ from x")
             if dtype_name == "float32":
                 for a in range(n):
                     single = lora_ops.lora_residual(x, down[a], up[a], scale=SCALE)
                     if not torch.equal(got[idx == a], single[idx == a]):
-                        raise AssertionError(f"grouped t{t}d{d}n{n}: adapter {a} rows are not "
+                        raise AssertionError(f"grouped {label}: adapter {a} rows are not "
                                              "bit-identical to the single-adapter kernel")
             n_cases += 1
-            if (t, d, r, n) == harness.FULL_GROUPED_SHAPES[0][:4] and dtype_name == "bfloat16":
+            if (t, d, r, n, ids) == harness.FULL_GROUPED_SHAPES[0][:4] + (None,) \
+                    and dtype_name == "bfloat16":
                 main_err["grouped_lora_residual"] = err
         for shape in harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.FLASH_EDGE_SHAPES:
             label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
@@ -826,19 +846,29 @@ def training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref, fa_op
     w = torch.tensor([0.5, 0.5], device=dev)
     merged = fm_ops.fisher_merge(theta, fisher, w)
     num, den = torch.zeros(N, device=dev), torch.zeros(N, device=dev)
-    for name, kernel, plain, n_bytes, n_ops in (
-            ("fisher_merge", lambda: fm_ops.fisher_merge(theta, fisher, w),
-             lambda: fm_ref.fisher_merge(theta, fisher, w), nbytes(theta, fisher, w, merged),
-             (4 * K + 2) * N),
-            ("fisher_fold", lambda: fm_ops.fisher_fold(num, den, theta[0], fisher[0], 0.5),
-             lambda: fm_ref.fisher_fold(num, den, theta[0], fisher[0], 0.5),
-             nbytes(num, den, theta[0], fisher[0], num, den), 4 * N)):
-        (k_ms, k_is), (p_ms, p_is) = time_ms(torch, kernel), time_ms(torch, plain)
+
+    def fold(*a):
+        return fm_ops.fisher_fold(*a, 0.5)
+
+    def fold_plain(*a):
+        return fm_ref.fisher_fold(*a, 0.5)
+
+    for name, kernel, plain, args, n_bytes, n_ops in (
+            ("fisher_merge", fm_ops.fisher_merge, fm_ref.fisher_merge, (theta, fisher, w),
+             nbytes(theta, fisher, w, merged), (4 * K + 2) * N),
+            ("fisher_fold", fold, fold_plain,
+             (num, den, theta[0], fisher[0]), nbytes(num, den, theta[0], fisher[0], num, den),
+             4 * N)):
+        (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: kernel(*args)),
+                                      time_ms(torch, lambda: plain(*args)))
         b_ms, b_by = bound(n_bytes, n_ops, "f32")
-        out[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        c_ms = time_ms_cold(torch, kernel, args, n_bytes)
+        out[name] = dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by)
         log(f"[time] {name} at K={K if name == 'fisher_merge' else 1}, N={N} f32, device ms "
-            f"per call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}) | plain {p_ms:.5f} "
-            f"({p_is:.5f}) | library None | bound {b_ms:.5f} ({b_by})")
+            f"per call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} "
+            f"| plain {p_ms:.5f} ({p_is:.5f}) | library None | bound {b_ms:.5f} ({b_by}) | "
+            f"bound / time: warm {b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
 
     # gradients at the training shapes, forward + backward, bf16 activations
     bf16 = torch.bfloat16
@@ -947,6 +977,37 @@ def time_ms(torch, fn, iters: int = 50):
     return start.elapsed_time(end) / iters, issued
 
 
+# Cold timing: between two uses of one copy of the inputs, the calls touch
+# more than twice the H100's 50 MB L2, so each call reads its inputs from HBM
+# as the engine does (a decode step streams about 14 GB of llava weights
+# between two calls of the grouped kernel).
+COLD_BYTES = 100e6
+
+
+def time_ms_cold(torch, fn, args, touched: float, iters: int = 50) -> float:
+    """-> device ms per call of ``fn(*copy)`` with the copies of ``args``
+    cold in L2: the calls, captured in one CUDA graph, rotate over enough
+    copies that ``touched`` bytes a call add up to more than COLD_BYTES
+    between two uses of a copy (``iters`` rounded up to whole rotations)."""
+    n = math.ceil(COLD_BYTES / touched) + 1
+    copies = [tuple(args)] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+    iters = n * math.ceil(iters / n)
+    for c in copies[:3]:
+        fn(*c)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*copies[i % n])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(n_bytes: float, n_ops: float, op_type: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / PEAK_OPS[op_type]
@@ -996,15 +1057,50 @@ def lora_timing(torch, lora_ops, lora_ref, x, A, B, what=""):
     l_ms, l_is = time_ms(torch, lambda: torch.addmm(x, x @ A16, B16, alpha=SCALE))
     l32_ms, _ = time_ms(torch, lambda: torch.addmm(xf, xf @ A, B, alpha=SCALE))
     n_bytes = nbytes(x, A, B, y)
+    c_ms = time_ms_cold(torch, lambda *a: lora_ops.lora_residual(*a, scale=SCALE), (x, A, B),
+                        n_bytes)
     b_ms, b_by = bound(n_bytes, 10 * T * D * r, "tf32")
     floor_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
     log(f"[time] lora_residual at x ({T}, {D}) bf16, r {r}{what}, device ms per call (issued "
-        f"from Python): kernel {k_ms:.5f} ({k_is:.5f}) | plain {p_ms:.5f} ({p_is:.5f}) | "
-        f"library torch.addmm with bf16 adapters {l_ms:.5f} ({l_is:.5f}), f32 "
+        f"from Python): kernel {k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} | plain {p_ms:.5f} "
+        f"({p_is:.5f}) | library torch.addmm with bf16 adapters {l_ms:.5f} ({l_is:.5f}), f32 "
         f"torch.addmm(xf, xf @ A, B) {l32_ms:.5f} | bound {b_ms:.5f} ({b_by}; 10·T·D·r "
-        f"operations at the TF32 rate) | bytes-only floor {floor_ms:.5f}")
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                library_f32_ms=l32_ms, bytes_floor_ms=floor_ms, shape=[T, D, r])
+        f"operations at the TF32 rate) | bytes-only floor {floor_ms:.5f} | bound / time: warm "
+        f"{b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
+    return dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by, library_f32_ms=l32_ms, bytes_floor_ms=floor_ms, shape=[T, D, r])
+
+
+def grouped_timing(torch, lora_ops, lora_ref, gen, D, ids, what="", r=64, N=8):
+    """The grouped kernel at x (len(ids), D) bf16 into an (N, D, r) f32 bank,
+    warm and cold, beside its plain version and its bound: x read and y
+    written once, the adapters in use read once, 4·r + 2 f32 operations a
+    live row and column. -> a kernel-table row."""
+    dev = gen.device
+    x = torch.randn((len(ids), D), generator=gen, device=dev).to(torch.bfloat16)
+    downs = torch.randn((N, D, r), generator=gen, device=dev) * 0.05
+    ups = torch.randn((N, r, D), generator=gen, device=dev) * 0.05
+    idx = torch.tensor(ids, dtype=torch.int32, device=dev)
+    used = len({i for i in ids if 0 <= i < N})
+    live = sum(0 <= i < N for i in ids)
+    y = lora_ops.grouped_lora_residual(x, downs, ups, idx, scale=SCALE)
+    n_bytes = nbytes(x, y, idx) + used * nbytes(downs[0], ups[0])
+    b_ms, b_by = bound(n_bytes, (4 * r + 2) * live * D, "f32")
+    (k_ms, k_is), (p_ms, p_is) = (
+        time_ms(torch, lambda: lora_ops.grouped_lora_residual(x, downs, ups, idx, scale=SCALE)),
+        time_ms(torch, lambda: lora_ref.grouped_lora_residual(x, downs, ups, idx, scale=SCALE)))
+    c_ms = time_ms_cold(torch, lambda *a: lora_ops.grouped_lora_residual(*a, scale=SCALE),
+                        (x, downs, ups, idx), n_bytes)
+    kernel_breakdown(torch, lambda: lora_ops.grouped_lora_residual(x, downs, ups, idx,
+                                                                   scale=SCALE),
+                     f"grouped_lora_residual at x ({len(ids)}, {D}), {used} in use")
+    log(f"[time] grouped_lora_residual at x ({len(ids)}, {D}) bf16, idx {ids} ({used} in use), "
+        f"bank ({N}, {D}, {r}) f32{what}, device ms per call (issued from Python): kernel "
+        f"{k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} | plain {p_ms:.5f} ({p_is:.5f}) | library "
+        f"None | bound {b_ms:.5f} ({b_by}, {n_bytes / 1e6:.3f} MB) | bound / time: warm "
+        f"{b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
+    return dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, ids=list(ids), shape=[len(ids), D, r, N])
 
 
 def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what=""):
@@ -1050,24 +1146,13 @@ def timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
     kernel_breakdown(torch, lambda: lora_ops.lora_residual(x, A, B, scale=SCALE),
                      f"lora_residual at x ({T}, {D})")
 
-    # text bank at decode: 8 slots, 4 tenants + 1 base row + adapters reused
-    xs = randn((N, D), dtype=bf16)
-    downs, ups = randn((N, D, r), 0.05), randn((N, r, D), 0.05)
-    idx = torch.tensor([0, 1, 2, 3, 0, 1, 2, -1], dtype=torch.int32, device=dev)
-    used = sorted({int(i) for i in idx.tolist() if 0 <= i < N})
-    live = int((idx >= 0).sum())
-    ys = lora_ops.grouped_lora_residual(xs, downs, ups, idx, scale=SCALE)
-    b_ms, b_by = bound(nbytes(xs, ys, idx) + len(used) * nbytes(downs[0], ups[0]),
-                       4 * live * D * r + 2 * live * D, "f32")
-    (k_ms, k_is), (p_ms, p_is) = (
-        time_ms(torch, lambda: lora_ops.grouped_lora_residual(xs, downs, ups, idx, scale=SCALE)),
-        time_ms(torch, lambda: lora_ref.grouped_lora_residual(xs, downs, ups, idx, scale=SCALE)))
-    out["grouped_lora_residual"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
-                                        bound_by=b_by)
-    log(f"[time] grouped_lora_residual at x ({N}, {D}) bf16, idx {idx.tolist()}, bank ({N}, "
-        f"{D}, {r}) f32, device ms per call (issued from Python): kernel {k_ms:.5f} "
-        f"({k_is:.5f}) | plain {p_ms:.5f} ({p_is:.5f}) | library None | bound {b_ms:.5f} "
-        f"({b_by})")
+    # text bank at decode: 8 slots, 4 tenants + 1 base row + adapters reused;
+    # then 1 and all 8 of the bank's adapters in use
+    grouped = {label: grouped_timing(torch, lora_ops, lora_ref, gen, D, ids, f" ({label})")
+               for label, ids in (("4 in use", [0, 1, 2, 3, 0, 1, 2, -1]),
+                                  ("1 in use", [0, 0, 0, 0, 0, 0, 0, -1]),
+                                  ("8 in use", list(range(N))))}
+    out["grouped_lora_residual"] = dict(grouped["4 in use"], shapes=grouped)
 
     # prefill attention: 64 image + 128 text positions, 32 heads of 128, causal;
     # then the training step's batch 4 of 96 positions
@@ -1303,10 +1388,13 @@ def mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness):
         lora[f"x ({t}, {d})"] = lora_timing(torch, lora_ops, lora_ref, x, A, Bm, " (mamba2-130m)")
     kernel_breakdown(torch, lambda: lora_ops.lora_residual(x, A, Bm, scale=SCALE),
                      f"lora_residual at x {tuple(x.shape)} (mamba2-130m)")
+    _, d, r, n, _ = harness.MAMBA_GROUPED_SHAPES[0]
+    grouped = grouped_timing(torch, lora_ops, lora_ref, gen, d, [0, 1, 2, 3, 0, 1, 2, -1],
+                             " (mamba2-130m)", r=r, N=n)
     main = shapes["train"]
     return {"ssd_scan": dict(ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
                              bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                             shapes=shapes)}, lora
+                             shapes=shapes)}, lora, grouped
 
 
 def breakdown(torch, get_config, init_backbone, synth, make_requests, Engine,
@@ -1389,7 +1477,8 @@ def profile_summary(torch, prof, wall, what):
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"[profile]   {t / 1e3:9.3f} ms  {n:6d} x  {name[:90]}")
     # the port's kernels by the names of their CUDA functions
-    ours = {"flash_attention": ("flash_fwd",), "lora_residual": ("lora_", "tc::"),
+    ours = {"flash_attention": ("flash_fwd",), "lora_residual": ("tc::",),
+            "grouped_lora_residual (and f32 lora_residual)": ("cc::",),
             "ssd_scan": ("chunk_state", "state_passing", "chunk_output"), "fisher": ("fisher_",)}
     parts = []
     for kernel, keys in ours.items():
@@ -1512,9 +1601,11 @@ def main() -> int:
     st, train_launches = training_full(torch, tr, counters, arch=MAMBA)
     launches.update(train_launches)
     training_check(torch, tr, st, counters)
-    ssd_times, lora_times = mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness)
+    ssd_times, lora_times, grouped_time = mamba_timings(torch, ssd_ops, ssd_ref, lora_ops,
+                                                        lora_ref, harness)
     times.update(ssd_times)
     times["lora_residual"]["shapes"].update(lora_times)
+    times["grouped_lora_residual"]["shapes"]["mamba2-130m 4 in use"] = grouped_time
     loop_timings(torch, tr, st)
     step_profile(torch, tr, st)
     del st
@@ -1531,7 +1622,7 @@ def main() -> int:
                         "max_abs_err": main_err[name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        **({"shapes": t["shapes"]} if "shapes" in t else {})})
+                        **{k: t[k] for k in ("cold_ms", "shapes") if k in t}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

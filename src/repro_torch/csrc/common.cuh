@@ -1,10 +1,14 @@
 // Shared helpers of the port's CUDA kernels: the dtype codes the Python
-// wrappers pass, and fp32 <-> storage-type conversions by intrinsic only.
+// wrappers pass, fp32 <-> storage-type conversions by intrinsic only, the
+// async-copy, tensor-core and dependent-launch building blocks, and the host
+// state each launch looks up per device (shared-memory opt-ins, SM count).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace repro {
 
@@ -108,6 +112,62 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Programmatic dependent launch (sm_90): a primary grid lets the grid
+// launched after it with cudaLaunchAttributeProgrammaticStreamSerialization
+// start early; the dependent grid waits for the primary's completion, and
+// its memory, at griddep_wait (a no-op when launched without the attribute).
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Host state per device, keyed by cudaGetDevice: a kernel's opt-in to more
+// than 48 KB of dynamic shared memory holds for one device only, and the SM
+// count is the device's own. One process may drive several cards.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+inline cudaError_t current_device(int* dev) {
+  const cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  return *dev >= 0 && *dev < kMaxDevices ? cudaSuccess : cudaErrorInvalidDevice;
+}
+
+// The current device's SM count, looked up once per device.
+inline cudaError_t device_sms(int* sms) {
+  static std::atomic<int> cache[kMaxDevices];  // 0: not looked up yet
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return err;
+  int v = cache[dev].load(std::memory_order_relaxed);
+  if (v == 0) {
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cache[dev].store(v, std::memory_order_relaxed);
+  }
+  *sms = v;
+  return cudaSuccess;
+}
+
+// Let kernel K take `bytes` of dynamic shared memory on the current device
+// (above 48 KB only after opting in); the attribute is set once per device
+// and raised if a later call asks for more.
+template <auto K>
+cudaError_t allow_smem(int bytes) {
+  static std::atomic<int> granted[kMaxDevices];  // bytes opted in per device
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return err;
+  if (granted[dev].load(std::memory_order_relaxed) >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) granted[dev].store(bytes, std::memory_order_relaxed);
+  return err;
 }
 
 }  // namespace repro

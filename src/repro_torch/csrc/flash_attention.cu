@@ -220,13 +220,8 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
            int Sk, int H, int Hkv, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  static bool configured = false;  // above 48 KB only after opting in
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  const cudaError_t err = repro::allow_smem<flash_fwd_kernel<T, D>>((int)smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -482,13 +477,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, float* l
                 int Sq, int Sk, int H, int Hkv, int causal, int window, float softcap,
                 float scale, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
-  static bool configured = false;  // above 48 KB only after opting in
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  const cudaError_t err = repro::allow_smem<flash_fwd_bf16<D>>((int)smem);
+  if (err != cudaSuccess) return (int)err;
   const int tiles = (Sq + 16 * kTcW - 1) / (16 * kTcW);
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(H, B, tiles);

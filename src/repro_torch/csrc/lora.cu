@@ -11,19 +11,64 @@
 // fp32 rate of the CUDA cores, 1.25 us at 3.35 TB/s, so the fp32 operations
 // bound the CUDA-core design, narrowly. The tensor-core design below does
 // 2.5x those operations (five TF32 products) at 495 TFLOP/s: 0.68 us, so
-// bytes bound it. At the decode shape (8 rows) the adapter bytes bound it.
-// chip_smoke.py computes the bounds for every shape it times.
+// bytes bound it. At the decode shape (8 rows, grouped) the adapter bytes
+// bound it: 4 adapters in use are 8.4 MB, 2.5 us at 3.35 TB/s, against 8.4
+// MFLOP, 0.13 us on the CUDA cores; bytes stay the bound up to about 40 rows
+// an adapter. chip_smoke.py computes the bounds for every shape it times.
 //
 // Two designs, chosen by dtype at the C entry point (no fallback between
-// them). Both keep the rank-r intermediate out of the output path and pass
-// it through an fp32 scratch (T, kSplit, r) that the wrapper allocates.
+// them).
 //
-// * f32 x, and the grouped kernel in both dtypes (down_chunk / up_cols):
-//   kRows = 8 rows a block, fp32 FMAs on the CUDA cores (tensor-core
-//   products cannot hold the f32 path's 1e-6). Pass 1, grid (row tiles,
-//   kSplit d-chunks), writes partial h per chunk to the scratch; pass 2,
-//   grid (row tiles, column blocks), sums the partials in a fixed order and
-//   computes y = x + h B for kCols columns.
+// * The grouped kernel in both dtypes, and f32 x with one adapter (namespace
+//   cc, fp32 FMAs on the CUDA cores: tensor-core products cannot hold the f32
+//   path's 1e-6). Two launches per 256 rows, built around the adapters in use:
+//   - Work units. Each block reads idx (at most kPlanRows ids a launch; the
+//     entry point walks longer inputs in pieces) and derives, with warp 0,
+//     the adapters in use in order of first appearance and their rows in
+//     tiles of kRows; blockIdx.y picks the (adapter, row tile) unit. Up to
+//     32 ids (a decode step) take one id a lane and __match_any_sync, with
+//     no shared memory and one barrier. Blocks past the last unit exit at
+//     once, so a call streams the adapters in use, not the N slots of the
+//     bank, and the rows of one adapter are gathered by index, never sorted
+//     in memory. The host never reads idx, so the call stays capturable in a
+//     CUDA graph. A single adapter is the same kernels with no idx: unit w
+//     is rows [w*kRows, (w+1)*kRows). One more row of pass-1 blocks copies
+//     the rows whose id lies outside [0, N) through as x, bit for bit.
+//   - Pass 1 (down), grid (kSplit d-chunks x rank groups of kRJ columns,
+//     units): the unit's x rows and its A slice stream through a ring of
+//     kStages cp.async stages of kSubD d (16-byte copies when shapes and
+//     alignment allow, else 4-byte copies or element loads), 16 KB of A in
+//     flight a block, into partial h per d-chunk in the scratch. At 4
+//     adapters in use that is 256 blocks, all of A in flight at once, spread
+//     over every SM: an SM takes in only a few tens of GB/s.
+//   - Pass 2 (up), grid (kCols-column slices, units), a programmatic
+//     dependent launch: its blocks start once every pass-1 block has, copy
+//     their B slice (16 KB at r 64) and x tile with cp.async, and only then
+//     wait for pass 1 (griddepcontrol.wait), so B, half the bytes, is read
+//     beside A rather than after it. Then h = the d-chunks' partials summed
+//     in chunk order, and y = x + scale * h B for kCols columns.
+//   - Instructions, not FMAs or bytes, set the pace of both passes' loops:
+//     the SM's schedulers issue every instruction of a predicated-off row.
+//     So pass 1's loop is instantiated for the unit's row count (a decode
+//     step's units hold one or two), and pass 2 takes one row a thread when
+//     a unit has at most kThreads / kCols rows. Both kernels stay at 32
+//     registers: 8 blocks an SM let all pass-1 blocks start at once, which
+//     is when pass 2 may launch.
+//   - Tried and not kept (PERF.md): one launch with a 16-block cluster per
+//     adapter (TMA bulk copies, partials summed over distributed shared
+//     memory) put 128 KB on each of 64 SMs and was slower; so were TMA
+//     tensor-map boxes for A and B, 32 contiguous d-chunks, partials summed
+//     per cluster in pass 1, 8 d-chunks, and a later dependent trigger.
+//   - Sum order, fixed by (D, r) alone: D is cut into kSplit chunks of
+//     round_up(ceil(D / kSplit), 8); within a chunk, G = kThreads / min(r,
+//     kRJ) groups each sum every G-th d in order, and the G group sums are
+//     added in group order; the chunks' sums in chunk order; then h B in
+//     rank order.
+//     Explicit __fmaf_rn / __fadd_rn / __fmul_rn, no contraction left to the
+//     compiler, no atomics. A row's fp32 operations depend only on that row,
+//     A and B, so a row of a mixed-tenant batch equals the single-adapter
+//     kernel's row bit for bit in fp32, the property lora.py:72-74 pins for
+//     the TPU kernel.
 //
 // * bf16 x, single adapter (the main path; namespace tc): tensor cores in
 //   TF32 with f32 accumulation (mma.sync.m16n8k8), f32 accuracy kept by
@@ -51,13 +96,6 @@
 //           B columns and its x tile (the residual) with cp.async, then
 //           writes bf16 rows with 16-byte stores.
 //   ref.py's lora_residual_split_tf32 models the arithmetic.
-//
-// The f32 single-adapter kernel and the grouped kernel push each row through
-// the same device functions, whose fp32 operations for a row depend only on
-// that row, A and B (explicit __fmaf_rn / __fadd_rn / __fmul_rn, no
-// contraction left to the compiler, no atomics).
-// So a row of a mixed-tenant batch equals the single-adapter kernel's row bit
-// for bit in fp32, the property lora.py:72-74 pins for the TPU kernel.
 
 #include <algorithm>
 
@@ -68,155 +106,414 @@ namespace {
 using repro::from_f32;
 using repro::to_f32;
 
-constexpr int kThreads = 256;
-constexpr int kRows = 8;            // rows of x per block
-constexpr int kSplit = 16;          // d-chunks of the down-projection; lora/ops.py::SPLIT
-constexpr int kCols = kThreads;     // output columns per pass-2 block
-constexpr int kMaxRank = kThreads;  // pass 1 gives each rank column >= 1 thread
+constexpr int kSplit = 16;      // d-chunks of the down-projection; lora/ops.py::SPLIT
+constexpr int kMaxRank = 256;   // lora/ops.py::MAX_RANK
 
-// rows_s[i] = row index of slot i of this tile, or -1 when the slot is idle
-// (past the end, or another adapter's row). Block-uniform answer: any row?
-__device__ __forceinline__ bool select_rows(const int* __restrict__ idx, int n_rows, int n,
-                                            int* rows_s) {
-  if (threadIdx.x < kRows) {
-    const int row = blockIdx.x * kRows + threadIdx.x;
-    rows_s[threadIdx.x] = (row < n_rows && (idx == nullptr || idx[row] == n)) ? row : -1;
+// M[r0 .. r0 + nr, c0 .. c0 + nc) of an f32 matrix with row stride ldm ->
+// ms (row stride ld), zero outside [0, r_end) x [0, c_end). 16-byte copies
+// when vec (c_end % 4 == 0, c0 % 4 == 0 and aligned), else 4-byte copies.
+__device__ __forceinline__ void stage_f32(float* ms, int ld, const float* __restrict__ M,
+                                          int64_t ldm, int r0, int nr, int r_end, int c0, int nc,
+                                          int c_end, bool vec) {
+  if (vec) {
+    const int ch = nc / 4;
+    for (int e = threadIdx.x; e < nr * ch; e += blockDim.x) {
+      const int i = e / ch, c = (e % ch) * 4, row = r0 + i, col = c0 + c;
+      const bool ok = row < r_end && col < c_end;
+      repro::cp_async16(ms + i * ld + c, ok ? M + row * ldm + col : M, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nr * nc; e += blockDim.x) {
+      const int i = e / nc, c = e % nc, row = r0 + i, col = c0 + c;
+      const bool ok = row < r_end && col < c_end;
+      repro::cp_async4(ms + i * ld + c, ok ? M + row * ldm + col : M, ok);
+    }
   }
-  __syncthreads();
-  bool any = false;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) any = any || rows_s[i] >= 0;
-  return any;
 }
 
-// Pass 1: partial[row][s][:] = x[row, chunk s] · A[chunk s, :].
-template <typename T>
-__device__ __forceinline__ void down_chunk(const T* __restrict__ x, const float* __restrict__ A,
-                                           float* __restrict__ partial, const int* rows_s, int D,
-                                           int r, int s) {
-  __shared__ float red[kRows][kThreads];
-  const int t = threadIdx.x;
-  const int groups = kThreads / r;  // thread (g, j) sums d = d0 + g, d0 + g + groups, ...
-  const int chunk = (D + kSplit - 1) / kSplit;
-  const int d0 = s * chunk, d1 = min(D, d0 + chunk);
-  if (t < groups * r) {
-    const int g = t / r, j = t % r;
-    float acc[kRows];
+// ---------------------------------------------------------------------------
+// The grouped kernel, and f32 x with one adapter: CUDA cores (see the note
+// at the top)
+// ---------------------------------------------------------------------------
+
+namespace cc {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 8;         // rows of a work unit
+constexpr int kPlanRows = 256;   // rows (ids) a launch plans over
+constexpr int kRJ = 16;          // rank columns of a pass-1 block
+constexpr int kSubD = 64;        // d of x and A per pass-1 stage
+constexpr int kStages = 4;       // pass-1 stages in flight: 16 KB of A
+constexpr int kCols = 64;        // output columns of a pass-2 block
+
+// One block's work unit: the rows (launch-local indices) of one adapter's
+// row tile, n of them; adapter < 0 when the block has none.
+struct Unit {
+  int adapter, n;
+  int rows[kRows];
+};
+
+// Fill u with work unit w of this launch's T rows. With idx, the units are
+// the adapters in use, in order of first appearance, each cut into tiles of
+// kRows of its rows in row order; ids outside [0, N) take no unit. Without
+// idx, one adapter (0) and unit w is rows [w*kRows, (w+1)*kRows). All
+// threads call; the answer is block-uniform.
+__device__ bool plan_unit(const int* __restrict__ idx, int T, int N, int w, int* idx_s,
+                          Unit& u) {
+  const int t0 = threadIdx.x;
+  if (idx == nullptr) {
+    if (t0 == 0) {
+      u.adapter = w * kRows < T ? 0 : -1;
+      u.n = min(kRows, T - w * kRows);
+    }
+    if (t0 < kRows) u.rows[t0] = w * kRows + t0;
+    __syncthreads();
+    return u.adapter >= 0;
+  }
+  constexpr unsigned kAll = 0xffffffffu;
+  if (T <= 32) {  // a decode step: one id a lane, no shared memory, one barrier
+    if (t0 < 32) {
+      const int lane = t0, raw = lane < T ? idx[lane] : -1;
+      const int v = raw >= 0 && raw < N ? raw : -1;
+      const unsigned same = __match_any_sync(kAll, v);  // the lanes holding this id
+      const bool first = v >= 0 && __ffs(same) - 1 == lane;
+      const int tiles = first ? (__popc(same) + kRows - 1) / kRows : 0;
+      int incl = tiles;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-#pragma unroll 4
-    for (int d = d0 + g; d < d1; d += groups) {
-      const float a = A[(int64_t)d * r + j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int row = rows_s[i];
-        if (row >= 0) acc[i] = __fmaf_rn(to_f32(x[(int64_t)row * D + d]), a, acc[i]);
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kAll, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const int base = incl - tiles;
+      const unsigned hit = __ballot_sync(kAll, tiles > 0 && w >= base && w < base + tiles);
+      const int src = hit ? __ffs(hit) - 1 : 0;
+      const int found = hit ? __shfl_sync(kAll, v, src) : -1;
+      const int tile = w - __shfl_sync(kAll, base, src);
+      const bool mine = found >= 0 && v == found;
+      const unsigned m = __ballot_sync(kAll, mine);
+      const int pos = __popc(m & ((1u << lane) - 1));
+      if (mine && pos / kRows == tile) u.rows[pos % kRows] = lane;
+      if (lane == 0) {
+        u.adapter = found;
+        u.n = found >= 0 ? min(kRows, __popc(m) - tile * kRows) : 0;
       }
     }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) red[i][g * r + j] = acc[i];
+    __syncthreads();
+    return u.adapter >= 0;
+  }
+  for (int t = t0; t < T; t += blockDim.x) {  // longer: the ids in shared memory, warp 0 plans
+    const int v = idx[t];
+    idx_s[t] = v >= 0 && v < N ? v : -1;
   }
   __syncthreads();
-  for (int e = t; e < kRows * r; e += kThreads) {
-    const int i = e / r, j = e % r, row = rows_s[i];
-    if (row >= 0) {
-      float sum = 0.f;
-      for (int g = 0; g < groups; ++g) sum = __fadd_rn(sum, red[i][g * r + j]);
-      partial[((int64_t)row * kSplit + s) * r + j] = sum;
+  if (t0 < 32) {
+    const int lane = t0;
+    int carry = 0, found = -1, tile = 0;  // warp-uniform
+    for (int c0 = 0; c0 < T && found < 0; c0 += 32) {
+      const int t = c0 + lane;
+      const int v = t < T ? idx_s[t] : -1;
+      bool first = v >= 0;
+      int cnt = 0;
+      if (v >= 0) {
+        for (int s = 0; s < T; ++s) {
+          if (idx_s[s] == v) {
+            first = first && s >= t;
+            ++cnt;
+          }
+        }
+      }
+      const int tiles = first ? (cnt + kRows - 1) / kRows : 0;
+      int incl = tiles;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kAll, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const int base = carry + incl - tiles;
+      const unsigned hit = __ballot_sync(kAll, tiles > 0 && w >= base && w < base + tiles);
+      if (hit) {
+        const int src = __ffs(hit) - 1;
+        found = __shfl_sync(kAll, v, src);
+        tile = w - __shfl_sync(kAll, base, src);
+      }
+      carry += __shfl_sync(kAll, incl, 31);
+    }
+    int seen = 0;
+    if (found >= 0) {
+      for (int c0 = 0; c0 < T; c0 += 32) {
+        const int t = c0 + lane;
+        const bool mine = t < T && idx_s[t] == found;
+        const unsigned m = __ballot_sync(kAll, mine);
+        const int pos = seen + __popc(m & ((1u << lane) - 1));
+        if (mine && pos / kRows == tile) u.rows[pos % kRows] = t;
+        seen += __popc(m);
+      }
+    }
+    if (lane == 0) {
+      u.adapter = found;
+      u.n = found >= 0 ? min(kRows, seen - tile * kRows) : 0;
+    }
+  }
+  __syncthreads();
+  return u.adapter >= 0;
+}
+
+// x[rows[i], c0 .. c0 + nc) for i < n -> xs (row stride ld), zero outside
+// [c0, c_end) and for i >= n. 16-byte cp.async when vec (the row width and
+// c0 multiples of 16 bytes and x aligned, so a chunk is wholly in or out),
+// else element loads.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* xs, int ld, const T* __restrict__ x,
+                                           const Unit& u, int D, int c0, int nc, int c_end,
+                                           bool vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);
+    const int ch = nc / E;
+    for (int e = threadIdx.x; e < kRows * ch; e += blockDim.x) {
+      const int i = e / ch, c = (e % ch) * E, col = c0 + c;
+      const bool ok = i < u.n && col < c_end;
+      repro::cp_async16(xs + i * ld + c, ok ? x + (int64_t)u.rows[i] * D + col : x, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kRows * nc; e += blockDim.x) {
+      const int i = e / nc, c = e % nc, col = c0 + c;
+      xs[i * ld + c] = i < u.n && col < c_end ? x[(int64_t)u.rows[i] * D + col] : from_f32<T>(0.f);
     }
   }
 }
 
-// Pass 2: h = sum over s of the partials, out[row, c] = x[row, c] + scale * (h · B)[c].
-template <typename T>
-__device__ __forceinline__ void up_cols(const T* __restrict__ x, const float* __restrict__ B,
-                                        const float* __restrict__ partial, T* __restrict__ out,
-                                        const int* rows_s, int D, int r, float scale) {
-  __shared__ float h[kRows][kMaxRank];
-  const int t = threadIdx.x;
-  for (int e = t; e < kRows * r; e += kThreads) {
-    const int i = e / r, j = e % r, row = rows_s[i];
-    float sum = 0.f;
-    if (row >= 0) {
-      for (int s = 0; s < kSplit; ++s) sum = __fadd_rn(sum, partial[((int64_t)row * kSplit + s) * r + j]);
-    }
-    h[i][j] = sum;
+// Pass 1's inner loop for a unit of NR rows: acc[i] += x[row i, p] A[p, j]
+// over the stage's chunk offsets p = p_first, p_first + G, ... < p1, in order
+// (at: the stage's A tile [kSubD][kRJ]; xt: its x tile [kRows][kSubD]).
+template <typename T, int NR>
+__device__ __forceinline__ void fma_rows(const float* at, const T* xt, int j, int p_first, int p0,
+                                         int p1, int G, float (&acc)[kRows]) {
+  for (int p = p_first; p < p1; p += G) {
+    const float a = at[(p - p0) * kRJ + j];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) acc[i] = __fmaf_rn(to_f32(xt[i * kSubD + p - p0]), a, acc[i]);
   }
-  __syncthreads();
-  const int c = blockIdx.y * kCols + t;
-  if (c >= D) return;
+}
+
+// Rows whose id lies outside [0, N): out = x, columns [c0, c1).
+template <typename T>
+__device__ void copy_identity_rows(const T* __restrict__ x, const int* __restrict__ idx,
+                                   T* __restrict__ out, int T_rows, int D, int N, int c0,
+                                   int c1) {
+  const int w = c1 - c0;
+  for (int e = threadIdx.x; e < T_rows * w; e += blockDim.x) {
+    const int t = e / w, v = idx[t];
+    if (v < 0 || v >= N) {
+      const int64_t o = (int64_t)t * D + c0 + e % w;
+      out[o] = x[o];
+    }
+  }
+}
+
+// Pass 1, grid (chunks * rank groups, units [+ 1 identity row]): partial[row][s][j]
+// = x[row, chunk s] . A[chunk s, j] for the unit's rows and this block's kRJ
+// columns j, in the order of the note at the top.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    down_kernel(const T* __restrict__ x, const float* __restrict__ A, const int* __restrict__ idx,
+                float* __restrict__ partial, T* __restrict__ out, int T_rows, int D, int r, int N,
+                int chunk, int groups, bool vec_x, bool vec_a) {
+  repro::griddep_launch_dependents();  // pass 2 may start and prefetch B now
+  __shared__ int idx_s[kPlanRows];
+  __shared__ Unit u;
+  __shared__ __align__(16) float as[kStages][kSubD][kRJ];  // then the group sums
+  __shared__ __align__(16) unsigned char xs_raw[sizeof(T) * kStages * kRows * kSubD];
+  T* xs = reinterpret_cast<T*>(xs_raw);  // [kStages][kRows][kSubD]
+
+  const int s = blockIdx.x / groups, j0 = (blockIdx.x % groups) * kRJ;
+  if (idx != nullptr && blockIdx.y == gridDim.y - 1) {  // the identity rows
+    const int w = (D + gridDim.x - 1) / gridDim.x, c0 = blockIdx.x * w;
+    copy_identity_rows<T>(x, idx, out, T_rows, D, N, c0, min(D, c0 + w));
+    return;
+  }
+  if (!plan_unit(idx, T_rows, N, blockIdx.y, idx_s, u)) return;
+  const float* Aa = A + (int64_t)u.adapter * D * r;
+  const int d0 = s * chunk, len = min(D, d0 + chunk) - d0;
+  const int n_sub = (len + kSubD - 1) / kSubD;
+  const int rj = min(r, kRJ), G = kThreads / rj;
+  const int t = threadIdx.x, j = t % rj, g = t / rj;
+  const bool active = g < G;
+
+  auto stage = [&](int it) {  // an empty commit group past the end keeps the count
+    if (it < n_sub) {
+      const int buf = it % kStages, dd = d0 + it * kSubD;
+      stage_f32(&as[buf][0][0], kRJ, Aa, r, dd, kSubD, d0 + len, j0, kRJ, r, vec_a);
+      stage_rows<T>(xs + buf * kRows * kSubD, kSubD, x, u, D, dd, kSubD, d0 + len, vec_x);
+    }
+    repro::cp_async_commit();
+  };
+  const int n = u.n;
   float acc[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < r; ++j) {
-    const float b = B[(int64_t)j * D + c];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i] = __fmaf_rn(h[i][j], b, acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = rows_s[i];
-    if (row >= 0) {
-      const int64_t o = (int64_t)row * D + c;
-      out[o] = from_f32<T>(__fadd_rn(to_f32(x[o]), __fmul_rn(scale, acc[i])));
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    lora_down_kernel(const T* __restrict__ x, const float* __restrict__ A,
-                     float* __restrict__ partial, int n_rows, int D, int r) {
-  __shared__ int rows_s[kRows];
-  if (!select_rows(nullptr, n_rows, 0, rows_s)) return;
-  down_chunk<T>(x, A, partial, rows_s, D, r, blockIdx.y);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    lora_up_kernel(const T* __restrict__ x, const float* __restrict__ B,
-                   const float* __restrict__ partial, T* __restrict__ out, int n_rows, int D,
-                   int r, float scale) {
-  __shared__ int rows_s[kRows];
-  if (!select_rows(nullptr, n_rows, 0, rows_s)) return;
-  up_cols<T>(x, B, partial, out, rows_s, D, r, scale);
-}
-
-// Grouped: grid.z = adapter n. Block (tile, ., n) serves the rows of its tile
-// that selected adapter n and skips both products when there are none.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    grouped_down_kernel(const T* __restrict__ x, const float* __restrict__ A,
-                        const int* __restrict__ idx, float* __restrict__ partial, int n_rows,
-                        int D, int r) {
-  __shared__ int rows_s[kRows];
-  const int n = blockIdx.z;
-  if (!select_rows(idx, n_rows, n, rows_s)) return;
-  down_chunk<T>(x, A + (int64_t)n * D * r, partial, rows_s, D, r, blockIdx.y);
-}
-
-// Blocks of adapter 0 also copy the rows whose id lies outside [0, N) through
-// as x, bit for bit (the identity slot of the serving bank).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    grouped_up_kernel(const T* __restrict__ x, const float* __restrict__ B,
-                      const int* __restrict__ idx, const float* __restrict__ partial,
-                      T* __restrict__ out, int n_rows, int D, int r, int N, float scale) {
-  __shared__ int rows_s[kRows];
-  const int n = blockIdx.z;
-  const int c = blockIdx.y * kCols + threadIdx.x;
-  if (n == 0 && c < D) {
-    for (int i = 0; i < kRows; ++i) {
-      const int row = blockIdx.x * kRows + i;
-      if (row < n_rows && (idx[row] < 0 || idx[row] >= N)) {
-        out[(int64_t)row * D + c] = x[(int64_t)row * D + c];
+  for (int it = 0; it < kStages - 1; ++it) stage(it);
+  for (int it = 0; it < n_sub; ++it) {
+    stage(it + kStages - 1);
+    repro::cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int buf = it % kStages, p0 = it * kSubD, p1 = min(len, p0 + kSubD);
+    const T* xt = xs + buf * kRows * kSubD;  // [kRows][kSubD]
+    if (active) {
+      // this group's d (chunk offsets p = g, g + G, ...) that lie in the stage, in order
+      const int p_first = p0 + ((g - p0 % G) + G) % G;
+      switch (n) {  // only the unit's rows: a decode step's units hold one or two
+        case 1: fma_rows<T, 1>(&as[buf][0][0], xt, j, p_first, p0, p1, G, acc); break;
+        case 2: fma_rows<T, 2>(&as[buf][0][0], xt, j, p_first, p0, p1, G, acc); break;
+        case 3: fma_rows<T, 3>(&as[buf][0][0], xt, j, p_first, p0, p1, G, acc); break;
+        case 4: fma_rows<T, 4>(&as[buf][0][0], xt, j, p_first, p0, p1, G, acc); break;
+        case 5: fma_rows<T, 5>(&as[buf][0][0], xt, j, p_first, p0, p1, G, acc); break;
+        case 6: fma_rows<T, 6>(&as[buf][0][0], xt, j, p_first, p0, p1, G, acc); break;
+        case 7: fma_rows<T, 7>(&as[buf][0][0], xt, j, p_first, p0, p1, G, acc); break;
+        default: fma_rows<T, kRows>(&as[buf][0][0], xt, j, p_first, p0, p1, G, acc); break;
       }
     }
+    __syncthreads();  // readers of this stage are done before it is refilled
   }
-  if (!select_rows(idx, n_rows, n, rows_s)) return;
-  up_cols<T>(x, B + (int64_t)n * r * D, partial, out, rows_s, D, r, scale);
+  float* red = &as[0][0][0];  // [kRows][kThreads]: the ring is drained
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) red[i * kThreads + g * rj + j] = acc[i];
+  }
+  __syncthreads();
+  for (int e = t; e < n * rj; e += kThreads) {
+    const int i = e / rj, jj = e % rj;
+    if (j0 + jj < r) {
+      float sum = 0.f;
+      for (int gg = 0; gg < G; ++gg) sum = __fadd_rn(sum, red[i * kThreads + gg * rj + jj]);
+      partial[((int64_t)u.rows[i] * kSplit + s) * r + j0 + jj] = sum;
+    }
+  }
 }
+
+template <typename T>
+constexpr size_t up_smem(int r) {  // B slice, h, x tile
+  return sizeof(float) * ((size_t)r * kCols + (size_t)kRows * r) + sizeof(T) * kRows * kCols;
+}
+
+// Pass 2, grid (column slices, units), a programmatic dependent of pass 1:
+// out[row, c] = x[row, c] + scale * (h . B)[c] with h the d-chunks' partials
+// summed in chunk order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    up_kernel(const T* __restrict__ x, const float* __restrict__ B, const int* __restrict__ idx,
+              const float* __restrict__ partial, T* __restrict__ out, int T_rows, int D, int r,
+              int N, int n_chunks, float scale, bool vec_x, bool vec_b) {
+  __shared__ int idx_s[kPlanRows];
+  __shared__ Unit u;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* bs = reinterpret_cast<float*>(smem_raw);        // [r][kCols]
+  float* hs = bs + r * kCols;                            // [kRows][r]
+  T* xs = reinterpret_cast<T*>(hs + kRows * r);          // [kRows][kCols]
+
+  if (!plan_unit(idx, T_rows, N, blockIdx.y, idx_s, u)) return;
+  const int c0 = blockIdx.x * kCols;
+  // B and x do not depend on pass 1: copy them while it runs
+  stage_f32(bs, kCols, B + (int64_t)u.adapter * r * D, D, 0, r, r, c0, kCols, D, vec_b);
+  stage_rows<T>(xs, kCols, x, u, D, c0, kCols, D, vec_x);
+  repro::cp_async_commit();
+  repro::griddep_wait();  // pass 1 has finished and its partials are visible
+
+  const int n = u.n;
+  for (int e = threadIdx.x; e < n * r; e += kThreads) {
+    const int i = e / r, j = e % r;
+    const float* p = partial + (int64_t)u.rows[i] * kSplit * r + j;
+    float v[kSplit];
+#pragma unroll
+    for (int s = 0; s < kSplit; ++s) v[s] = s < n_chunks ? p[s * r] : 0.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSplit; ++s) {
+      if (s < n_chunks) sum = __fadd_rn(sum, v[s]);
+    }
+    hs[i * r + j] = sum;
+  }
+  repro::cp_async_wait<0>();
+  __syncthreads();
+
+  constexpr int kGroups = kThreads / kCols, kPer = kRows / kGroups;
+  const int c = threadIdx.x % kCols, ig = threadIdx.x / kCols;
+  if (c0 + c >= D || ig >= n) return;
+  if (n <= kGroups) {  // one row a thread (a decode step's units hold one or two)
+    float acc = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < r; ++j) acc = __fmaf_rn(hs[ig * r + j], bs[j * kCols + c], acc);
+    const int64_t o = (int64_t)u.rows[ig] * D + c0 + c;
+    out[o] = from_f32<T>(__fadd_rn(to_f32(xs[ig * kCols + c]), __fmul_rn(scale, acc)));
+    return;
+  }
+  float acc[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) acc[m] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < r; ++j) {
+    const float b = bs[j * kCols + c];
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) acc[m] = __fmaf_rn(hs[(ig + m * kGroups) * r + j], b, acc[m]);
+  }
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int i = ig + m * kGroups;
+    if (i < n) {
+      const int64_t o = (int64_t)u.rows[i] * D + c0 + c;
+      out[o] = from_f32<T>(__fadd_rn(to_f32(xs[i * kCols + c]), __fmul_rn(scale, acc[m])));
+    }
+  }
+}
+
+// Both passes over rows [0, T) in pieces of kPlanRows. idx == nullptr: one
+// adapter (N = 1).
+template <typename T>
+cudaError_t launch(const T* x, const float* A, const float* B, const int* idx, float* scratch,
+                   T* out, int T_rows, int D, int r, int N, float scale, cudaStream_t stream) {
+  const size_t smem2 = up_smem<T>(r);
+  cudaError_t err = repro::allow_smem<up_kernel<T>>((int)up_smem<T>(kMaxRank));
+  if (err != cudaSuccess) return err;
+  constexpr int E = 16 / sizeof(T);
+  const int chunk = ((D + kSplit - 1) / kSplit + 7) / 8 * 8;
+  const int n_chunks = (D + chunk - 1) / chunk;
+  const int groups = (r + kRJ - 1) / kRJ;
+  const bool vec_a = r % 4 == 0 && repro::aligned16(A);
+  const bool vec_b = D % 4 == 0 && repro::aligned16(B);
+  for (int off = 0; off < T_rows; off += kPlanRows) {
+    const int t = std::min(kPlanRows, T_rows - off);
+    const T* xo = x + (int64_t)off * D;
+    T* oo = out + (int64_t)off * D;
+    const int* io = idx == nullptr ? nullptr : idx + off;
+    float* po = scratch + (int64_t)off * kSplit * r;
+    const bool vec_x = D % E == 0 && repro::aligned16(xo);
+    // units: at most min(adapters, rows) tiles' first rows plus the rest in
+    // whole tiles
+    const int units = idx == nullptr ? (t + kRows - 1) / kRows
+                                     : std::min(t, std::min(N, t) + (t - 1) / kRows);
+    const dim3 g1(n_chunks * groups, units + (idx != nullptr ? 1 : 0));
+    down_kernel<T><<<g1, kThreads, 0, stream>>>(xo, A, io, po, oo, t, D, r, N, chunk, groups,
+                                                vec_x, vec_a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((D + kCols - 1) / kCols, units);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem2;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, up_kernel<T>, xo, B, io, (const float*)po, oo, t, D, r, N,
+                             n_chunks, scale, vec_x, vec_b);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace cc
 
 // ---------------------------------------------------------------------------
 // bf16 x, single adapter: tensor cores in split TF32 (see the note at the top)
@@ -258,28 +555,6 @@ __device__ __forceinline__ void stage_x(bf16* xs, int ld, const bf16* __restrict
     for (int e = threadIdx.x; e < kRows * n; e += blockDim.x) {
       const int i = e / n, c = e % n, row = row0 + i, col = c0 + c;
       xs[i * ld + c] = (row < T && col < c_end) ? x[(int64_t)row * D + col] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// M[r0 .. r0 + nr, c0 .. c0 + nc) of an f32 matrix with row stride ldm ->
-// ms (row stride ld), zero outside [0, r_end) x [0, c_end). 16-byte copies
-// when vec (c_end % 4 == 0 and aligned), else 4-byte copies.
-__device__ __forceinline__ void stage_f32(float* ms, int ld, const float* __restrict__ M,
-                                          int64_t ldm, int r0, int nr, int r_end, int c0, int nc,
-                                          int c_end, bool vec) {
-  if (vec) {
-    const int ch = nc / 4;
-    for (int e = threadIdx.x; e < nr * ch; e += blockDim.x) {
-      const int i = e / ch, c = (e % ch) * 4, row = r0 + i, col = c0 + c;
-      const bool ok = row < r_end && col < c_end;
-      repro::cp_async16(ms + i * ld + c, ok ? M + row * ldm + col : M, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < nr * nc; e += blockDim.x) {
-      const int i = e / nc, c = e % nc, row = r0 + i, col = c0 + c;
-      const bool ok = row < r_end && col < c_end;
-      repro::cp_async4(ms + i * ld + c, ok ? M + row * ldm + col : M, ok);
     }
   }
 }
@@ -458,27 +733,13 @@ __global__ void __launch_bounds__(kThreads)
 template <int RP>
 int launch(const bf16* x, const float* A, const float* B, float* scratch, bf16* out, int T,
            int D, int r, float scale, cudaStream_t stream) {
-  static bool configured = false;  // above 48 KB only after opting in
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(down_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)kDownSmem);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(up_kernel<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)up_smem<RP>());
-    }
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  cudaError_t err = repro::allow_smem<down_kernel>((int)kDownSmem);
+  if (err == cudaSuccess) err = repro::allow_smem<up_kernel<RP>>((int)up_smem<RP>());
   // About four pass-1 blocks per SM: split D into up to kSplit chunks,
   // each a whole number of kSubD stages.
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-      sms = 132;
-    }
-  }
+  int sms = 0;
+  if (err == cudaSuccess) err = repro::device_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
   const int tiles = (T + kRows - 1) / kRows, groups = (r + kNB - 1) / kNB;
   const int want = std::max(1, std::min(kSplit, (4 * sms + tiles * groups - 1) / (tiles * groups)));
   const int chunk = ((D + want - 1) / want + kSubD - 1) / kSubD * kSubD;
@@ -517,26 +778,20 @@ bool bad_shape(int n_rows, int D, int r, int64_t scratch_floats) {
 
 }  // namespace
 
-// scratch: fp32, at least n_rows * kSplit * r floats.
+// scratch: fp32, at least n_rows * kSplit * r floats: the partial h of
+// either design.
 extern "C" int repro_lora_residual(const void* x, const float* A, const float* B, float* scratch,
                                    long long scratch_floats, void* out, int n_rows, int D, int r,
                                    float scale, int dtype, void* stream) {
   if (bad_shape(n_rows, D, r, scratch_floats)) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaGetLastError();
-  const int tiles = (n_rows + kRows - 1) / kRows;
-  const dim3 g1(tiles, kSplit), g2(tiles, (D + kCols - 1) / kCols);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32) {
-    const float* xf = static_cast<const float*>(x);
-    lora_down_kernel<float><<<g1, kThreads, 0, s>>>(xf, A, scratch, n_rows, D, r);
-    lora_up_kernel<float><<<g2, kThreads, 0, s>>>(xf, B, scratch, static_cast<float*>(out),
-                                                  n_rows, D, r, scale);
-  } else if (dtype == repro::kBF16) {
-    return tc::dispatch(x, A, B, scratch, out, n_rows, D, r, scale, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)cc::launch<float>(static_cast<const float*>(x), A, B, nullptr, scratch,
+                                  static_cast<float*>(out), n_rows, D, r, 1, scale, s);
   }
-  return (int)cudaGetLastError();
+  if (dtype == repro::kBF16) return tc::dispatch(x, A, B, scratch, out, n_rows, D, r, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int repro_grouped_lora_residual(const void* x, const float* A, const float* B,
@@ -547,24 +802,17 @@ extern "C" int repro_grouped_lora_residual(const void* x, const float* A, const 
     return (int)cudaErrorInvalidValue;
   }
   if (n_rows == 0) return (int)cudaGetLastError();
-  const int tiles = (n_rows + kRows - 1) / kRows;
-  const dim3 g1(tiles, kSplit, N), g2(tiles, (D + kCols - 1) / kCols, N);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32) {
-    const float* xf = static_cast<const float*>(x);
-    grouped_down_kernel<float><<<g1, kThreads, 0, s>>>(xf, A, idx, scratch, n_rows, D, r);
-    grouped_up_kernel<float><<<g2, kThreads, 0, s>>>(xf, B, idx, scratch,
-                                                     static_cast<float*>(out), n_rows, D, r, N,
-                                                     scale);
-  } else if (dtype == repro::kBF16) {
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    grouped_down_kernel<__nv_bfloat16><<<g1, kThreads, 0, s>>>(xb, A, idx, scratch, n_rows, D, r);
-    grouped_up_kernel<__nv_bfloat16><<<g2, kThreads, 0, s>>>(
-        xb, B, idx, scratch, static_cast<__nv_bfloat16*>(out), n_rows, D, r, N, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)cc::launch<float>(static_cast<const float*>(x), A, B, idx, scratch,
+                                  static_cast<float*>(out), n_rows, D, r, N, scale, s);
   }
-  return (int)cudaGetLastError();
+  if (dtype == repro::kBF16) {
+    using bf16 = __nv_bfloat16;
+    return (int)cc::launch<bf16>(static_cast<const bf16*>(x), A, B, idx, scratch,
+                                 static_cast<bf16*>(out), n_rows, D, r, N, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_error_string(int err) {

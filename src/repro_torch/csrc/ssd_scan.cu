@@ -71,6 +71,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using repro::allow_smem;  // raise a kernel's dynamic shared memory limit, once per device
 using repro::to_f32;
 
 constexpr int kMaxN = 128;       // state width
@@ -643,17 +644,6 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// Raise a kernel's dynamic shared memory limit to the card's, once.
-template <auto K>
-cudaError_t allow_smem(int max_optin) {
-  static bool done = false;
-  if (done) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, max_optin);
-  done = err == cudaSuccess;
-  return err;
-}
 
 // What a launch needs to know of its device, looked up once per device: the
 // shared-memory limit, and a private stream-ordered pool for the chunk

@@ -215,6 +215,66 @@ LORA_EDGE_SHAPES = [
     (1, 4096, 256, 0),
     (200, 770, 129, 0),
 ]
+# Edges of the grouped kernel (csrc/lora.cu, namespace cc): its work units
+# (adapters in use x 8-row tiles), its rank groups of 16 columns, its 16-byte
+# copies and its identity rows. ``ids`` names the pattern of ``grouped_ids``;
+# ``offset`` shifts x by that many elements inside a larger buffer, which
+# breaks 16-byte alignment. Widths are mamba2-130m's 768 or below: at
+# llava's 4096 two correct f32 sum orders already differ by more than the
+# f32 tolerance (the port's plain version and the JAX kernel, both within
+# 1.2e-6 of a float64 sum, are 1.3e-6 of max(1, ‖ref‖∞) apart at T 1 on the
+# CPU). llava's width is held by FULL_GROUPED_SHAPES on the card.
+GROUPED_LORA_EDGE_SHAPES = [
+    # (label, t, d, rank, n_adapters, ids, offset)
+    ("t1", 1, 768, 64, 8, "one", 0),
+    ("all-identity", 8, 768, 64, 8, "none", 0),
+    ("ids-beyond-n", 8, 768, 64, 8, "beyond", 0),
+    ("one-in-use", 8, 768, 64, 8, "one", 0),
+    ("all-in-use", 8, 768, 64, 8, "all", 0),
+    ("r4", 8, 96, 4, 3, "mixed", 0),
+    ("r8", 16, 520, 8, 4, "mixed", 0),
+    ("r128", 8, 1024, 128, 4, "mixed", 0),
+    ("r256", 8, 512, 256, 3, "mixed", 0),
+    ("d33", 9, 33, 16, 3, "mixed", 0),
+    ("d770", 8, 770, 64, 8, "mixed", 0),
+    ("t64-8-adapters", 64, 768, 64, 8, "all", 0),
+    ("x-offset-1", 8, 768, 64, 8, "mixed", 1),
+]
+
+
+def grouped_ids(kind: str, t: int, n: int, seed: int) -> torch.Tensor:
+    """Adapter ids (t,) int32 on the CPU for a ``GROUPED_LORA_EDGE_SHAPES``
+    pattern: ``mixed`` uniform in [-1, n) (identity rows included); ``none``
+    all -1; ``beyond`` uniform in [-1, 2n), so about half the rows carry an
+    id >= n and come back as x; ``one`` every row adapter n // 2; ``all``
+    every adapter in use (each on t // n or more rows), in shuffled order."""
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "mixed":
+        ids = torch.randint(-1, n, (t,), generator=gen)
+    elif kind == "none":
+        ids = torch.full((t,), -1)
+    elif kind == "beyond":
+        ids = torch.randint(-1, 2 * n, (t,), generator=gen)
+    elif kind == "one":
+        ids = torch.full((t,), n // 2)
+    elif kind == "all":
+        if t < n:
+            raise ValueError(f"grouped_ids: 'all' needs t >= n, got t {t}, n {n}")
+        ids = (torch.arange(t) % n)[torch.randperm(t, generator=gen)]
+    else:
+        raise ValueError(f"grouped_ids: unknown pattern {kind!r}")
+    return ids.to(torch.int32)
+
+
+def offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``offset`` elements into a
+    larger buffer (offset 0: ``t`` itself)."""
+    if offset == 0:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def ssd_tolerances(b, s, h, p, n, chunk):

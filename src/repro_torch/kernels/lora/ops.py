@@ -3,7 +3,10 @@
 A tensor on the CPU takes the plain version in ``ref.py``. A tensor on a CUDA
 device launches the hand-written kernel of ``csrc/lora.cu`` or raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (one per
-kernel call: the kernel's two passes run as two CUDA launches).
+kernel call, whatever number of CUDA launches the call makes: two or three
+for the bf16 single-adapter kernel, two per 256 rows for the grouped kernel
+and for f32 x). The grouped kernel reads the adapter ids on the device only,
+so a call never waits for the card and a CUDA graph can capture it.
 
 ``lora_residual`` is differentiable in (x, down, up): ``LoraResidual`` ports
 the JAX package's custom VJP (``repro/kernels/lora/ops.py::_lora_2d_bwd``).
@@ -45,7 +48,7 @@ def _check_adapters(what, down, up, d):
 
 
 def _scratch(x, r):
-    """fp32 partial sums of x·A, (rows, SPLIT, r), between the kernel's two passes."""
+    """fp32 partial sums of x·A, (rows, SPLIT, r), between a kernel's passes."""
     return torch.empty((x.numel() // x.shape[-1]) * SPLIT * r, dtype=torch.float32,
                        device=x.device)
 

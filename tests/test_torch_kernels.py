@@ -105,18 +105,32 @@ def test_lora_matches_pallas(t, d, r, bt, dtype):
     assert_close(_np(got), want, kernel="lora", dtype=dtype, err_msg=f"t{t}d{d}r{r}")
 
 
+# The JAX harness's grid (ids uniform in [-1, n)), then the edges of the
+# port's grouped kernel (``harness.GROUPED_LORA_EDGE_SHAPES``: id patterns,
+# ranks, widths, an x view off 16-byte alignment), at the JAX block default.
+GROUPED_CASES = ([(t, d, r, n, bt, None, 0) for t, d, r, n, bt in GROUPED_LORA_SHAPES]
+                 + [(t, d, r, n, None, ids, off)
+                    for _, t, d, r, n, ids, off in harness.GROUPED_LORA_EDGE_SHAPES])
+GROUPED_IDS = (["-".join(map(str, s)) for s in GROUPED_LORA_SHAPES]
+               + [s[0] for s in harness.GROUPED_LORA_EDGE_SHAPES])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t,d,r,n,bt", GROUPED_LORA_SHAPES)
-def test_grouped_lora_matches_pallas(t, d, r, n, bt, dtype):
+@pytest.mark.parametrize("t,d,r,n,bt,ids,offset", GROUPED_CASES, ids=GROUPED_IDS)
+def test_grouped_lora_matches_pallas(t, d, r, n, bt, ids, offset, dtype):
     x, down, up, rng = _lora_inputs(t * 1000 + d + n, t, d, r, n)
-    idx = rng.integers(-1, n, t).astype(np.int32)  # includes identity rows
+    if ids is None:
+        idx = rng.integers(-1, n, t).astype(np.int32)  # includes identity rows
+    else:
+        idx = harness.grouped_ids(ids, t, n, seed=t + d + n).numpy()
     (jx, tx), (jd, td), (ju, tu) = _pair(x, dtype), _pair(down, dtype), _pair(up, dtype)
     want = jax_lora.grouped_lora_residual(jx, jd, ju, jnp.asarray(idx), scale=SCALE,
                                           block_t=bt, interpret=True)
-    got = lora_ops.grouped_lora_residual(tx, td, tu, torch.from_numpy(idx), scale=SCALE)
+    got = lora_ops.grouped_lora_residual(harness.offset_view(tx, offset), td, tu,
+                                         torch.from_numpy(idx), scale=SCALE)
     assert_close(_np(got), want, kernel="grouped_lora", dtype=dtype, err_msg=f"t{t}n{n}")
-    ident = idx < 0
-    assert torch.equal(got[torch.from_numpy(ident)], tx[torch.from_numpy(ident)])
+    ident = torch.from_numpy((idx < 0) | (idx >= n))  # ids outside [0, n): x, bit for bit
+    assert torch.equal(got[ident], tx[ident])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

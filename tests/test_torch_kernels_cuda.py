@@ -30,6 +30,13 @@ DTYPES = ("float32", "bfloat16")
 SCALE = 2.0
 LORA = harness.LORA_SHAPES + harness.FULL_LORA_SHAPES + harness.MAMBA_LORA_SHAPES
 GROUPED = harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES + harness.MAMBA_GROUPED_SHAPES
+# ... with ids uniform in [-1, n), then the grouped kernel's edges (id
+# patterns, ranks, widths, an x view off 16-byte alignment)
+GROUPED_CASES = ([(t, d, r, n, bt, None, 0) for t, d, r, n, bt in GROUPED]
+                 + [(t, d, r, n, 0, ids, off)
+                    for _, t, d, r, n, ids, off in harness.GROUPED_LORA_EDGE_SHAPES])
+GROUPED_IDS = (["-".join(map(str, s)) for s in GROUPED]
+               + [s[0] for s in harness.GROUPED_LORA_EDGE_SHAPES])
 FLASH = harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES
 LORA_EDGE = harness.LORA_EDGE_SHAPES
 FLASH_EDGE = harness.FLASH_EDGE_SHAPES
@@ -73,17 +80,22 @@ def test_lora_kernel_matches_plain(cuda, t, d, r, bt, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t,d,r,n,bt", GROUPED)
-def test_grouped_lora_kernel_matches_plain(cuda, t, d, r, n, bt, dtype):
+@pytest.mark.parametrize("t,d,r,n,bt,ids,offset", GROUPED_CASES, ids=GROUPED_IDS)
+def test_grouped_lora_kernel_matches_plain(cuda, t, d, r, n, bt, ids, offset, dtype):
     gen = torch.Generator(device=cuda).manual_seed(t + d + n)
     x = _randn(gen, (t, d), dtype=getattr(torch, dtype))
     down, up = _randn(gen, (n, d, r), 0.05), _randn(gen, (n, r, d), 0.05)
-    idx = torch.randint(-1, n, (t,), generator=gen, device=cuda, dtype=torch.int32)
+    if ids is None:
+        idx = torch.randint(-1, n, (t,), generator=gen, device=cuda, dtype=torch.int32)
+    else:
+        idx = harness.grouped_ids(ids, t, n, seed=t + d + n).to(cuda)
+    x = harness.offset_view(x, offset)
     got = lora_ops.grouped_lora_residual(x, down, up, idx, scale=SCALE)
     want = lora_ref.grouped_lora_residual(x, down, up, idx, scale=SCALE)
     torch.cuda.synchronize()
     harness.check_close(got, want, dtype, f"grouped t{t}d{d}n{n}")
-    assert torch.equal(got[idx < 0], x[idx < 0])  # identity rows, bit for bit
+    ident = (idx < 0) | (idx >= n)
+    assert torch.equal(got[ident], x[ident])  # identity rows, bit for bit
     if dtype == "float32":  # each row equals the single-adapter kernel's row
         for a in range(n):
             single = lora_ops.lora_residual(x, down[a], up[a], scale=SCALE)
