@@ -29,8 +29,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the same weights upcast to f32: prefill logits must agree within
    LOGIT_TOL. Each bf16 run is also measured against the f32 plain run.
 6. Training kernel parity: the fisher_merge and fisher_fold kernels against
-   their plain versions (the port's copy of the harness grid plus the
-   slice's K=2, N=262,144), and the gradients of the LoRA and flash-attention
+   their plain versions, f32 bit for bit (the port's copy of the harness grid
+   plus the slice's K=2, N=262,144 on (K, N) stacks, and whole adapter trees:
+   the harness trees, llava's 4 leaves at K = 1, 2, 5 and the tree kernel's
+   edges), and the gradients of the LoRA and flash-attention
    Functions (kernel forward, hand-written backward) against torch.autograd
    through the plain versions, f32 and bf16, including x (128, 4096) and
    (256, 4096) (the text and image rows NanoEdge gives the kernel), x
@@ -44,10 +46,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    from a seed, f32 rank-64 text and image adapters), 2 clients, 2 rounds,
    2 local steps and 2 Fisher batches each, batch 4 of 64 patches + 32 text
    tokens, kernels on (``cfg.use_pallas`` and ``use_pallas``). Launch counters
-   are reset just before and read just after. A second run with
-   ``agg_chunk=1`` takes round 0 through the fisher_fold kernel, also with its
-   counters reset around it; its streamed merge must equal the fisher_merge
-   kernel's batch merge of the same uploads to f32 summation order.
+   are reset just before and read just after; the server's merge must be one
+   fisher_merge launch a round for the whole adapter tree. A second run with
+   ``agg_chunk=1`` takes round 0 through the fisher_fold kernel, one launch an
+   upload, also with its counters reset around it; its streamed merge must
+   equal the fisher_merge kernel's batch merge of the same uploads to f32
+   summation order.
 9. Full-width kernel check: the loss and adapter gradients of the first
    local step and of the trained adapters, kernel path against the
    plain-version path, in f32 on the same weights upcast (within 1e-4) and in
@@ -60,9 +64,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    device time of each CUDA kernel it launches; flash also at (4, 96, 32,
    128); grouped LoRA at the decode step with 4, 1 and 8 of its 8 adapters
    in use); the gradients beside autograd through the plain versions and
-   SDPA; and the training step, Fisher batch, merge and round end to end.
+   SDPA; the Fisher merge and fold on whole adapter trees (``FISHER_TIMED``:
+   llava's at K = 2 and 5, mamba2's, and one llava leaf); and the training
+   step, Fisher batch, merge (also at K = 5, with its launches and aten ops)
+   and round end to end.
    Warm times replay 50 calls on the same inputs; the kernels whose inputs
-   fit in the 50 MB L2 (LoRA, grouped LoRA, Fisher merge and fold) are also
+   fit in the 50 MB L2 (LoRA, grouped LoRA, flash attention, the SSD scan,
+   Fisher merge and fold) are also
    timed cold (``time_ms_cold``: the calls rotate over copies of the inputs,
    more than 100 MB apart), and their ``[time]`` lines give both times'
    share of the bound. The kernels' line is printed at the end.
@@ -439,7 +447,7 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
         f"peak memory {peak / 2**30:.2f} GiB | launches {json.dumps(launches)}")
 
     kernel16 = [eng.prefill_logits(r) for r in reqs]
-    done_plain, plain16 = run_plain_versions(cfg, backbone, Engine, kw, reqs, counters)
+    done_plain, plain16 = run_plain_versions(cfg, backbone, Engine, kw, reqs)
     worst = hold(torch, cfg.dtype, reqs, kernel16, plain16)
     log(f"[serve] {arch} bf16, kernels vs their plain versions: prefill logits max |err| / "
         f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['bfloat16']}); "
@@ -461,7 +469,7 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
     eng32 = Engine(cfg32, backbone32, use_pallas_grouped=True, **kw)
     done32 = eng32.run(reqs)
     kernel32 = [eng32.prefill_logits(r) for r in reqs]
-    done32_plain, plain32 = run_plain_versions(cfg32, backbone32, Engine, kw, reqs, counters)
+    done32_plain, plain32 = run_plain_versions(cfg32, backbone32, Engine, kw, reqs)
     worst = hold(torch, cfg32.dtype, reqs, kernel32, plain32)
     log(f"[serve] {arch} f32, kernels vs their plain versions: prefill logits max |err| / "
         f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['float32']}); "
@@ -473,10 +481,10 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
     return launches
 
 
-def run_plain_versions(cfg, backbone, Engine, kw, reqs, counters):
+def run_plain_versions(cfg, backbone, Engine, kw, reqs):
     """Serve ``reqs`` with each kernel replaced by its plain version.
     -> (completions, prefill logits per request)."""
-    with plain_versions(counters):
+    with plain_versions():
         plain = Engine(cfg, backbone, use_pallas_grouped=True, **kw)
         done = plain.run(reqs)
         return done, [plain.prefill_logits(r) for r in reqs]
@@ -510,7 +518,7 @@ def agreement(reqs, a, b) -> str:
 
 
 @contextlib.contextmanager
-def plain_versions(counters):
+def plain_versions():
     """Swap each kernel wrapper for its plain version inside its ops module
     (the model code looks the wrapper up there at every call)."""
     from repro_torch.kernels.fisher_merge import ops as fm_ops, ref as fm_ref
@@ -518,21 +526,23 @@ def plain_versions(counters):
     from repro_torch.kernels.lora import ops as lora_ops, ref as lora_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 
-    # (module, wrapper attribute, plain version, counter name)
-    swaps = [(lora_ops, "lora_residual", lora_ref.lora_residual, "lora_residual"),
-             (lora_ops, "grouped_lora_residual", lora_ref.grouped_lora_residual,
-              "grouped_lora_residual"),
-             (fa_ops, "flash_attention", fa_ref.attention, "flash_attention"),
-             (fm_ops, "fisher_merge", fm_ref.fisher_merge, "fisher_merge"),
-             (fm_ops, "fisher_fold", fm_ref.fisher_fold, "fisher_fold"),
-             (ssd_ops, "ssd", ssd_ref.ssd_chunked, "ssd_scan")]
+    # (module, wrapper attribute, plain version)
+    swaps = [(lora_ops, "lora_residual", lora_ref.lora_residual),
+             (lora_ops, "grouped_lora_residual", lora_ref.grouped_lora_residual),
+             (fa_ops, "flash_attention", fa_ref.attention),
+             (fm_ops, "fisher_merge", fm_ref.fisher_merge),
+             (fm_ops, "fisher_merge_leaves", fm_ref.fisher_merge_leaves),
+             (fm_ops, "fisher_fold", fm_ref.fisher_fold),
+             (fm_ops, "fisher_fold_leaves", fm_ref.fisher_fold_leaves),
+             (ssd_ops, "ssd", ssd_ref.ssd_chunked)]
+    wrappers = [getattr(mod, attr) for mod, attr, _ in swaps]
     try:
-        for mod, attr, plain, _ in swaps:
+        for mod, attr, plain in swaps:
             setattr(mod, attr, plain)
         yield
     finally:
-        for mod, attr, _, name in swaps:
-            setattr(mod, attr, counters[name])
+        for (mod, attr, _), wrapper in zip(swaps, wrappers):
+            setattr(mod, attr, wrapper)
 
 
 # ---------------------------------------------------------------------------
@@ -546,6 +556,61 @@ def sq_loss_grads(fn, *tensors):
     return [t.grad for t in leaves]
 
 
+def fisher_parity(torch, harness, fm_ops, fm_ref, gen, dtype_name, shapes, trees):
+    """The Fisher kernels against their plain versions in ``dtype_name``: the
+    single-leaf wrappers on (K, N) stacks, and the tree wrappers on K clients'
+    leaf lists, each client folded in turn. In f32 the kernels must give the
+    plain versions' bits (both sum over the clients in order); bf16 merges are
+    held at the harness tolerance. -> (cases, {(k, leaf sizes): (merge, fold)
+    max |err|})."""
+    dev, dtype = gen.device, getattr(torch, dtype_name)
+
+    def check(got, want, what, dt=dtype_name):
+        err = harness.check_close(got, want, dt, what)
+        if dt == "float32" and not torch.equal(got, want):
+            raise AssertionError(f"{what}: the f32 kernel differs from the plain version "
+                                 f"(max |err| {err:.3e})")
+        return err
+
+    def leaves(sizes, positive):
+        return [((torch.rand((n,), generator=gen, device=dev) + 0.01) if positive
+                 else torch.randn((n,), generator=gen, device=dev)).to(dtype) for n in sizes]
+
+    n_cases, errs = 0, {}
+    for k, n, _ in shapes:
+        theta = torch.stack(leaves((n,) * k, False))
+        fisher = torch.stack(leaves((n,) * k, True))
+        w = (torch.rand((k,), generator=gen, device=dev) + 0.1).cpu()
+        check(fm_ops.fisher_merge(theta, fisher, w), fm_ref.fisher_merge(theta, fisher, w),
+              f"fisher_merge k{k}n{n}")
+        num, den = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+        pnum, pden = num.clone(), den.clone()
+        for i in range(k):
+            fm_ops.fisher_fold(num, den, theta[i], fisher[i], float(w[i]))
+            fm_ref.fisher_fold(pnum, pden, theta[i], fisher[i], float(w[i]))
+        check(num, pnum, f"fisher_fold num k{k}n{n}", "float32")
+        check(den, pden, f"fisher_fold den k{k}n{n}", "float32")
+        n_cases += 2
+    for k, sizes in trees:
+        thetas = [leaves(sizes, False) for _ in range(k)]
+        fishers = [leaves(sizes, True) for _ in range(k)]
+        w = (torch.rand((k,), generator=gen, device=dev) + 0.1).cpu()
+        err_m = max(check(g, p, f"fisher_merge_leaves k{k} leaf {i} of {len(sizes)}")
+                    for i, (g, p) in enumerate(zip(fm_ops.fisher_merge_leaves(thetas, fishers, w),
+                                                   fm_ref.fisher_merge_leaves(thetas, fishers, w))))
+        nums = [torch.zeros(n, device=dev) for n in sizes]
+        dens = [torch.zeros(n, device=dev) for n in sizes]
+        pnums, pdens = [t.clone() for t in nums], [t.clone() for t in dens]
+        for i in range(min(k, 8)):
+            fm_ops.fisher_fold_leaves(nums, dens, thetas[i], fishers[i], float(w[i]))
+            fm_ref.fisher_fold_leaves(pnums, pdens, thetas[i], fishers[i], float(w[i]))
+        err_f = max(check(a, b, f"fisher_fold_leaves k{k} of {len(sizes)} leaves", "float32")
+                    for a, b in zip(nums + dens, pnums + pdens))
+        errs[(k, sizes)] = (err_m, err_f)
+        n_cases += 2
+    return n_cases, errs
+
+
 def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, fm_ref):
     """-> {kernel: max |err| at its main-path shape in f32}."""
     dev = torch.device("cuda")
@@ -555,27 +620,15 @@ def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, 
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     main_err, n_cases = {}, 0
-    full_fisher = harness.FULL_FISHER_SHAPES[0][:2]
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for k, n, _ in harness.FISHER_SHAPES + harness.FISHER_EXTRA_SHAPES + \
-                harness.FULL_FISHER_SHAPES:
-            theta = randn((k, n), dtype=dtype)
-            fisher = (torch.rand((k, n), generator=gen, device=dev) + 0.01).to(dtype)
-            w = torch.rand((k,), generator=gen, device=dev) + 0.1
-            err_m = harness.check_close(fm_ops.fisher_merge(theta, fisher, w),
-                                        fm_ref.fisher_merge(theta, fisher, w), dtype_name,
-                                        f"fisher_merge k{k}n{n}")
-            num, den = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
-            pnum, pden = num.clone(), den.clone()
-            for i in range(k):
-                fm_ops.fisher_fold(num, den, theta[i], fisher[i], float(w[i]))
-                fm_ref.fisher_fold(pnum, pden, theta[i], fisher[i], float(w[i]))
-            err_f = max(harness.check_close(num, pnum, "float32", f"fisher_fold num k{k}n{n}"),
-                        harness.check_close(den, pden, "float32", f"fisher_fold den k{k}n{n}"))
-            n_cases += 2
-            if (k, n) == full_fisher and dtype_name == "float32":
-                main_err["fisher_merge"], main_err["fisher_fold"] = err_m, err_f
+        cases, errs = fisher_parity(
+            torch, harness, fm_ops, fm_ref, gen, dtype_name,
+            harness.FISHER_SHAPES + harness.FISHER_EXTRA_SHAPES + harness.FULL_FISHER_SHAPES,
+            harness.FISHER_TREES + harness.FULL_FISHER_TREES + harness.FISHER_TREE_EDGES)
+        n_cases += cases
+        if dtype_name == "float32":  # the main path: llava's tree at K = 2
+            main_err["fisher_merge"], main_err["fisher_fold"] = errs[harness.FULL_FISHER_TREES[1]]
         for t, d, r, _ in harness.LORA_GRAD_SHAPES + harness.FULL_LORA_GRAD_SHAPES:
             x, down, up = randn((t, d), dtype=dtype), randn((d, r), 0.05), randn((r, d), 0.05)
             got = sq_loss_grads(lambda a, b, c: lora_ops.lora_residual(a, b, c, scale=SCALE),
@@ -603,8 +656,9 @@ def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, 
                     main_err[f"flash_attention {name} {dtype_name}"] = err
             n_cases += 1
     torch.cuda.synchronize()
-    log(f"[train-parity] {n_cases} kernel-vs-plain cases passed (fisher_merge, fisher_fold, "
-        f"LoRA and flash gradients; f32 and bf16); full-width max |err|: {json.dumps(main_err)}")
+    log(f"[train-parity] {n_cases} kernel-vs-plain cases passed (fisher_merge, fisher_fold on "
+        f"(K, N) stacks and whole adapter trees, f32 bit for bit; LoRA and flash gradients; f32 "
+        f"and bf16); full-width max |err|: {json.dumps(main_err)}")
     return main_err
 
 
@@ -727,15 +781,19 @@ def training_full(torch, tr, counters, arch="llava-1.5-7b"):
         if launches[name] <= 0:
             raise AssertionError(f"the {name} kernel never launched on the {arch} training "
                                  f"path: {launches}")
+    if launches["fisher_merge"] != len(losses) or launches["fisher_fold"] != 0:
+        raise AssertionError(f"the server's merge must be one fisher_merge launch a round "
+                             f"for the whole adapter tree: {launches}")
     log(f"[train] {arch} fednano, 2 clients x 2 rounds x ({hp.local_steps} steps + "
         f"{hp.fisher_batches} Fisher batches), merge by fisher_merge: round losses {losses}, "
         f"client accuracy {res.client_accuracy}, comm {c}; wall {wall:.3f} s with final eval; "
         f"peak memory {peak / 2**30:.2f} GiB | launches {json.dumps(launches)}")
 
     res_f, wall_f, launches_f, _ = main_path_run(rounds=1, agg_chunk=1, final_eval=False)
-    if launches_f["fisher_fold"] <= 0:
-        raise AssertionError(f"the fisher_fold kernel never launched: {launches_f}")
     uploads = [(cl.adapters, cl.fisher, cl.n_examples) for cl in res_f.clients]
+    if launches_f["fisher_fold"] != len(uploads) or launches_f["fisher_merge"] != 0:
+        raise AssertionError(f"agg_chunk=1 must fold each upload's whole tree in one "
+                             f"fisher_fold launch ({len(uploads)} uploads): {launches_f}")
     batch = tr["get_strategy"]("fednano").aggregate([u[0] for u in uploads],
                                                     [u[1] for u in uploads],
                                                     [u[2] for u in uploads], use_pallas=True)
@@ -755,7 +813,7 @@ def training_full(torch, tr, counters, arch="llava-1.5-7b"):
     return state, launches_by_path
 
 
-def training_check(torch, tr, st, counters):
+def training_check(torch, tr, st):
     """Full-width loss and adapter gradients, kernel path vs plain-version path."""
     from repro_torch.utils import tree_map
 
@@ -775,7 +833,7 @@ def training_check(torch, tr, st, counters):
                                                                     server.backbone)
         for label, adp in points:
             lk, gk = loss_and_grads(c, backbone, adp)
-            with plain_versions(counters):
+            with plain_versions():
                 lp, gp = loss_and_grads(c, backbone, adp)
             le, ge = abs(lk - lp) / abs(lp), tree_rel_err(gk, gp)
             out[(dtype, label)] = (lk, lp, le, ge)
@@ -790,7 +848,7 @@ def training_check(torch, tr, st, counters):
             f"{le:.3e}, bound {LOSS_TOL[dtype]}); adapter grads max |err| / ‖ref‖∞ {ge:.3e} "
             f"(bound {GRAD_TOL[dtype]})")
 
-    with plain_versions(counters):
+    with plain_versions():
         plain = tr["run_federated"](0, cfg, st["train"], st["evald"], strategy="fednano",
                                     hp=st["hp"], rounds=2, use_pallas=True,
                                     server=fresh_server(server))
@@ -837,38 +895,7 @@ def training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref, fa_op
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     cfg = st["cfg"]
-    out = {}
-
-    # the server's merge of 2 clients' (4096, 64) f32 leaves, one leaf a call
-    K, N = 2, cfg.d_model * cfg.adapter.rank
-    theta = torch.randn((K, N), generator=gen, device=dev)
-    fisher = torch.rand((K, N), generator=gen, device=dev) + 0.01
-    w = torch.tensor([0.5, 0.5], device=dev)
-    merged = fm_ops.fisher_merge(theta, fisher, w)
-    num, den = torch.zeros(N, device=dev), torch.zeros(N, device=dev)
-
-    def fold(*a):
-        return fm_ops.fisher_fold(*a, 0.5)
-
-    def fold_plain(*a):
-        return fm_ref.fisher_fold(*a, 0.5)
-
-    for name, kernel, plain, args, n_bytes, n_ops in (
-            ("fisher_merge", fm_ops.fisher_merge, fm_ref.fisher_merge, (theta, fisher, w),
-             nbytes(theta, fisher, w, merged), (4 * K + 2) * N),
-            ("fisher_fold", fold, fold_plain,
-             (num, den, theta[0], fisher[0]), nbytes(num, den, theta[0], fisher[0], num, den),
-             4 * N)):
-        (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: kernel(*args)),
-                                      time_ms(torch, lambda: plain(*args)))
-        b_ms, b_by = bound(n_bytes, n_ops, "f32")
-        c_ms = time_ms_cold(torch, kernel, args, n_bytes)
-        out[name] = dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
-                         bound_by=b_by)
-        log(f"[time] {name} at K={K if name == 'fisher_merge' else 1}, N={N} f32, device ms "
-            f"per call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} "
-            f"| plain {p_ms:.5f} ({p_is:.5f}) | library None | bound {b_ms:.5f} ({b_by}) | "
-            f"bound / time: warm {b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
+    out = fisher_timings(torch, fm_ops, fm_ref, gen)
 
     # gradients at the training shapes, forward + backward, bf16 activations
     bf16 = torch.bfloat16
@@ -914,10 +941,76 @@ def training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref, fa_op
     return out
 
 
+# The Fisher kernels' timed shapes, (K, leaf sizes): llava-1.5-7b's adapter
+# tree (4 leaves of 4096 x 64) at K = 2 (the training path) and K = 5
+# (launch/train.py's default), mamba2-130m's (2 leaves of 768 x 64) at K = 2,
+# and llava's single leaf at K = 2 (the first port's per-leaf launch).
+FISHER_TIMED = {"llava tree K=2": (2, (4096 * 64,) * 4), "llava tree K=5": (5, (4096 * 64,) * 4),
+                "mamba2 tree K=2": (2, (768 * 64,) * 2), "single leaf K=2": (2, (4096 * 64,))}
+
+
+def fisher_timings(torch, fm_ops, fm_ref, gen):
+    """Rows 4 and 5 at FISHER_TIMED's f32 shapes, warm and cold (the server
+    merges uploads written long before, with the step's activations through
+    L2 in between), beside their plain versions and bounds: the merge reads
+    the K clients' θ and F leaves and writes one tree, 4K + 2 operations a
+    column; the fold of one upload reads num, den, θ and F and writes num and
+    den, 4 operations a column. -> {kernel: kernel-table row, the main path's
+    llava tree at K = 2 first}."""
+    dev = gen.device
+    rows = {"fisher_merge": {}, "fisher_fold": {}}
+    for label, (K, sizes) in FISHER_TIMED.items():
+        L, N = len(sizes), sum(sizes)
+        thetas = [[torch.randn((n,), generator=gen, device=dev) for n in sizes] for _ in range(K)]
+        fishers = [[torch.rand((n,), generator=gen, device=dev) + 0.01 for n in sizes]
+                   for _ in range(K)]
+        w = [1.0 / K] * K
+        flat = tuple(t for c in thetas for t in c) + tuple(f for c in fishers for f in c)
+        nums = tuple(torch.zeros((n,), device=dev) for n in sizes)
+        dens = tuple(torch.zeros((n,), device=dev) for n in sizes)
+
+        def clients(a):  # K * L leaves -> K lists of L
+            return [list(a[c * L:(c + 1) * L]) for c in range(K)]
+
+        def merge(*a, f=fm_ops.fisher_merge_leaves):
+            return f(clients(a[:K * L]), clients(a[K * L:]), w)
+
+        def fold(*a, f=fm_ops.fisher_fold_leaves):
+            return f(a[:L], a[L:2 * L], a[2 * L:3 * L], a[3 * L:], 0.5)
+
+        merged = merge(*flat)
+        fold_args = nums + dens + tuple(thetas[0]) + tuple(fishers[0])
+        for name, kernel, plain, args, n_bytes, n_ops in (
+                ("fisher_merge", merge, lambda *a: merge(*a, f=fm_ref.fisher_merge_leaves), flat,
+                 nbytes(*flat, *merged), (4 * K + 2) * N),
+                ("fisher_fold", fold, lambda *a: fold(*a, f=fm_ref.fisher_fold_leaves),
+                 fold_args, nbytes(*fold_args, *nums, *dens), 4 * N)):
+            if name == "fisher_fold" and label == "llava tree K=5":
+                continue  # one upload's fold does not depend on K
+            (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: kernel(*args)),
+                                          time_ms(torch, lambda: plain(*args)))
+            c_ms = time_ms_cold(torch, kernel, args, n_bytes)
+            b_ms, b_by = bound(n_bytes, n_ops, "f32")
+            rows[name][label] = dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=None,
+                                     bound_ms=b_ms, bound_by=b_by, issued_ms=k_is,
+                                     shape=[K, list(sizes)])
+            what = f"K={K}" if name == "fisher_merge" else "one upload"
+            log(f"[time] {name} {label} ({what}, {L} x {sizes[0]} f32 leaves, "
+                f"{n_bytes / 1e6:.3f} MB), device ms per call (issued from Python): kernel "
+                f"{k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} | plain {p_ms:.5f} ({p_is:.5f}) | "
+                f"library None | bound {b_ms:.5f} ({b_by}) | bound / time: warm "
+                f"{b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
+        if label == "llava tree K=2":
+            kernel_breakdown(torch, lambda: merge(*flat), f"fisher_merge {label}")
+            kernel_breakdown(torch, lambda: fold(*fold_args), f"fisher_fold {label}")
+    return {name: dict(by_shape["llava tree K=2"], shapes=by_shape)
+            for name, by_shape in rows.items()}
+
+
 def loop_timings(torch, tr, st):
     """The training loop end to end at full width: local step, Fisher batch,
-    server merge, round."""
-    from repro_torch.utils import tree_leaves
+    server merge (the run's uploads, and at K = 5), round."""
+    from repro_torch.utils import tree_leaves, tree_map
 
     cfg, hp, server, train = st["cfg"], st["hp"], st["server"], st["train"]
     strat = tr["get_strategy"]("fednano")
@@ -928,8 +1021,15 @@ def loop_timings(torch, tr, st):
     fisher_ms = time_host(torch, lambda: tr["fisher_pass"](
         lambda a, b: tr["client"].fisher_grad(cfg, server.backbone, a, b), adp, train[0][:1]))
     ups = [(cl.adapters, cl.fisher, cl.n_examples) for cl in st["res"].clients]
-    merge_ms = time_host(torch, lambda: strat.aggregate(
-        [u[0] for u in ups], [u[1] for u in ups], [u[2] for u in ups], use_pallas=True), reps=20)
+    thetas, fishers, sizes = ([u[i] for u in ups] for i in range(3))
+    merge_ms = time_host(torch, lambda: strat.aggregate(thetas, fishers, sizes, use_pallas=True),
+                         reps=100)
+    # K = 5, launch/train.py's default: the run's uploads and three made from them
+    k5 = (thetas + [tree_map(lambda t, i=i: t + 0.01 * (i + 1), thetas[i % 2]) for i in range(3)],
+          fishers + [fishers[i % 2] for i in range(3)], sizes + [sizes[0]] * 3)
+    merge5_ms = time_host(torch, lambda: strat.aggregate(*k5, use_pallas=True), reps=100)
+    merge_ops = {len(thetas): merge_call_ops(torch, strat, (thetas, fishers, sizes)),
+                 5: merge_call_ops(torch, strat, k5)}
     t0 = time.perf_counter()
     tr["run_federated"](0, cfg, train, st["evald"], strategy="fednano", hp=hp, rounds=1,
                         use_pallas=True, server=fresh_server(server), final_eval=False)
@@ -938,8 +1038,30 @@ def loop_timings(torch, tr, st):
     log(f"[train-time] {cfg.name} local step (forward, backward, AdamW, float(loss)) "
         f"{step_ms:.2f} ms: {st['tokens_per_step'] / step_ms * 1e3:.1f} trained tokens/s | "
         f"Fisher-pass batch {fisher_ms:.2f} ms | server merge ({len(tree_leaves(adp))} leaves, "
-        f"fisher_merge) {merge_ms:.3f} ms | round wall (2 clients, no eval) {round_s:.3f} s | "
-        f"peak memory of the main run {st['peak'] / 2**30:.2f} GiB")
+        f"fisher_merge) {merge_ms:.3f} ms, at K=5 {merge5_ms:.3f} ms | round wall (2 clients, "
+        f"no eval) {round_s:.3f} s | peak memory of the main run {st['peak'] / 2**30:.2f} GiB")
+    log(f"[train-time] {cfg.name} one server merge (strat.aggregate, use_pallas): fisher_merge "
+        f"launches and aten ops by K: {json.dumps(merge_ops)}")
+
+
+def merge_call_ops(torch, strat, uploads):
+    """-> (fisher_merge launches, {aten op: calls}) of one ``strat.aggregate``
+    on the card; raises unless it is one launch and builds no stack."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.fisher_merge import ops as fm_ops
+
+    before = fm_ops.fisher_merge.launches
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        strat.aggregate(*uploads, use_pallas=True)
+    launches = fm_ops.fisher_merge.launches - before
+    ops = Counter(e.name for e in prof.events() if e.name.startswith("aten::"))
+    if launches != 1 or ops["aten::stack"] or ops["aten::cat"]:
+        raise AssertionError(f"one server merge of K={len(uploads[0])}: {launches} fisher_merge "
+                             f"launches, aten ops {dict(ops)} (want one launch, no stack)")
+    return launches, dict(ops)
 
 
 # ---------------------------------------------------------------------------
@@ -1114,11 +1236,14 @@ def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what=""):
     (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, causal=True)),
                                   time_ms(torch, lambda: fa_ref.attention(q, k, v, causal=True)))
     l_ms, l_is = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    c_ms = time_ms_cold(torch, lambda *a: fa_ops.flash_attention(*a, causal=True), (q, k, v),
+                        nbytes(q, k, v, o, lse))
     log(f"[time] flash_attention at q/k/v ({B}, {S}, {H}, {hd}) bf16 causal{what}, device ms per "
-        f"call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}) | plain {p_ms:.5f} "
-        f"({p_is:.5f}) | library SDPA {l_ms:.5f} ({l_is:.5f}) | bound {b_ms:.5f} ({b_by})")
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                shape=[B, S, H, hd])
+        f"call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} | plain "
+        f"{p_ms:.5f} ({p_is:.5f}) | library SDPA {l_ms:.5f} ({l_is:.5f}) | bound {b_ms:.5f} "
+        f"({b_by}) | bound / time: warm {b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
+    return dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by, shape=[B, S, H, hd])
 
 
 def timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
@@ -1269,21 +1394,8 @@ def mamba_parity(torch, harness, ssd_ops, ssd_ref, lora_ops, lora_ref, fm_ops, f
             for name, g, w in zip(("dx", "dA", "dB"), got, want):
                 harness.check_close(g, w, dtype_name, f"lora grad {name} t{t}d{d}r{r}")
             n_cases += 1
-        for k, n, _ in harness.MAMBA_FISHER_SHAPES:
-            theta = torch.randn((k, n), generator=gen, device=dev).to(dtype)
-            fisher = (torch.rand((k, n), generator=gen, device=dev) + 0.01).to(dtype)
-            w = torch.rand((k,), generator=gen, device=dev) + 0.1
-            harness.check_close(fm_ops.fisher_merge(theta, fisher, w),
-                                fm_ref.fisher_merge(theta, fisher, w), dtype_name,
-                                f"fisher_merge k{k}n{n}")
-            num, den = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
-            pnum, pden = num.clone(), den.clone()
-            for i in range(k):
-                fm_ops.fisher_fold(num, den, theta[i], fisher[i], float(w[i]))
-                fm_ref.fisher_fold(pnum, pden, theta[i], fisher[i], float(w[i]))
-            harness.check_close(num, pnum, "float32", f"fisher_fold num k{k}n{n}")
-            harness.check_close(den, pden, "float32", f"fisher_fold den k{k}n{n}")
-            n_cases += 2
+        n_cases += fisher_parity(torch, harness, fm_ops, fm_ref, gen, dtype_name,
+                                 harness.MAMBA_FISHER_SHAPES, harness.MAMBA_FISHER_TREES)[0]
     torch.cuda.synchronize()
     log(f"[ssd-parity] {n_cases} kernel-vs-plain cases passed (SSD forward and gradients over "
         f"the harness grid, the edges and the full-width shapes; LoRA, grouped LoRA, LoRA "
@@ -1351,10 +1463,12 @@ def mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness):
         # figure is the bound of the same products at f32
         b_ms, b_by = bound(n_bytes, n_ops, "bf16")
         b32_ms, b32_by = bound(n_bytes, n_ops, "f32")
-        shapes[label] = dict(shape=list(shape), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by, bound_f32_ms=b32_ms)
+        c_ms = time_ms_cold(torch, lambda *a: ssd_ops.ssd(*a, chunk=q), args, n_bytes)
+        shapes[label] = dict(shape=list(shape), ms=k_ms, cold_ms=c_ms, plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b32_ms)
         log(f"[time] ssd_scan at x ({b}, {s}, {h}, {p}) bf16, N {n}, chunk {q} ({label}): "
-            f"device ms per call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}) | plain "
+            f"device ms per call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}), cold "
+            f"{c_ms:.5f} (bound / time {b_ms / c_ms:.3f}) | plain "
             f"{p_ms:.5f} ({p_is:.5f}) | library None | bound {b_ms:.5f} ({b_by}; "
             f"{n_ops / 1e9:.4f} GFLOP at the bf16 tensor-core rate, {n_bytes / 1e6:.3f} MB) | "
             f"bound at the f32 CUDA-core rate {b32_ms:.5f} ({b32_by}) | kernel at "
@@ -1392,9 +1506,9 @@ def mamba_timings(torch, ssd_ops, ssd_ref, lora_ops, lora_ref, harness):
     grouped = grouped_timing(torch, lora_ops, lora_ref, gen, d, [0, 1, 2, 3, 0, 1, 2, -1],
                              " (mamba2-130m)", r=r, N=n)
     main = shapes["train"]
-    return {"ssd_scan": dict(ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
-                             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                             shapes=shapes)}, lora, grouped
+    return {"ssd_scan": dict(ms=main["ms"], cold_ms=main["cold_ms"], plain_ms=main["plain_ms"],
+                             library_ms=None, bound_ms=main["bound_ms"],
+                             bound_by=main["bound_by"], shapes=shapes)}, lora, grouped
 
 
 def breakdown(torch, get_config, init_backbone, synth, make_requests, Engine,
@@ -1577,7 +1691,7 @@ def main() -> int:
     training_smoke(torch, tr)
     st, train_launches = training_full(torch, tr, counters)
     launches.update(train_launches)
-    training_check(torch, tr, st, counters)
+    training_check(torch, tr, st)
 
     times = timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref)
     times.update(training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref,
@@ -1600,7 +1714,7 @@ def main() -> int:
     training_smoke(torch, tr, arch=MAMBA)
     st, train_launches = training_full(torch, tr, counters, arch=MAMBA)
     launches.update(train_launches)
-    training_check(torch, tr, st, counters)
+    training_check(torch, tr, st)
     ssd_times, lora_times, grouped_time = mamba_timings(torch, ssd_ops, ssd_ref, lora_ops,
                                                         lora_ref, harness)
     times.update(ssd_times)

@@ -41,10 +41,15 @@ _SIGNATURES = {
     "repro_grouped_lora_residual": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, causal, window, softcap, scale, dtype, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
-    # theta, fisher, w, out, K, N, eps, dtype, stream
+    # theta, fisher, w (host), out, K, N, eps, dtype, stream
     "repro_fisher_merge": [_P, _P, _P, _P, _I, _L, _F, _I, _P],
     # num, den, theta, fisher, w, N, dtype, stream
     "repro_fisher_fold": [_P, _P, _P, _P, _F, _L, _I, _P],
+    # theta[K*L], fisher[K*L], out[L], n[L], K, L, w[K] (host), eps, dtype, stream, launches
+    "repro_fisher_merge_tree": [_P, _P, _P, _P, _I, _I, _P, _F, _I, _P, _P],
+    # num[L], den[L], theta[L], fisher[L], n[L], L, w, dtype, stream, launches
+    "repro_fisher_fold_tree": [_P, _P, _P, _P, _P, _I, _F, _I, _P, _P],
+    "repro_fisher_max_clients": [],
     # x, dt, A, B, C, out, Bt, S, H, P, N, Q, x_sb, x_st, b_sb, b_st, c_sb, c_st, dtype, stream
     "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _I, _P],

@@ -126,6 +126,10 @@ FISHER_SHAPES = [
 ]
 # K in {1, 3, 8} at N off every multiple of the TPU kernel's 1024-wide blocks
 FISHER_EXTRA_SHAPES = [(1, 3000, 1024), (3, 1025, 1024), (8, 2047, 1024)]
+# Adapter trees for the tree wrappers (one kernel launch a tree), (k, leaf
+# sizes): trees of 1, 3 and 4 leaves of unequal sizes, with a single-element
+# leaf and sizes off every multiple of 4 and 8 (the kernel's 16-byte vectors).
+FISHER_TREES = [(3, (1000,)), (2, (1, 37, 256)), (5, (257, 1, 1023, 64))]
 
 SSD_SHAPES = [
     # (b, s, h, p, n, chunk): 15/16/17 around one chunk, a ragged multi-chunk
@@ -181,6 +185,15 @@ SSD_EDGE_SHAPES = [
 FULL_LORA_GRAD_SHAPES = [(4 * 32, 4096, 64, 0), (4 * 64, 4096, 64, 0), (4 * 96, 4096, 64, 0)]
 FULL_FLASH_GRAD_SHAPES = [("llava-train", 4, 96, 96, 32, 32, 128, True, None, 0.0, 0, 0)]
 FULL_FISHER_SHAPES = [(2, 4096 * 64, 0)]
+# ... and whole adapter trees: llava-1.5-7b's four (4096, 64) and (64, 4096)
+# leaves (text and image, down and up), mamba2-130m's two (768, 64) and
+# (64, 768), each at K = 1, 2 (the training path) and 5 (the CLI's default);
+# then the tree kernel's edges: 512 clients on one leaf, K x L past the
+# pointers one launch holds (1536, so 520 clients take two launches) and
+# more leaves than one launch holds (32).
+FULL_FISHER_TREES = [(k, (4096 * 64,) * 4) for k in (1, 2, 5)]
+MAMBA_FISHER_TREES = [(k, (768 * 64,) * 2) for k in (1, 2, 5)]
+FISHER_TREE_EDGES = [(512, (20003,)), (520, (1000, 1001, 1002, 1003)), (2, (33,) * 40)]
 FULL_FLASH_SHAPES = [
     ("llava-prefill", 1, 192, 192, 32, 32, 128, True, None, 0.0, 0, 0),
     ("hd256-gqa-window", 1, 70, 70, 4, 2, 256, True, 24, 0.0, 0, 0),

@@ -13,16 +13,17 @@ import torch
 from repro_torch.kernels.fisher_merge import ops as fm_ops
 from repro_torch.kernels.fisher_merge import ref as fm_ref
 from repro_torch.strategies.base import Strategy, register
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map
 
 
 def _fisher_fold_tree(num, den, theta, fisher, w: float, *, use_pallas: bool = False):
     """Fold one client's (θ, F, w) into the running f32 num/den trees, in place
-    (the JAX package returns new trees). ``use_pallas`` routes each leaf
-    through the ``fisher_fold`` kernel, else its plain version. Returns (num, den).
+    (the JAX package returns new trees). ``use_pallas`` folds the whole tree
+    in one ``fisher_fold`` kernel launch, else each leaf takes its plain
+    version. Returns (num, den).
     """
-    fold = fm_ops.fisher_fold if use_pallas else fm_ref.fisher_fold
-    tree_map(lambda nm, dn, t, f: fold(nm, dn, t, f, w), num, den, theta, fisher)
+    fold = fm_ops.fisher_fold_leaves if use_pallas else fm_ref.fisher_fold_leaves
+    fold(tree_leaves(num), tree_leaves(den), tree_leaves(theta), tree_leaves(fisher), w)
     return num, den
 
 

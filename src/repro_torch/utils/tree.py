@@ -23,6 +23,12 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` in ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def tree_bytes(tree) -> int:
     """Total bytes, by each leaf's dtype."""
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))

@@ -365,6 +365,82 @@ def test_fisher_fold_matches_pallas_and_batch_merge(k, n, bn, dtype):
                  kernel="fisher_merge_stream", dtype=dtype, err_msg="finalized vs batch")
 
 
+def _fisher_tree(seed, k, sizes):
+    """K clients' leaf lists (θ, F) and the K weights, from numpy."""
+    rng = np.random.default_rng(seed)
+    thetas = [[rng.standard_normal(n).astype(np.float32) for n in sizes] for _ in range(k)]
+    fishers = [[rng.uniform(0.01, 1.0, n).astype(np.float32) for n in sizes] for _ in range(k)]
+    return thetas, fishers, rng.uniform(0.1, 1.0, k).astype(np.float32)
+
+
+def _fisher_tree_pairs(thetas, fishers, dtype):
+    """-> (JAX leaves, torch leaves) of θ and of F, each [client][leaf]."""
+    pairs = [[[_pair(a, dtype) for a in client] for client in tree] for tree in (thetas, fishers)]
+    return ([[[p[i] for p in client] for client in tree] for tree in pairs] for i in (0, 1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,sizes", harness.FISHER_TREES)
+def test_fisher_merge_leaves_matches_pallas(k, sizes, dtype):
+    """The tree wrapper's CPU path, leaf by leaf, against the Pallas merge of
+    each leaf's (K, n) stack; every leaf as the single-leaf wrapper gives it."""
+    thetas, fishers, w = _fisher_tree(k * 7 + len(sizes), k, sizes)
+    (jt, jf), (tt, tf) = _fisher_tree_pairs(thetas, fishers, dtype)
+    got = fm_ops.fisher_merge_leaves(tt, tf, w)
+    assert len(got) == len(sizes)
+    for leaf, n in enumerate(sizes):
+        want = jax_fm.fisher_merge(jnp.stack([t[leaf] for t in jt]),
+                                   jnp.stack([f[leaf] for f in jf]), jnp.asarray(w),
+                                   block_n=256, interpret=True)
+        assert got[leaf].dtype == tt[0][0].dtype and got[leaf].shape == (n,)
+        assert_close(_np(got[leaf]), want, kernel="fisher_merge", dtype=dtype,
+                     err_msg=f"leaf {leaf} of {sizes}")
+        single = fm_ops.fisher_merge(torch.stack([t[leaf] for t in tt]),
+                                     torch.stack([f[leaf] for f in tf]), torch.from_numpy(w))
+        assert torch.equal(got[leaf], single)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,sizes", harness.FISHER_TREES)
+def test_fisher_fold_leaves_matches_pallas_and_batch_merge(k, sizes, dtype):
+    """Fold each client's whole tree in turn (in place): every leaf equals the
+    Pallas fold, and the finalized tree the batch merge."""
+    thetas, fishers, w = _fisher_tree(k * 11 + len(sizes), k, sizes)
+    (jt, jf), (tt, tf) = _fisher_tree_pairs(thetas, fishers, dtype)
+    jnum = [jnp.zeros((n,), jnp.float32) for n in sizes]
+    jden = list(jnum)
+    nums, dens = [torch.zeros(n) for n in sizes], [torch.zeros(n) for n in sizes]
+    for i in range(k):
+        got_nums, got_dens = fm_ops.fisher_fold_leaves(nums, dens, tt[i], tf[i], float(w[i]))
+        assert got_nums is nums and got_dens is dens
+        for leaf in range(len(sizes)):
+            jnum[leaf], jden[leaf] = jax_fm.fisher_fold(
+                jnum[leaf], jden[leaf], jt[i][leaf], jf[i][leaf], jnp.float32(w[i]),
+                block_n=256, interpret=True)
+            assert_close(_np(nums[leaf]), jnum[leaf], kernel="fisher_merge_stream",
+                         dtype="float32", err_msg=f"num leaf {leaf} after client {i}")
+            assert_close(_np(dens[leaf]), jden[leaf], kernel="fisher_merge_stream",
+                         dtype="float32", err_msg=f"den leaf {leaf} after client {i}")
+    merged = fm_ref.fisher_merge_leaves(tt, tf, w)
+    for leaf, (num, den) in enumerate(zip(nums, dens)):
+        assert_close(_np((num / (den + 1e-8)).to(tt[0][0].dtype)), _np(merged[leaf]),
+                     kernel="fisher_merge_stream", dtype=dtype, err_msg=f"leaf {leaf}")
+
+
+def test_fisher_tree_wrappers_check_their_inputs():
+    """Weights must number the clients; every client gives the same leaves."""
+    thetas, fishers, w = _fisher_tree(3, 2, (5, 6))
+    tt = [[torch.from_numpy(a) for a in c] for c in thetas]
+    tf = [[torch.from_numpy(a) for a in c] for c in fishers]
+    with pytest.raises(ValueError, match="3 weights for 2 clients"):
+        fm_ops.fisher_merge_leaves(tt, tf, [0.5, 0.25, 0.25])
+    with pytest.raises(ValueError, match="every client must give 2 leaves"):
+        fm_ops.fisher_merge_leaves(tt, [tf[0], tf[1][:1]], w)
+    with pytest.raises(ValueError, match="one leaf each"):
+        fm_ops.fisher_fold_leaves([torch.zeros(5)], [torch.zeros(5)], tt[0], tf[0], 0.5)
+    assert fm_ops.fisher_merge_leaves([[]], [[]], [1.0]) == []
+
+
 # ---------------------------------------------------------------------------
 # SSD chunked scan vs ssd_chunked_pallas and the jnp oracles
 # ---------------------------------------------------------------------------

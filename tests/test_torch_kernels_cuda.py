@@ -11,7 +11,9 @@ package's ``tests/kernel_harness.py``, plus the full-width llava-1.5-7b and
 mamba2-130m shapes. The gradients of ``lora_residual``, ``flash_attention``
 and ``ssd`` (kernel forward, hand-written or recomputed backward) are held
 against ``torch.autograd`` through the plain versions; the Fisher-merge and
-SSD kernels against their plain versions.
+SSD kernels against their plain versions (the Fisher kernels also over whole
+adapter trees, one launch a tree, and their single-leaf wrappers against the
+tree wrappers).
 """
 import pytest
 import torch
@@ -260,7 +262,7 @@ def test_fisher_kernels_match_plain(cuda, k, n, bn, dtype):
     dt = getattr(torch, dtype)
     theta = _randn(gen, (k, n), dtype=dt)
     fisher = (torch.rand((k, n), generator=gen, device=cuda) + 0.01).to(dt)
-    w = torch.rand((k,), generator=gen, device=cuda) + 0.1
+    w = (torch.rand((k,), generator=gen, device=cuda) + 0.1).cpu()  # host weights
     got = fm_ops.fisher_merge(theta, fisher, w)
     harness.check_close(got, fm_ref.fisher_merge(theta, fisher, w), dtype, f"merge k{k}n{n}")
     num, den = torch.zeros(n, device=cuda), torch.zeros(n, device=cuda)
@@ -271,6 +273,100 @@ def test_fisher_kernels_match_plain(cuda, k, n, bn, dtype):
     torch.cuda.synchronize()
     harness.check_close(num, pnum, "float32", f"fold num k{k}n{n}")
     harness.check_close(den, pden, "float32", f"fold den k{k}n{n}")
+
+
+FISHER_TREES = (harness.FISHER_TREES + harness.FULL_FISHER_TREES + harness.MAMBA_FISHER_TREES
+                + harness.FISHER_TREE_EDGES)
+FISHER_TREE_IDS = [f"k{k}-" + ("x".join(map(str, n)) if len(n) < 5 else f"{len(n)}leaves")
+                   for k, n in FISHER_TREES]
+MAX_LEAVES = 32  # csrc/fisher_merge.cu::kMaxLeaves: leaves one launch holds
+
+
+def _fisher_tree(gen, k, sizes, dtype, offset):
+    """K clients' leaf lists (θ, F) on the card and K host weights. With
+    ``offset``, every odd leaf is a view one element into its buffer, off
+    16-byte alignment, so the kernel's scalar path takes it."""
+    def leaf(n, i, positive):
+        off = offset * (i % 2)
+        t = (torch.rand((n + off,), generator=gen, device=gen.device) + 0.01 if positive
+             else torch.randn((n + off,), generator=gen, device=gen.device))
+        return t.to(dtype)[off:]
+
+    thetas = [[leaf(n, i, False) for i, n in enumerate(sizes)] for _ in range(k)]
+    fishers = [[leaf(n, i, True) for i, n in enumerate(sizes)] for _ in range(k)]
+    return thetas, fishers, (torch.rand((k,), generator=gen, device=gen.device) + 0.1).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,sizes", FISHER_TREES, ids=FISHER_TREE_IDS)
+def test_fisher_tree_kernels_match_plain(cuda, k, sizes, dtype, offset):
+    """One merge launch a tree (more only past the launch's pointer or leaf
+    cap), one fold launch an upload; f32 bit for bit against the plain
+    versions (which sum in the kernels' order), bf16 at the harness tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 31 + len(sizes) + offset)
+    dt = getattr(torch, dtype)
+    thetas, fishers, w = _fisher_tree(gen, k, sizes, dt, offset)
+    per_launch = min(MAX_LEAVES, fm_ops.max_clients() // k)
+    before = fm_ops.fisher_merge.launches
+    got = fm_ops.fisher_merge_leaves(thetas, fishers, w)
+    assert fm_ops.fisher_merge.launches - before == -(-len(sizes) // per_launch)
+    want = fm_ref.fisher_merge_leaves(thetas, fishers, w)
+    torch.cuda.synchronize()
+    for leaf, (g, p) in enumerate(zip(got, want)):
+        if dtype == "float32":
+            assert torch.equal(g, p), f"merge leaf {leaf}"
+        else:
+            harness.check_close(g, p, dtype, f"merge k{k} leaf {leaf}")
+    nums = [torch.zeros(n, device=cuda) for n in sizes]
+    dens = [torch.zeros(n, device=cuda) for n in sizes]
+    pnums, pdens = [t.clone() for t in nums], [t.clone() for t in dens]
+    before = fm_ops.fisher_fold.launches
+    for i in range(min(k, 8)):
+        fm_ops.fisher_fold_leaves(nums, dens, thetas[i], fishers[i], float(w[i]))
+        fm_ref.fisher_fold_leaves(pnums, pdens, thetas[i], fishers[i], float(w[i]))
+    assert fm_ops.fisher_fold.launches - before == min(k, 8) * -(-len(sizes) // MAX_LEAVES)
+    torch.cuda.synchronize()
+    for a, b in zip(nums + dens, pnums + pdens):
+        assert torch.equal(a, b), "fold"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n,bn", harness.FISHER_SHAPES + harness.FULL_FISHER_SHAPES)
+def test_fisher_single_leaf_wrappers_match_tree(cuda, k, n, bn, dtype):
+    """fisher_merge / fisher_fold on a (K, N) stack are the tree kernel at
+    L = 1: bit-identical to the tree wrappers given the stack's rows."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    dt = getattr(torch, dtype)
+    theta = _randn(gen, (k, n), dtype=dt)
+    fisher = (torch.rand((k, n), generator=gen, device=cuda) + 0.01).to(dt)
+    w = [0.1 + 0.2 * i for i in range(k)]
+    tree = fm_ops.fisher_merge_leaves([[t] for t in theta], [[f] for f in fisher], w)[0]
+    assert torch.equal(fm_ops.fisher_merge(theta, fisher, w), tree)
+    num, den = torch.zeros(n, device=cuda), torch.zeros(n, device=cuda)
+    tnum, tden = [num.clone()], [den.clone()]
+    for i in range(k):
+        fm_ops.fisher_fold(num, den, theta[i], fisher[i], w[i])
+        fm_ops.fisher_fold_leaves(tnum, tden, [theta[i]], [fisher[i]], w[i])
+    torch.cuda.synchronize()
+    assert torch.equal(num, tnum[0]) and torch.equal(den, tden[0])
+
+
+@pytest.mark.cuda
+def test_fisher_cuda_weights_raise(cuda):
+    """Weights on the card would cost a sync to read and break graph capture."""
+    theta = torch.ones((2, 8), device=cuda)
+    w = torch.full((2,), 0.5, device=cuda)
+    with pytest.raises(ValueError, match="would wait on the card"):
+        fm_ops.fisher_merge(theta, theta, w)
+    with pytest.raises(ValueError, match="would wait on the card"):
+        fm_ops.fisher_merge_leaves([[theta[0]], [theta[1]]], [[theta[0]], [theta[1]]], w)
+    with pytest.raises(ValueError, match="at most"):
+        k = fm_ops.max_clients() + 1
+        fm_ops.fisher_merge(torch.ones((k, 4), device=cuda), torch.ones((k, 4), device=cuda),
+                            [1.0] * k)
 
 
 _ssd_tol = harness.ssd_tolerances
