@@ -7,12 +7,13 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import llava15_7b, mamba2_130m
+from repro_torch.configs import llava15_7b, mamba2_130m, minigpt4_7b
 from repro_torch.configs.base import AdapterConfig, ModelConfig, SSMConfig, reduced
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "llava-1.5-7b": llava15_7b.config,
     "mamba2-130m": mamba2_130m.config,
+    "minigpt4-7b": minigpt4_7b.config,
 }
 
 

@@ -1,15 +1,16 @@
-"""Server-side Fisher merge (paper §3.4, Eq. 1; ``repro.core.aggregation``).
+"""Server-side aggregation (paper §3.4, Eq. 1; ``repro.core.aggregation``).
 
-Laplace-posterior merging with diagonal FIM precision, weighted by client
-data share p_k = |D_k| / Σ|D_j|:
+``fisher_merge`` is the paper's: Laplace-posterior merging with diagonal FIM
+precision, weighted by client data share p_k = |D_k| / Σ|D_j|:
 
     θ_global = ( Σ_k p_k F_k θ_k ) / ( Σ_k p_k F_k + eps )     (elementwise)
 
 ``use_pallas`` hands the K clients' leaves, where they lie, to the
 hand-written ``fisher_merge`` kernel: one launch for the whole tree (the
 plain version on the CPU); without it each leaf takes the plain version
-wherever it lies. FedAvg and the other strategies'
-aggregations arrive with them (ROADMAP queue 2).
+wherever it lies. ``fedavg`` is the isotropic case (F_k ≡ 1), the merge of
+FedAvg, FedProx and FedDPA-F's shared adapter: a weighted sum the JAX
+package leaves to XLA, so plain torch here.
 """
 from __future__ import annotations
 
@@ -34,6 +35,20 @@ def _norm_weights(sizes: Optional[Sequence[float]], n: int) -> np.ndarray:
     w = np.asarray(sizes, np.float32)
     total = w.sum(dtype=np.float32)
     return (w / total if total > 0 else np.ones_like(w) / np.float32(n)).astype(np.float32)
+
+
+def fedavg(thetas: List, data_sizes: Optional[Sequence[float]] = None):
+    """Data-size-weighted parameter average (McMahan et al. 2017): Σ_k p_k θ_k
+    in each leaf's dtype, summed in client order."""
+    w = _norm_weights(data_sizes, len(thetas))
+
+    def mean(*leaves):
+        out = leaves[0] * float(w[0])
+        for x, wk in zip(leaves[1:], w[1:]):
+            out = out.add_(x, alpha=float(wk))
+        return out
+
+    return tree_unflatten(thetas[0], [mean(*ls) for ls in zip(*map(tree_leaves, thetas))])
 
 
 def fisher_merge(thetas: List, fishers: List, data_sizes: Optional[Sequence[float]] = None,

@@ -2,9 +2,10 @@
 round ships on the parameter plane, summed over clients.
 
 FedNano ships NanoAdapters up (plus the diagonal FIM) and the merged
-adapters down. The activation-plane fields (split execution's embeddings
-up and their gradients down) are kept for the JAX package's schema; the
-training slice logs none, as the JAX engine does not either.
+adapters down; ``param_up_wire`` is what the upload transforms put on the
+wire. The activation-plane fields (split execution's embeddings up and
+their gradients down) are kept for the JAX package's schema; the engine
+logs none, as the JAX engine does not either.
 """
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ class RoundTraffic:
     act_up: int = 0          # bytes: split activations client -> server
     act_down: int = 0        # bytes: gradient activations server -> client
     param_up_wire: int = 0   # bytes on the wire after upload transforms
-                             # (== param_up: the port has no transforms yet)
 
     def to_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)

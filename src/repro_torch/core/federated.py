@@ -3,31 +3,39 @@
 ``run_federated`` is a loop over the strategy hooks of
 ``repro_torch.strategies``:
 
-    client.local_update        -> T local AdamW steps + the dedicated FIM pass
-    strategy.post_local_update -> what each client uploads
-    strategy.aggregate         -> the Fisher merge (through server_aggregate,
-                                  which logs the traffic), or with ``agg_chunk``
-                                  the streaming merge, one upload at a time
+    sampler.select             -> which clients run this round
+    client.local_update        -> T local steps through the strategy's loss and
+                                  FIM hooks
+    strategy.post_local_update -> what each client offers for upload
+    transforms[*].apply        -> DP, quantization, sparsification on the wire
+    strategy.aggregate         -> the merge (through server_aggregate, which
+                                  logs the traffic), or with ``agg_chunk``
+                                  the streaming merge, a chunk at a time
+    server_opt.apply           -> an optional FedOpt step on the merged result
     strategy.eval_params       -> which params each client evaluates at the end
 
-The port runs the ``sequential`` engine with full participation. What the
-JAX engine has beyond that raises ``NotImplementedError`` naming its ROADMAP
-queue: the vmap, sharded and buffered engines, checkpoints and resume, and
-failure injection (queue 5), upload transforms, server optimizers and client
-samplers (queue 2).
+The port runs the ``sequential`` engine. What the JAX engine has beyond
+that raises ``NotImplementedError`` naming ROADMAP queue 5: the vmap,
+sharded and buffered engines, checkpoints and resume, and failure
+injection. ``run_centralized`` is the upper bound: one client holding the
+union of the data.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.core import client as client_lib
 from repro_torch.core import server as server_lib
 from repro_torch.core.client import ClientState, HyperParams
+from repro_torch.core.comm import RoundTraffic
 from repro_torch.core.types import Batch
 from repro_torch.strategies.base import get_strategy
+from repro_torch.strategies.sampling import ClientSampler
+from repro_torch.strategies.transforms import TransformCtx, default_transforms
 from repro_torch.utils import tree_bytes, tree_leaves
 
 ENGINES = ("sequential",)
@@ -43,58 +51,70 @@ class FederatedResult:
     server: Optional[object] = None
     clients: Optional[List[ClientState]] = None
     engine: str = "sequential"
+    server_opt_state: Optional[object] = None  # final ServerOpt moments
 
 
 def _not_ported(what: str, queue: int):
     raise NotImplementedError(f"{what}: not in the port yet (ROADMAP queue {queue})")
 
 
+def _default_device(server):
+    return tree_leaves(server.global_adapters)[0].device if server is not None else "cuda"
+
+
 def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
                   eval_data: Dict[int, List[Batch]], *, strategy="fednano", rounds: int = 10,
                   hp: HyperParams = HyperParams(), use_pallas: bool = False,
                   server: Optional[server_lib.ServerState] = None, verbose: bool = False,
-                  transforms=None, server_opt=None, sampler=None, engine: str = "sequential",
+                  transforms: Optional[Sequence] = None, server_opt=None,
+                  sampler: Optional[ClientSampler] = None, engine: str = "sequential",
                   agg_chunk: Optional[int] = None, final_eval: bool = True, failures=None,
                   checkpoint_dir: Optional[str] = None, resume: Optional[str] = None,
                   device=None) -> FederatedResult:
     """Run R rounds of federated NanoAdapter tuning.
 
     ``seed`` takes the place of the JAX package's PRNG key: it draws the server
-    (unless ``server`` is given) and the clients' initial adapters, which
-    FedNano replaces by the global adapters at round 0 before any number
-    is read. ``device`` is where those are drawn: by default the given
-    server's device, else ``cuda``. ``use_pallas`` routes the server's merge
-    through the fisher_merge / fisher_fold kernels; ``cfg.use_pallas`` routes
-    the clients' adapters and attention through theirs. ``agg_chunk`` folds
-    the uploads into a streaming merge every ``agg_chunk`` clients.
+    (unless ``server`` is given) on ``device``, and the clients' initial
+    adapters on the CPU, moved to ``device`` (so a seed gives the same
+    clients on the CPU and the card). Every strategy replaces those adapters
+    by the global ones at the client's first round before any number is
+    read; FedDPA-F's personal adapter is the one draw that stays. ``device``
+    defaults to the given server's device, else ``cuda``. ``use_pallas``
+    routes the server's Fisher merge through the fisher_merge / fisher_fold
+    kernels; ``cfg.use_pallas`` routes the clients' adapters and attention
+    through theirs. ``transforms`` defaults to the ``hp``-driven chain (DP, then
+    int8 + EF), ``server_opt`` to the strategy's own, ``sampler`` to full
+    participation. ``agg_chunk`` folds the uploads into a streaming merge
+    every ``agg_chunk`` clients.
     """
     if engine not in ENGINES:
         _not_ported(f"engine={engine!r}", 5)
-    if transforms or hp.dp_clip > 0.0 or hp.compress_uploads:
-        _not_ported("upload transforms (dp_clip, compress_uploads)", 2)
-    if server_opt is not None:
-        _not_ported("server_opt", 2)
-    if sampler is not None:
-        _not_ported("client samplers", 2)
     if failures is not None:
         _not_ported("failure injection", 5)
     if checkpoint_dir is not None or resume is not None:
         _not_ported("checkpoints and resume", 5)
     strat = get_strategy(strategy)
+    if transforms is None:
+        transforms = default_transforms(hp)
+    if server_opt is None:
+        server_opt = strat.server_opt()
+    if sampler is None:
+        sampler = ClientSampler()
 
     if device is None:
-        device = (tree_leaves(server.global_adapters)[0].device if server is not None
-                  else "cuda")
+        device = _default_device(server)
     if server is None:
         server = server_lib.init_server(cfg, seed=seed, device=device)
     cids = sorted(train_data)
     index_of = {cid: i for i, cid in enumerate(cids)}
-    gen = torch.Generator(device=device).manual_seed(seed + 2)
-    clients = [strat.init_client(gen, cfg, cid, len(train_data[cid])) for cid in cids]
+    gen = torch.Generator().manual_seed(seed + 2)
+    clients = [client_lib.to_device(strat.init_client(gen, cfg, cid, len(train_data[cid])),
+                                    device) for cid in cids]
+    tstates = {cid: [None] * len(transforms) for cid in cids}
 
     result, server = _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp,
-                               rounds=rounds, agg_chunk=agg_chunk, use_pallas=use_pallas,
-                               verbose=verbose)
+                               transforms, tstates, server_opt, sampler, rounds=rounds,
+                               agg_chunk=agg_chunk, use_pallas=use_pallas, verbose=verbose)
     if final_eval:
         for cid in cids:
             adp, ladp = strat.eval_params(server.global_adapters, clients[index_of[cid]])
@@ -107,39 +127,56 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
     return result
 
 
-def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, *, rounds,
-              agg_chunk, use_pallas, verbose):
+def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, transforms, tstates,
+              server_opt, sampler, *, rounds, agg_chunk, use_pallas, verbose):
     """Synchronized rounds, one client at a time (the JAX ``sequential`` engine)."""
-    streaming = bool(agg_chunk)
+    streaming = bool(agg_chunk) and strat.aggregates
+    opt_state = server_opt.init(server.global_adapters) if server_opt is not None else None
     result = FederatedResult(strategy=strat.name)
     for r in range(rounds):
+        cohort = list(sampler.select(r, cids))
         gbytes = tree_bytes(server.global_adapters)
         down_bytes = wire_up = 0
-        losses: List[float] = []
+        losses: List[float] = []           # cohort order
         updates: List[tuple] = []          # (theta, fisher, size), cohort order
         stream_acc = strat.agg_stream_init() if streaming else None
         stream_buf: List[tuple] = []
         stream_bytes = {"param_up": 0, "fisher_up": 0}
+        folded_any = False
+
+        def apply_transforms(cid: int, theta):
+            """-> (θ the server sees, wire bytes): the last size-changing
+            transform of the chain sets the wire size, else the dense tree's."""
+            ctx = TransformCtx(cid=cid, round_idx=r)
+            theta_wire = None
+            for j, t in enumerate(transforms):
+                theta, tstates[cid][j], w = t.apply(ctx, theta, server.global_adapters,
+                                                    tstates[cid][j])
+                if w is not None:
+                    theta_wire = w
+            return theta, (theta_wire if theta_wire is not None else tree_bytes(theta))
 
         def fold_stream():
-            nonlocal stream_acc
+            nonlocal stream_acc, folded_any
             if not stream_buf:
                 return
             ts, fs, ws = (list(col) for col in zip(*stream_buf))
             stream_bytes["param_up"] += sum(tree_bytes(t) for t in ts)
-            stream_bytes["fisher_up"] += sum(tree_bytes(f) for f in fs)
+            stream_bytes["fisher_up"] += sum(tree_bytes(f) for f in fs if f is not None)
             stream_acc = strat.agg_stream_fold(stream_acc, ts, fs, ws, use_pallas=use_pallas)
+            folded_any = True
             stream_buf.clear()
 
-        for cid in cids:
+        for cid in cohort:
             i = index_of[cid]
             if strat.downloads_global(clients[i].rounds_participated):
                 down_bytes += gbytes
             clients[i], metrics = client_lib.local_update(
                 cfg, server.backbone, clients[i], train_data[cid], hp, strat,
                 server.global_adapters, round_idx=r)
-            theta = strat.post_local_update(clients[i], server.global_adapters, r)
-            wire_up += tree_bytes(theta)
+            theta, wbytes = apply_transforms(
+                cid, strat.post_local_update(clients[i], server.global_adapters, r))
+            wire_up += wbytes
             losses.append(metrics["loss_mean"])
             upload = (theta, clients[i].fisher, clients[i].n_examples)
             if streaming:
@@ -149,20 +186,77 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, *, ro
             else:
                 updates.append(upload)
 
-        if streaming:
-            fold_stream()
-            merged = strat.agg_stream_finalize(stream_acc, use_pallas=use_pallas)
-            server = server_lib.server_commit(
-                server, merged, param_up=stream_bytes["param_up"],
-                fisher_up=stream_bytes["fisher_up"], param_down=down_bytes, wire_up=wire_up)
-        else:
-            thetas, fishers, sizes = (list(col) for col in zip(*updates))
-            server = server_lib.server_aggregate(
-                server, strat, thetas, fishers, sizes, down_bytes=down_bytes,
-                use_pallas=use_pallas, wire_up=wire_up)
+        if strat.aggregates and (updates or stream_buf or folded_any):
+            prev_global = server.global_adapters
+            if streaming:
+                fold_stream()
+                merged = strat.agg_stream_finalize(stream_acc, use_pallas=use_pallas)
+                server = server_lib.server_commit(
+                    server, merged, param_up=stream_bytes["param_up"],
+                    fisher_up=stream_bytes["fisher_up"], param_down=down_bytes,
+                    wire_up=wire_up)
+            else:
+                thetas, fishers, sizes = (list(col) for col in zip(*updates))
+                server = server_lib.server_aggregate(
+                    server, strat, thetas, fishers, sizes, down_bytes=down_bytes,
+                    use_pallas=use_pallas, wire_up=wire_up)
+            if server_opt is not None:
+                new_global, opt_state = server_opt.apply(opt_state, prev_global,
+                                                         server.global_adapters)
+                server = dataclasses.replace(server, global_adapters=new_global)
+        elif down_bytes:
+            # no merge this round (LocFT) but the cohort still pulled the global
+            server_lib.log_downloads(server, r, down_bytes)
 
-        rm = {"round": r, "mean_loss": sum(losses) / len(losses), "participants": len(losses)}
+        n = len(losses)
+        # an empty cohort is not a perfect round: mean_loss None, never 0.0
+        rm = {"round": r, "mean_loss": sum(losses) / n if n else None, "participants": n}
         result.round_metrics.append(rm)
         if verbose:
-            print(f"  [{strat.name}] round {r}: mean local loss {rm['mean_loss']:.4f}")
+            shown = ("skipped (no participants)" if n == 0
+                     else f"mean local loss {rm['mean_loss']:.4f}")
+            print(f"  [{strat.name}] round {r}: {shown}")
+    result.server_opt_state = opt_state
     return result, server
+
+
+def run_centralized(seed: int, cfg, train_data: Dict[int, List[Batch]],
+                    eval_data: Dict[int, List[Batch]], *, steps: int = 100,
+                    hp: HyperParams = HyperParams(), verbose: bool = False,
+                    server: Optional[server_lib.ServerState] = None,
+                    device=None) -> FederatedResult:
+    """Upper bound: one 'client' holding the union of all data, ``steps``
+    local FedAvg steps from the global adapters. ``seed``, ``server`` and
+    ``device`` as in :func:`run_federated`."""
+    all_train: List[Batch] = []
+    for cid in sorted(train_data):
+        all_train.extend(train_data[cid])
+    if device is None:
+        device = _default_device(server)
+    if server is None:
+        server = server_lib.init_server(cfg, seed=seed, device=device)
+    strat = get_strategy("fedavg")
+    state = client_lib.to_device(strat.init_client(torch.Generator().manual_seed(seed + 2),
+                                                   cfg, 0, len(all_train)), device)
+    hp_c = HyperParams(lr=hp.lr, weight_decay=hp.weight_decay, grad_clip=hp.grad_clip,
+                       local_steps=steps, prox_mu=hp.prox_mu, fisher_batches=hp.fisher_batches)
+    state, metrics = client_lib.local_update(cfg, server.backbone, state, all_train, hp_c,
+                                             strat, server.global_adapters, round_idx=0)
+    result = FederatedResult(strategy="centralized")
+    result.round_metrics.append({"round": 0, "mean_loss": metrics["loss_mean"],
+                                 "participants": 1})
+    # the bound still moves bytes: one broadcast down, one upload back
+    server.comm.log_round(RoundTraffic(round_idx=0, param_up=tree_bytes(state.adapters),
+                                       param_down=tree_bytes(server.global_adapters),
+                                       param_up_wire=tree_bytes(state.adapters)))
+    for cid in sorted(eval_data):
+        result.client_accuracy[cid] = client_lib.eval_client(cfg, server.backbone,
+                                                             state.adapters, None,
+                                                             eval_data[cid])
+    result.avg_accuracy = sum(result.client_accuracy.values()) / len(result.client_accuracy)
+    result.comm_totals = server.comm.totals()
+    result.server = server
+    result.clients = [state]
+    if verbose:
+        print(f"  [centralized] acc {result.avg_accuracy:.4f}")
+    return result

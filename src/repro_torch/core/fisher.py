@@ -3,10 +3,13 @@
 
     F ≈ E_{(v,q,a)~D_k} [ (∇_θ log p(a|v,q,θ))² ]
 
-FedNano's dedicated pass (``fisher_pass``) runs an extra forward and
-backward per batch on local data at the final local params and averages the
-squared gradients. The streaming estimator of FedNano-EF arrives with that
-strategy (ROADMAP queue 2).
+Two estimators (paper §4.4, Tab. 7):
+  * dedicated pass (``fisher_pass``), FedNano's: an extra forward and
+    backward per batch on local data at the final local params, averaging
+    the squared gradients;
+  * streaming (``FisherAccumulator`` fed by every local step's gradient),
+    FedNano-EF's: no extra compute, averaged over the local trajectory.
+Both square in f32 and divide by max(count, 1) before adding eps.
 """
 from __future__ import annotations
 

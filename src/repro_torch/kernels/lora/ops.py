@@ -17,7 +17,9 @@ For y = x + s·(x·A)·B,
     dB = s · (x·A)ᵀ·g      JAX package leaves them to XLA)
 
 FedNano's x (token embeddings, connector output) is frozen, so on its path
-the backward launches no kernel.
+the backward launches no kernel. Under FedDPA-F the shared adapters' output
+is the personal adapter's x, so their gradient takes the dx launch
+(``lora_residual.dx_launches`` counts those among ``launches``).
 """
 from __future__ import annotations
 
@@ -64,6 +66,7 @@ def lora_residual(x, down, up, *, scale: float):
 
 
 lora_residual.launches = 0
+lora_residual.dx_launches = 0  # of those, the backward's dx (FedDPA-F's shared adapters)
 
 
 class LoraResidual(torch.autograd.Function):
@@ -81,8 +84,8 @@ class LoraResidual(torch.autograd.Function):
         s = ctx.scale
         dx = d_down = d_up = None
         if ctx.needs_input_grad[0]:  # the kernel reads raw pointers: contiguous copies
-            dx = _residual(g.contiguous(), up.t().contiguous(), down.t().contiguous(),
-                           s).to(x.dtype)
+            dx = _residual(g.contiguous(), up.t().contiguous(), down.t().contiguous(), s,
+                           dx=True).to(x.dtype)
         gf, xf = g.float(), x.float()
         if ctx.needs_input_grad[1]:
             d_down = (s * (xf.t() @ (gf @ up.float().t()))).to(down.dtype)   # (D, r)
@@ -91,8 +94,9 @@ class LoraResidual(torch.autograd.Function):
         return dx, d_down, d_up, None
 
 
-def _residual(x, down, up, scale: float):
-    """x (T, D): the plain version on the CPU, the kernel on a CUDA device."""
+def _residual(x, down, up, scale: float, dx: bool = False):
+    """x (T, D): the plain version on the CPU, the kernel on a CUDA device.
+    ``dx``: the call is the backward's input gradient (counted apart as well)."""
     if x.device.type == "cpu":
         return ref.lora_residual(x, down, up, scale=scale)
     d = x.shape[-1]
@@ -109,6 +113,7 @@ def _residual(x, down, up, scale: float):
             build.stream_of(x))
     build.check(err, "lora_residual")
     lora_residual.launches += 1
+    lora_residual.dx_launches += dx
     return out
 
 

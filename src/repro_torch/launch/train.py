@@ -1,13 +1,16 @@
 """Federated training driver of the port (``python -m repro_torch.launch.train``).
 
-The JAX package's ``repro.launch.train`` cut to what the port runs: FedNano
-with the sequential engine on a smoke-size backbone and the synthetic non-IID
+The JAX package's ``repro.launch.train`` cut to what the port runs: any
+registered strategy (or ``centralized``, the one-client upper bound) with
+the sequential engine on a smoke-size backbone and the synthetic non-IID
 VQA corpus, on ``--device`` (default ``cuda``; on the CPU the kernels' plain
-versions run). ``--use-pallas`` routes the adapters and attention
-(``cfg.use_pallas``) and the server's merge (``use_pallas``) through the
-hand-written kernels, as the JAX CLI sets both. Writes the same JSON summary
-under ``--out``. Checkpoint saving waits for ROADMAP queue 5; the other
-strategies, engines and options for queues 2 and 5.
+versions run). ``--server-opt`` applies a FedOpt step to the merged result,
+``--client-frac`` samples that fraction of the clients each round.
+``--use-pallas`` routes the adapters and attention (``cfg.use_pallas``) and
+the server's Fisher merge (``use_pallas``) through the hand-written kernels,
+as the JAX CLI sets both. Writes the same JSON summary under ``--out``.
+Checkpoint saving, the other engines and failure injection wait for
+ROADMAP queue 5.
 """
 from __future__ import annotations
 
@@ -18,13 +21,22 @@ import os
 import time
 
 from repro_torch.configs import get_smoke_config, list_archs
-from repro_torch.core import HyperParams, run_federated
+from repro_torch.core import HyperParams, run_centralized, run_federated
 from repro_torch.data import make_federated_data
+from repro_torch.strategies import FedAdamOpt, FedAvgMOpt, UniformSampler, available_strategies
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="llava-1.5-7b", choices=list_archs())
+    ap.add_argument("--strategy", default="fednano",
+                    choices=list(available_strategies()) + ["centralized"])
+    ap.add_argument("--server-opt", default=None, choices=["fedavgm", "fedadam"],
+                    help="FedOpt server step applied to the merged pseudo-gradient")
+    ap.add_argument("--server-lr", type=float, default=None,
+                    help="server-optimizer learning rate (default: the opt's own)")
+    ap.add_argument("--client-frac", type=float, default=1.0,
+                    help="fraction of clients sampled per round (C in C·K)")
     ap.add_argument("--clients", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--local-steps", type=int, default=8)
@@ -50,7 +62,7 @@ def main(argv=None):
         cfg = cfg.with_(use_pallas=True)
 
     print(f"== FedNano driver (PyTorch port): arch={args.arch} (smoke config) "
-          f"strategy=fednano K={args.clients} R={args.rounds} α={args.alpha} "
+          f"strategy={args.strategy} K={args.clients} R={args.rounds} α={args.alpha} "
           f"rank={cfg.adapter.rank} device={args.device}")
     train, evald, _ = make_federated_data(
         cfg, n_clients=args.clients, examples_per_client=args.examples_per_client,
@@ -58,27 +70,40 @@ def main(argv=None):
         device=args.device)
     hp = HyperParams(lr=args.lr, local_steps=args.local_steps)
     t0 = time.time()
-    res = run_federated(args.seed, cfg, train, evald, strategy="fednano", rounds=args.rounds,
-                        hp=hp, verbose=True, use_pallas=args.use_pallas,
-                        agg_chunk=args.agg_chunk, device=args.device)
+    if args.strategy == "centralized":
+        res = run_centralized(args.seed, cfg, train, evald,
+                              steps=args.rounds * args.local_steps * args.clients, hp=hp,
+                              verbose=True, device=args.device)
+    else:
+        server_opt = None
+        if args.server_opt:
+            cls = {"fedavgm": FedAvgMOpt, "fedadam": FedAdamOpt}[args.server_opt]
+            server_opt = cls(lr=args.server_lr) if args.server_lr is not None else cls()
+        sampler = (UniformSampler(frac=args.client_frac, seed=args.seed)
+                   if args.client_frac < 1.0 else None)
+        res = run_federated(args.seed, cfg, train, evald, strategy=args.strategy,
+                            rounds=args.rounds, hp=hp, verbose=True,
+                            use_pallas=args.use_pallas, server_opt=server_opt,
+                            sampler=sampler, agg_chunk=args.agg_chunk, device=args.device)
     dt = time.time() - t0
 
     os.makedirs(args.out, exist_ok=True)
     summary = {
         "arch": args.arch,
-        "strategy": "fednano",
+        "strategy": args.strategy,
         "avg_accuracy": res.avg_accuracy,
         "client_accuracy": res.client_accuracy,
         "rounds": res.round_metrics,
         "comm_totals": res.comm_totals,
         "wall_s": dt,
     }
-    with open(os.path.join(args.out, f"{args.arch}_fednano.json"), "w") as f:
+    with open(os.path.join(args.out, f"{args.arch}_{args.strategy}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"== done in {dt:.1f}s: avg client accuracy {res.avg_accuracy:.4f}")
     print(f"   per-client: { {k: round(v, 4) for k, v in res.client_accuracy.items()} }")
-    up = res.comm_totals["param_up"] / 1024**2
-    print(f"   param-plane traffic: {up:.2f} MiB up over {args.rounds} rounds")
+    if res.comm_totals:
+        up = res.comm_totals["param_up"] / 1024**2
+        print(f"   param-plane traffic: {up:.2f} MiB up over {args.rounds} rounds")
     return 0
 
 

@@ -1,28 +1,30 @@
 """Strategy plugin API of the port (``repro.strategies.base``): the hooks a
-federated method implements, cut to those FedNano's sequential round uses.
+federated method implements.
 
-    init_client        build the per-client state (adapters, AdamW state)
-    wrap_local_loss    modify the local objective (identity here)
-    wants_fisher       None | "dedicated" FIM estimation
-    post_local_update  what the client uploads after its local steps
+    init_client        build the per-client state (dual adapters, AdamW state)
+    wrap_local_loss    modify the local objective (FedProx's prox term)
+    wants_fisher       None | "dedicated" | "streaming" FIM estimation
+    post_local_update  what the client hands to the upload transforms
     aggregate          merge the uploads into the new global adapters
-    agg_stream_*       the same merge folded one upload at a time
+    agg_stream_*       the same merge folded one chunk of uploads at a time
     eval_params        which (shared, personal) params a client evaluates
 
-Strategies are frozen dataclasses, registered by name with ``@register``
-and resolved with ``get_strategy``. Only ``fednano`` is ported; the JAX
-package's other strategies raise ``NotImplementedError`` (ROADMAP queue 2).
+plus the scheduling predicates ``downloads_global`` and ``local_warmup``,
+the flags ``dual_adapters`` and ``aggregates``, and an optional
+``server_opt`` factory. Strategies are frozen dataclasses, registered by
+name with ``@register`` and resolved with ``get_strategy``, which passes
+instances through. The stacked fold of the sharded engine
+(``agg_stream_fold_stacked``) and checkpoint identity (``checkpoint_meta``)
+are ROADMAP queue 5.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple, Type, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type, Union
+
+from repro_torch.utils import tree_add, tree_map, tree_weighted_sum
 
 _REGISTRY: Dict[str, Type["Strategy"]] = {}
-
-# registered in the JAX package, not yet in the port
-NOT_PORTED = ("fednano_ef", "fedavg", "fedprox", "feddpa_f", "locft", "fedavgm",
-              "fedadam")
 
 
 def register(name: str) -> Callable[[Type["Strategy"]], Type["Strategy"]]:
@@ -34,6 +36,13 @@ def register(name: str) -> Callable[[Type["Strategy"]], Type["Strategy"]]:
     return deco
 
 
+def available_strategies() -> Tuple[str, ...]:
+    """Sorted names of every registered strategy."""
+    import repro_torch.strategies.builtin  # noqa: F401  (registers the built-ins)
+
+    return tuple(sorted(_REGISTRY))
+
+
 def get_strategy(spec: Union[str, "Strategy"]) -> "Strategy":
     """Resolve a strategy name (or pass an instance through)."""
     if isinstance(spec, Strategy):
@@ -42,57 +51,91 @@ def get_strategy(spec: Union[str, "Strategy"]) -> "Strategy":
         raise TypeError(f"strategy must be a name or Strategy instance, got {type(spec)}")
     import repro_torch.strategies.builtin  # noqa: F401  (registers the built-ins)
 
-    if spec in _REGISTRY:
-        return _REGISTRY[spec]()
-    if spec in NOT_PORTED:
-        raise NotImplementedError(f"strategy {spec!r}: the port runs {sorted(_REGISTRY)}; "
-                                  "the others are ROADMAP queue 2")
-    raise ValueError(f"unknown strategy {spec!r}; registered strategies: "
-                     f"{', '.join(sorted(_REGISTRY))}")
+    if spec not in _REGISTRY:
+        raise ValueError(f"unknown strategy {spec!r}; registered strategies: "
+                         f"{', '.join(sorted(_REGISTRY))}")
+    return _REGISTRY[spec]()
 
 
 @dataclass(frozen=True)
 class Strategy:
-    """Base strategy; every hook overridable."""
+    """Base strategy: FedAvg-shaped defaults, every hook overridable."""
 
     name = "strategy"            # overwritten by @register
-    wants_fisher: Optional[str] = None  # None | "dedicated"
+    dual_adapters = False        # keep a personal adapter next to the shared one
+    aggregates = True            # False: the server never merges (local-only)
+    wants_fisher: Optional[str] = None  # None | "dedicated" | "streaming"
 
+    # -- client lifecycle ---------------------------------------------------
     def init_client(self, gen, cfg, cid: int, n_examples: int):
-        """Fresh client: adapters drawn from ``gen``, zero AdamW state."""
+        """Fresh client: adapters (and the personal adapter under
+        ``dual_adapters``) drawn from ``gen``, zero AdamW state."""
         from repro_torch.core import adapters as adapters_lib
         from repro_torch.core.client import ClientState
         from repro_torch.optim import adamw_init
 
         adp = adapters_lib.init_nanoedge(gen, cfg)
+        local = adapters_lib.init_nanoedge(gen, cfg) if self.dual_adapters else None
         return ClientState(cid=cid, adapters=adp, opt_state=adamw_init(adp),
-                           n_examples=n_examples)
+                           n_examples=n_examples, local_adapters=local)
 
     def downloads_global(self, rounds_participated: int) -> bool:
-        """Whether the client adopts θ_global at the start of this round."""
+        """Whether the client adopts θ_global at the start of this round
+        (``rounds_participated`` counts the client's own earlier rounds)."""
         return True
 
+    def local_warmup(self, rounds_participated: int, hp) -> bool:
+        """Whether this round trains the personal adapter before the local steps."""
+        return False
+
+    # -- local objective ----------------------------------------------------
     def wrap_local_loss(self, loss_fn: Callable, hp, global_ref) -> Callable:
         """Wrap the (adapters -> (loss, aux)) objective."""
         return loss_fn
 
+    # -- upload -------------------------------------------------------------
     def post_local_update(self, state, global_adapters, round_idx: int):
-        """What the client uploads."""
+        """What the client hands to the upload transforms."""
         return state.adapters
 
-    def aggregate(self, thetas, fishers, data_sizes, *, use_pallas: bool = False):
-        raise NotImplementedError(f"{self.name}: FedAvg aggregation is ROADMAP queue 2")
+    # -- server -------------------------------------------------------------
+    def aggregate(self, thetas: List, fishers: Optional[List], data_sizes: Sequence[int], *,
+                  use_pallas: bool = False):
+        from repro_torch.core import aggregation
 
+        return aggregation.fedavg(thetas, data_sizes)
+
+    # The O(chunk)-memory counterpart of ``aggregate``: the engine folds chunks
+    # of uploads into a running accumulator. The base is the running weighted
+    # average (fedavg up to summation order); Fisher-merging strategies
+    # override all three with a numerator/denominator pair.
     def agg_stream_init(self):
         """Fresh streaming accumulator (None: shaped on the first fold)."""
         return None
 
-    def agg_stream_fold(self, acc, thetas, fishers, weights, *, use_pallas: bool = False):
-        raise NotImplementedError(f"{self.name}: streaming FedAvg is ROADMAP queue 2")
+    def agg_stream_fold(self, acc, thetas: List, fishers: Optional[List],
+                        weights: Sequence[float], *, use_pallas: bool = False):
+        """Fold one chunk of uploads; ``weights`` are unnormalized (data
+        sizes), normalized once in ``agg_stream_finalize``."""
+        num = tree_weighted_sum(thetas, weights)
+        w = float(sum(weights))
+        if acc is None:
+            return {"num": num, "w": w, "like": tree_map(lambda x: x.dtype, thetas[0])}
+        return {"num": tree_add(acc["num"], num), "w": acc["w"] + w, "like": acc["like"]}
 
     def agg_stream_finalize(self, acc, *, use_pallas: bool = False):
-        raise NotImplementedError(f"{self.name}: streaming FedAvg is ROADMAP queue 2")
+        """The merged adapters (None if nothing was folded)."""
+        if acc is None:
+            return None
+        inv = 1.0 / max(acc["w"], 1e-12)
+        return tree_map(lambda n, d: (n * inv).to(d), acc["num"], acc["like"])
 
+    def server_opt(self):
+        """Optional ServerOpt applied to the merged result (None = identity)."""
+        return None
+
+    # -- evaluation ---------------------------------------------------------
     def eval_params(self, global_adapters, client) -> Tuple[Any, Optional[Any]]:
         """(shared adapters, personal adapters) this client evaluates with."""
         return global_adapters, None
+

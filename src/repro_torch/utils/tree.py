@@ -1,7 +1,9 @@
-"""Tree helpers of the port (the parts of ``repro.utils.tree`` the training
-slice needs). A tree is nested dicts and lists (a backbone's ``layers``)
-whose leaves are tensors."""
+"""Tree helpers of the port (the parts of ``repro.utils.tree`` the port
+needs). A tree is nested dicts and lists (a backbone's ``layers``) whose
+leaves are tensors."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -29,6 +31,11 @@ def tree_unflatten(like, leaves):
     return tree_map(lambda _: next(it), like)
 
 
+def tree_size(tree) -> int:
+    """Total number of scalar parameters."""
+    return sum(math.prod(x.shape) for x in tree_leaves(tree))
+
+
 def tree_bytes(tree) -> int:
     """Total bytes, by each leaf's dtype."""
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
@@ -36,3 +43,33 @@ def tree_bytes(tree) -> int:
 
 def tree_zeros_like(tree, dtype=None):
     return tree_map(lambda x: torch.zeros_like(x, dtype=dtype), tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_sq_norm(tree):
+    """Σ x² over every leaf: a 0-d tensor, summed leaf by leaf in
+    ``tree_leaves`` order from an f32 zero (``tree_dot(tree, tree)``)."""
+    total = None
+    for x in tree_leaves(tree):
+        s = (x * x).sum()
+        total = s if total is None else total + s
+    return total if total is not None else torch.zeros(())
+
+
+def tree_weighted_sum(trees, weights):
+    """Σ_k w_k · tree_k in f32 (``jnp.tensordot(w, stack.astype(f32), axes=1)``):
+    the streaming FedAvg's fold of one chunk."""
+    w = torch.as_tensor([float(x) for x in weights], dtype=torch.float32)
+
+    def leaf(*xs):
+        stacked = torch.stack([x.float() for x in xs])
+        return torch.tensordot(w.to(stacked.device), stacked, dims=1)
+
+    return tree_map(leaf, trees[0], *trees[1:])

@@ -59,10 +59,23 @@ from repro_torch.strategies import base as strategies_base
 ARCH = "llava-1.5-7b"
 ARCHS = [ARCH, "mamba2-130m"]
 DATA_KW = dict(n_clients=2, examples_per_client=16, batch_size=4, seq_len=16, seed=0)
-DATA_KW_BY_ARCH = {ARCH: DATA_KW, "mamba2-130m": dict(DATA_KW, seq_len=40)}
+DATA_KW_BY_ARCH = {ARCH: DATA_KW, "mamba2-130m": dict(DATA_KW, seq_len=40),
+                   "minigpt4-7b": DATA_KW}
 HP = dict(lr=5e-3, local_steps=2, fisher_batches=2)
 ROUNDS = 2
 ADAPTER_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test's torch ops on one thread: smoke-size tensors gain nothing
+    from more, and under pytest-xdist the workers share the cores, where a
+    thread pool per op waits on cores other workers hold (a port run took
+    100x its time alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def rel_err(got, want):
@@ -122,7 +135,7 @@ def _trained_adapters(arch=ARCH):
 # data, losses, one step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["minigpt4-7b"])
 def test_federated_data_matches_reference(arch):
     _, (jtrain, jeval, _), _, (train_b, eval_b, _) = _data(False, arch)
     for want_split, got_split in ((jtrain, train_b), (jeval, eval_b)):
@@ -138,6 +151,8 @@ def test_federated_data_matches_reference(arch):
                     np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     if arch == ARCH:
         assert train_b[0][0].patches.shape == (4, 64, 128)
+    elif arch == "minigpt4-7b":  # 32 Q-Former queries; reduced() clamps the width to 128
+        assert train_b[0][0].patches.shape == (4, 32, 128)
     else:
         assert train_b[0][0].patches is None and train_b[0][0].tokens.shape == (4, 40)
 
@@ -270,10 +285,8 @@ def test_streaming_and_batch_merge_agree(arch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="vmap"), dict(strategy="fedavg"), dict(strategy="fednano_ef"),
-    dict(hp=HyperParams(dp_clip=1.0)), dict(hp=HyperParams(compress_uploads=True)),
-    dict(server_opt=object()), dict(sampler=object()), dict(failures=object()),
-    dict(checkpoint_dir="unused"), dict(resume="unused"),
+    dict(engine="vmap"), dict(failures=object()), dict(checkpoint_dir="unused"),
+    dict(resume="unused"),
 ], ids=lambda kw: next(iter(kw)) + ("" if not isinstance(next(iter(kw.values())), str)
                                    else "=" + next(iter(kw.values()))))
 def test_unported_options_raise(kw):
@@ -283,9 +296,9 @@ def test_unported_options_raise(kw):
 
 
 def test_strategy_names_cover_the_reference():
-    """Every JAX strategy name resolves in the port, or raises naming its queue."""
-    ported = set(strategies_base._REGISTRY)
-    assert ported | set(strategies_base.NOT_PORTED) == set(available_strategies())
+    """The port's registry is the JAX package's."""
+    assert strategies_base.available_strategies() == available_strategies()
+    assert set(strategies_base._REGISTRY) == set(available_strategies())
     assert strategies_base.get_strategy("fednano").wants_fisher == "dedicated"
 
 
