@@ -132,6 +132,36 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       decode step (x (8, 768), 4 adapters in use), the local step, Fisher batch, merge and
       round; a profiled local step, and a profiled full-width prefill of 512
       tokens with four decode steps.
+14. The dense family, one arch after another, each freed before the next
+   is drawn: h2o-danube-1.8b (24 layers, d_model 2560, 32 heads of 80 over 8
+   KV heads, a 4,096-key sliding window), glm4-9b (40 layers, d_model 4096,
+   GQA 16, QKV bias, vocab 151,552), qwen1.5-4b (40 layers, d_model 2560, 20
+   heads, QKV bias) and internlm2-20b (48 layers, d_model 6144, GQA 6), at
+   published width and full depth in bf16, weights from seed 0:
+   a. serving: 16 requests of 4 tenants and base traffic (``DENSE_SERVE_KW``)
+      through the kernels, counters reset around the run, prefill logits held
+      against the plain versions at LOGIT_TOL; for h2o-danube also 8 prompts
+      of 3,900-4,096 tokens with 64 new tokens, so decode wraps its
+      4,096-slot KV ring (``H2O_RING_KW``);
+   b. training: FedNano 2 clients x 2 rounds x 2 steps at batch 4 x 32
+      tokens and one agg_chunk=1 round (as phase 8), round 0 held against a
+      run on the plain versions at RUN_LOSS_TOL_BF16, round 1 reported; the
+      loop's times (``loop_timings``);
+   c. the same weights upcast to f32 in place (internlm2-20b at 16 of its 48
+      layers: 79.6 GB in f32 does not fit one card): prefill logits of the
+      16 requests at 1e-4, one step's loss and adapter gradients at 1e-4;
+   d. h2o-danube's window on the training path: one local step at batch 1 x
+      6,144 tokens on 2 of its 24 layers, bf16 and f32, kernels against
+      plain versions at LOSS_TOL and GRAD_TOL; and its ring in f32 on 2
+      layers: a prefill below the window and one above it, each decoded
+      past position 4,096, every decode step's logits held at 1e-4 against
+      the full windowed forward of the same tokens, kernels and plain
+      versions (``ring_decode_check``);
+   e. the flash kernel at head dim 80 timed at h2o-danube's prefill and
+      training shapes beside SDPA and its bound, and head dim 128 at the
+      prefill's length.
+   Phase 3 covers head dim 80 (``harness.FLASH_EDGE_SHAPES``) and the dense
+   family's full-width attention shapes (``harness.DENSE_FLASH_SHAPES``).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
@@ -192,13 +222,41 @@ SMOKE_SERVE = {"llava-1.5-7b": (dict(max_slots=3, prefill_len=8, max_new_tokens=
                        12)}
 SMOKE_SEQ = {"llava-1.5-7b": 16, MAMBA: 40, "minigpt4-7b": 16}
 TRAIN_DATA_BY_ARCH = {"llava-1.5-7b": TRAIN_DATA, MAMBA: dict(TRAIN_DATA, seq_len=1024)}
+# The dense family, one arch after another at published width and full depth
+# in bf16: 16 requests of 4 tenants and base traffic as llava's [serve], and
+# FedNano 2 clients x 2 rounds x 2 steps at batch 4 x 32 tokens (TRAIN_DATA).
+H2O = "h2o-danube-1.8b"
+DENSE_ARCHS = (H2O, "glm4-9b", "qwen1.5-4b", "internlm2-20b")
+DENSE_SERVE_KW = dict(max_slots=8, prefill_len=128, max_new_tokens=16, adapter_slots=8)
+# f32 on the same weights upcast: internlm2-20b needs 79.6 GB in f32, more than
+# one 80 GB card, so its f32 checks keep the first 16 of its 48 layers.
+DENSE_F32_LAYERS = {"internlm2-20b": 16}
+# h2o-danube past its 4,096-key window. Serving: prefill_len 4096, the most
+# the engine's window guard allows, 8 prompts of 3,900-4,096 tokens and 64 new
+# tokens, so decode wraps the 4,096-slot ring. Training: one local step at
+# batch 1 x 6,144 tokens, where the window masks keys; the plain path holds a
+# (32, 6144, 6144) f32 score matrix a layer for autograd (4.8 GB), so this
+# step runs the first 2 of the 24 layers.
+H2O_RING_KW = dict(max_slots=8, prefill_len=4096, max_new_tokens=64, adapter_slots=8)
+H2O_RING_PROMPTS = (3900, 4096)
+H2O_WINDOW_STEP = dict(seq_len=6144, n_layers=2)
+# h2o-danube's ring in f32 on its first 2 layers: one sequence of 4,300
+# tokens, prefilled to 4,000 positions (below the window; decode wraps the ring
+# at 4,096) and to 4,200 (above it; the seeded ring is rolled), and decoded
+# teacher-forced to its end. Every decode step's logits are held against the
+# full windowed forward of the 4,300 tokens, kernels and plain versions.
+H2O_RING_CHECK = dict(n_layers=2, seq_len=4300, prefills=(4000, 4200))
 # The kernels each main path must launch.
 SERVING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "grouped_lora_residual",
                                             "flash_attention"),
-                           MAMBA: ("lora_residual", "grouped_lora_residual", "ssd_scan")}
+                           MAMBA: ("lora_residual", "grouped_lora_residual", "ssd_scan"),
+                           **{a: ("lora_residual", "grouped_lora_residual", "flash_attention")
+                              for a in DENSE_ARCHS}}
 TRAINING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "flash_attention",
                                              "fisher_merge"),
-                            MAMBA: ("lora_residual", "ssd_scan", "fisher_merge")}
+                            MAMBA: ("lora_residual", "ssd_scan", "fisher_merge"),
+                            **{a: ("lora_residual", "flash_attention", "fisher_merge")
+                               for a in DENSE_ARCHS}}
 
 
 def log(msg: str) -> None:
@@ -283,7 +341,8 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
             if (t, d, r, n, ids) == harness.FULL_GROUPED_SHAPES[0][:4] + (None,) \
                     and dtype_name == "bfloat16":
                 main_err["grouped_lora_residual"] = err
-        for shape in harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.FLASH_EDGE_SHAPES:
+        for shape in (harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES
+                      + harness.FLASH_EDGE_SHAPES + harness.DENSE_FLASH_SHAPES):
             label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
             q = randn((b, sq, h, d), dtype=dtype)
             k, v = randn((b, sk, hkv, d), dtype=dtype), randn((b, sk, hkv, d), dtype=dtype)
@@ -310,8 +369,10 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
     else:
         raise AssertionError("flash_attention accepted head dim 96")
     torch.cuda.synchronize()
-    log(f"[parity] {n_cases} kernel-vs-plain cases passed (f32 and bf16, tile edges "
-        f"included); main-path bf16 max |err|: {json.dumps(main_err)}")
+    log(f"[parity] {n_cases} kernel-vs-plain cases passed (f32 and bf16, tile edges and "
+        f"head dim 80 included; the dense family's full-width attention shapes "
+        f"{[sh[0] for sh in harness.DENSE_FLASH_SHAPES]}); main-path bf16 max |err|: "
+        f"{json.dumps(main_err)}")
     bound = harness.BF16_MODEL_TOLERANCES["bfloat16"]
     for name, (err, share) in gaps.items():
         log(f"[parity] {name} bf16 kernel vs its rounding model over the grid, full-width and "
@@ -441,6 +502,42 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
     log(f"[serve] {arch}: prompt lengths {[len(r.prompt) for r in reqs]}, prefill_len "
         f"{kw['prefill_len']}, tenants {[r.tenant for r in reqs]}")
 
+    launches, done, kernel16, done_plain, plain16 = serve_main_path(
+        torch, cfg, backbone, Engine, counters, kw, reqs, arch)
+
+    # for information: the model's plain path (use_pallas off: bf16 adapter
+    # products, probabilities cast to bf16 before the product with V)
+    jnp_path = Engine(cfg.with_(use_pallas=False), backbone, use_pallas_grouped=False, **kw)
+    done_jnp = jnp_path.run(reqs)
+    jnp16 = [jnp_path.prefill_logits(r) for r in reqs]
+    log(f"[serve] {arch} bf16, kernels vs the use_pallas=False path: prefill logits max |err| / "
+        f"‖ref‖∞ = {rel_err(kernel16, jnp16):.3e}; {agreement(reqs, done, done_jnp)}")
+
+    # f32 on the same weights, upcast exactly: the kernels against their plain
+    # versions without bf16 rounding, and the reference for the bf16 runs
+    del jnp_path
+    cfg32 = cfg.with_(dtype="float32")
+    backbone32 = tree_map(lambda t: t.float(), backbone)
+    eng32 = Engine(cfg32, backbone32, use_pallas_grouped=True, **kw)
+    done32 = eng32.run(reqs)
+    kernel32 = [eng32.prefill_logits(r) for r in reqs]
+    done32_plain, plain32 = run_plain_versions(cfg32, backbone32, Engine, kw, reqs)
+    worst = hold(torch, cfg32.dtype, reqs, kernel32, plain32)
+    log(f"[serve] {arch} f32, kernels vs their plain versions: prefill logits max |err| / "
+        f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['float32']}); "
+        f"{agreement(reqs, done32, done32_plain)}")
+    log(f"[serve] {arch} bf16 runs vs the f32 plain run, prefill logits max |err| / ‖ref‖∞: "
+        f"kernels {rel_err(kernel16, plain32):.3e}, plain versions "
+        f"{rel_err(plain16, plain32):.3e}, use_pallas=False {rel_err(jnp16, plain32):.3e}; "
+        f"kernels' tokens: {agreement(reqs, done, done32_plain)}")
+    return launches
+
+
+def serve_main_path(torch, cfg, backbone, Engine, counters, kw, reqs, what):
+    """Serve ``reqs`` through the kernels, with the launch counters reset just
+    before the run and read just after it; then on the plain versions, and
+    hold the prefill logits at LOGIT_TOL. -> (launches, completions, kernel
+    logits, the plain run's completions, plain logits)."""
     # warm-up: cuBLAS handles, allocator pools, first kernel launches
     Engine(cfg, backbone, use_pallas_grouped=True, **kw).run(
         [dataclasses.replace(r, max_new_tokens=2) for r in reqs[:2]])
@@ -463,49 +560,24 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
         toks = done[r.rid].tokens
         if len(toks) != r.max_new_tokens or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {r.rid}: tokens {toks}")
+    arch = cfg.name
     if not all(launches[n] for n in SERVING_KERNELS_BY_ARCH[arch]):
         raise AssertionError(f"a kernel of the {arch} serving path never launched: {launches}")
     st = eng.stats
     n_tok = sum(len(c.tokens) for c in done.values())
-    log(f"[serve] {arch}: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
+    log(f"[serve] {what}: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
         f"{n_tok / wall:.1f} tokens/s | prefill {1e3 * st['prefill_s'] / st['prefills']:.2f} "
         f"ms/request | decode step {1e3 * st['decode_s'] / st['decode_steps']:.2f} ms "
-        f"({st['decode_steps']} steps, occupancy {eng.mean_occupancy():.2f}/8) | "
-        f"peak memory {peak / 2**30:.2f} GiB | launches {json.dumps(launches)}")
+        f"({st['decode_steps']} steps, occupancy {eng.mean_occupancy():.2f}/{kw['max_slots']}) "
+        f"| peak memory {peak / 2**30:.2f} GiB | launches {json.dumps(launches)}")
 
-    kernel16 = [eng.prefill_logits(r) for r in reqs]
-    done_plain, plain16 = run_plain_versions(cfg, backbone, Engine, kw, reqs)
-    worst = hold(torch, cfg.dtype, reqs, kernel16, plain16)
-    log(f"[serve] {arch} bf16, kernels vs their plain versions: prefill logits max |err| / "
+    kernel_lg = [eng.prefill_logits(r) for r in reqs]
+    done_plain, plain_lg = run_plain_versions(cfg, backbone, Engine, kw, reqs)
+    worst = hold(torch, cfg.dtype, reqs, kernel_lg, plain_lg)
+    log(f"[serve] {what} bf16, kernels vs their plain versions: prefill logits max |err| / "
         f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['bfloat16']}); "
         f"{agreement(reqs, done, done_plain)}")
-
-    # for information: the model's plain path (use_pallas off: bf16 adapter
-    # products, probabilities cast to bf16 before the product with V)
-    jnp_path = Engine(cfg.with_(use_pallas=False), backbone, use_pallas_grouped=False, **kw)
-    done_jnp = jnp_path.run(reqs)
-    jnp16 = [jnp_path.prefill_logits(r) for r in reqs]
-    log(f"[serve] {arch} bf16, kernels vs the use_pallas=False path: prefill logits max |err| / "
-        f"‖ref‖∞ = {rel_err(kernel16, jnp16):.3e}; {agreement(reqs, done, done_jnp)}")
-
-    # f32 on the same weights, upcast exactly: the kernels against their plain
-    # versions without bf16 rounding, and the reference for the bf16 runs
-    del eng, jnp_path
-    cfg32 = cfg.with_(dtype="float32")
-    backbone32 = tree_map(lambda t: t.float(), backbone)
-    eng32 = Engine(cfg32, backbone32, use_pallas_grouped=True, **kw)
-    done32 = eng32.run(reqs)
-    kernel32 = [eng32.prefill_logits(r) for r in reqs]
-    done32_plain, plain32 = run_plain_versions(cfg32, backbone32, Engine, kw, reqs)
-    worst = hold(torch, cfg32.dtype, reqs, kernel32, plain32)
-    log(f"[serve] {arch} f32, kernels vs their plain versions: prefill logits max |err| / "
-        f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['float32']}); "
-        f"{agreement(reqs, done32, done32_plain)}")
-    log(f"[serve] {arch} bf16 runs vs the f32 plain run, prefill logits max |err| / ‖ref‖∞: "
-        f"kernels {rel_err(kernel16, plain32):.3e}, plain versions "
-        f"{rel_err(plain16, plain32):.3e}, use_pallas=False {rel_err(jnp16, plain32):.3e}; "
-        f"kernels' tokens: {agreement(reqs, done, done32_plain)}")
-    return launches
+    return launches, done, kernel_lg, done_plain, plain_lg
 
 
 def run_plain_versions(cfg, backbone, Engine, kw, reqs):
@@ -812,16 +884,18 @@ def training_smoke(torch, tr, arch="llava-1.5-7b", strategy="fednano", adapter_t
         f"the clients' own {own_err:.3e} (bound {adapter_tol:.3e}{witness}); comm totals equal")
 
 
-def training_full(torch, tr, counters, arch="llava-1.5-7b"):
-    """A training main path at full width. -> (state for later phases,
-    launches per kernel on its runs)."""
+def training_full(torch, tr, counters, arch="llava-1.5-7b", server=None):
+    """A training main path at full width, on ``server`` or on one drawn from
+    seed 0. -> (state for later phases, launches per kernel on its runs)."""
     from repro_torch.utils import tree_leaves
 
     cfg = tr["get_config"](arch).with_(use_pallas=True)
     hp = tr["HyperParams"](**TRAIN_HP)
     t0 = time.perf_counter()
-    server = tr["init_server"](cfg, seed=0, device="cuda")
-    train, evald, _ = tr["make_federated_data"](cfg, device="cuda", **TRAIN_DATA_BY_ARCH[arch])
+    if server is None:
+        server = tr["init_server"](cfg, seed=0, device="cuda")
+    train, evald, _ = tr["make_federated_data"](cfg, device="cuda",
+                                                **TRAIN_DATA_BY_ARCH.get(arch, TRAIN_DATA))
     torch.cuda.synchronize()
     b0 = train[0][0]
     n_patches = b0.patches.shape[1] if b0.patches is not None else 0
@@ -900,6 +974,57 @@ def training_full(torch, tr, counters, arch="llava-1.5-7b"):
     return state, launches_by_path
 
 
+def step_check(torch, tr, cfg, backbone, points, batch, what=None):
+    """One step's loss and adapter gradients at each (label, adapters) of
+    ``points``, kernel path against the plain-version path, held at
+    LOSS_TOL and GRAD_TOL of ``cfg.dtype``; logged."""
+    dtype = cfg.dtype
+
+    def loss_and_grads(adapters):
+        loss, _, grads = tr["client"].value_and_grad(
+            lambda a: tr["fednano_loss"](cfg, backbone, a, batch), adapters)
+        return float(loss), grads
+
+    out = []
+    for label, adp in points:
+        lk, gk = loss_and_grads(adp)
+        with plain_versions():
+            lp, gp = loss_and_grads(adp)
+        le, ge = abs(lk - lp) / abs(lp), tree_rel_err(gk, gp)
+        del gk, gp
+        if not math.isfinite(lk) or le > LOSS_TOL[dtype] or ge > GRAD_TOL[dtype]:
+            raise AssertionError(f"{what or cfg.name} {dtype} {label}: loss {lk} vs {lp} "
+                                 f"({le:.3e}, bound {LOSS_TOL[dtype]}), adapter grads "
+                                 f"{ge:.3e} of ‖ref‖∞ (bound {GRAD_TOL[dtype]})")
+        out.append((label, lk, lp, le, ge))
+    torch.cuda.empty_cache()
+    for label, lk, lp, le, ge in out:
+        log(f"[train-check] {what or cfg.name} {dtype} {label}: loss kernels {lk:.7f} plain "
+            f"{lp:.7f} (rel {le:.3e}, bound {LOSS_TOL[dtype]}); adapter grads max |err| / "
+            f"‖ref‖∞ {ge:.3e} (bound {GRAD_TOL[dtype]})")
+
+
+def run_vs_plain(torch, tr, st, held: int):
+    """The bf16 run's round losses, kernels against a run on the plain
+    versions from the same server; the first ``held`` rounds held at
+    RUN_LOSS_TOL_BF16, the rest reported."""
+    cfg, server = st["cfg"], st["server"]
+    with plain_versions():
+        plain = tr["run_federated"](0, cfg, st["train"], st["evald"], strategy="fednano",
+                                    hp=st["hp"], rounds=2, use_pallas=True,
+                                    server=fresh_server(server))
+    kl = [m["mean_loss"] for m in st["res"].round_metrics]
+    pl = [m["mean_loss"] for m in plain.round_metrics]
+    errs = [abs(a - b) / abs(b) for a, b in zip(kl, pl)]
+    ae = tree_rel_err(st["res"].server.global_adapters, plain.server.global_adapters)
+    if max(errs[:held]) > RUN_LOSS_TOL_BF16:
+        raise AssertionError(f"bf16 run, kernels vs plain versions: round losses {kl} vs {pl}")
+    log(f"[train-check] {cfg.name} bf16 whole run, kernels vs plain versions: round losses "
+        f"{kl} vs {pl} (rel {[f'{e:.3e}' for e in errs]}; the first {held} held at "
+        f"{RUN_LOSS_TOL_BF16}, the rest reported); final global adapters {ae:.3e} of "
+        f"‖ref‖∞ (reported)")
+
+
 def training_check(torch, tr, st):
     """Full-width loss and adapter gradients, kernel path vs plain-version path."""
     from repro_torch.utils import tree_map
@@ -907,48 +1032,12 @@ def training_check(torch, tr, st):
     cfg, server, batch = st["cfg"], st["server"], st["train"][0][0]
     points = (("first step", server.global_adapters),
               ("trained", st["res"].server.global_adapters))
-
-    def loss_and_grads(c, backbone, adapters):
-        loss, _, grads = tr["client"].value_and_grad(
-            lambda a: tr["fednano_loss"](c, backbone, a, batch), adapters)
-        return float(loss), grads
-
-    out = {}
     for dtype in ("bfloat16", "float32"):
-        c = cfg.with_(dtype=dtype)
         backbone = server.backbone if dtype == "bfloat16" else tree_map(lambda t: t.float(),
                                                                     server.backbone)
-        for label, adp in points:
-            lk, gk = loss_and_grads(c, backbone, adp)
-            with plain_versions():
-                lp, gp = loss_and_grads(c, backbone, adp)
-            le, ge = abs(lk - lp) / abs(lp), tree_rel_err(gk, gp)
-            out[(dtype, label)] = (lk, lp, le, ge)
-            if not math.isfinite(lk) or le > LOSS_TOL[dtype] or ge > GRAD_TOL[dtype]:
-                raise AssertionError(f"{dtype} {label}: loss {lk} vs {lp} ({le:.3e}, bound "
-                                     f"{LOSS_TOL[dtype]}), adapter grads {ge:.3e} of ‖ref‖∞ "
-                                     f"(bound {GRAD_TOL[dtype]})")
+        step_check(torch, tr, cfg.with_(dtype=dtype), backbone, points, batch)
         del backbone
-    torch.cuda.empty_cache()
-    for (dtype, label), (lk, lp, le, ge) in out.items():
-        log(f"[train-check] {cfg.name} {dtype} {label}: loss kernels {lk:.7f} plain {lp:.7f} (rel "
-            f"{le:.3e}, bound {LOSS_TOL[dtype]}); adapter grads max |err| / ‖ref‖∞ {ge:.3e} "
-            f"(bound {GRAD_TOL[dtype]})")
-
-    with plain_versions():
-        plain = tr["run_federated"](0, cfg, st["train"], st["evald"], strategy="fednano",
-                                    hp=st["hp"], rounds=2, use_pallas=True,
-                                    server=fresh_server(server))
-    kl = [m["mean_loss"] for m in st["res"].round_metrics]
-    pl = [m["mean_loss"] for m in plain.round_metrics]
-    le = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
-    ae = tree_rel_err(st["res"].server.global_adapters, plain.server.global_adapters)
-    if le > RUN_LOSS_TOL_BF16:
-        raise AssertionError(f"bf16 run, kernels vs plain versions: round losses {kl} vs {pl}")
-    log(f"[train-check] {cfg.name} bf16 whole run, kernels vs plain versions: round losses "
-        f"{kl} vs {pl} "
-        f"(max rel {le:.3e}, bound {RUN_LOSS_TOL_BF16}); final global adapters "
-        f"{ae:.3e} of ‖ref‖∞ (reported)")
+    run_vs_plain(torch, tr, st, held=2)
 
 
 STRATEGY_ARCH = "minigpt4-7b"
@@ -1583,25 +1672,42 @@ def grouped_timing(torch, lora_ops, lora_ref, gen, D, ids, what="", r=64, N=8):
                 bound_by=b_by, ids=list(ids), shape=[len(ids), D, r, N])
 
 
-def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what=""):
-    """The flash kernel (causal) beside its plain version, SDPA and its
-    bound. -> a kernel-table row."""
+def causal_pairs(s: int, window=None) -> int:
+    """Unmasked (query, key) pairs of one causal head of length s, with a window."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what="", window=None):
+    """The flash kernel (causal, with ``window``) beside its plain version,
+    SDPA and its bound. SDPA has no window: it is timed only where the window
+    masks nothing, and takes GQA's K/V heads as they are (``enable_gqa``).
+    -> a kernel-table row."""
     B, S, H, hd = q.shape
-    o, lse = fa_ops.flash_attention(q, k, v, causal=True, return_lse=True)
-    pairs = S * (S + 1) // 2 * H * B
+    Hkv = k.shape[2]
+    kw = dict(causal=True, window=window)
+    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    pairs = causal_pairs(S, window) * H * B
     b_ms, b_by = bound(nbytes(q, k, v, o, lse), 4 * hd * pairs, "bf16")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, causal=True)),
-                                  time_ms(torch, lambda: fa_ref.attention(q, k, v, causal=True)))
-    l_ms, l_is = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    c_ms = time_ms_cold(torch, lambda *a: fa_ops.flash_attention(*a, causal=True), (q, k, v),
+    (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw)),
+                                  time_ms(torch, lambda: fa_ref.attention(q, k, v, **kw)))
+    l_ms = l_is = None
+    if window is None or window >= S:
+        gqa = dict(enable_gqa=True) if Hkv != H else {}
+        l_ms, l_is = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **gqa))
+    c_ms = time_ms_cold(torch, lambda *a: fa_ops.flash_attention(*a, **kw), (q, k, v),
                         nbytes(q, k, v, o, lse))
-    log(f"[time] flash_attention at q/k/v ({B}, {S}, {H}, {hd}) bf16 causal{what}, device ms per "
-        f"call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} | plain "
-        f"{p_ms:.5f} ({p_is:.5f}) | library SDPA {l_ms:.5f} ({l_is:.5f}) | bound {b_ms:.5f} "
-        f"({b_by}) | bound / time: warm {b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
+    lib = f"{l_ms:.5f} ({l_is:.5f})" if l_ms is not None else "None (no window in SDPA)"
+    log(f"[time] flash_attention at q ({B}, {S}, {H}, {hd}) k/v Hkv {Hkv} bf16 causal"
+        f"{f' window {window}' if window else ''}{what}, device ms per call (issued from "
+        f"Python): kernel {k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} | plain {p_ms:.5f} "
+        f"({p_is:.5f}) | library SDPA {lib} | bound {b_ms:.5f} ({b_by}) | bound / time: warm "
+        f"{b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
     return dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                bound_by=b_by, shape=[B, S, H, hd])
+                bound_by=b_by, shape=[B, S, H, Hkv, hd, window])
 
 
 def timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
@@ -1962,6 +2068,215 @@ def profile_summary(torch, prof, wall, what):
     log(f"[profile]   the port's kernels: {'; '.join(parts) or 'none'}")
 
 
+# ---------------------------------------------------------------------------
+# the dense family: h2o-danube-1.8b, glm4-9b, qwen1.5-4b, internlm2-20b
+# ---------------------------------------------------------------------------
+
+def upcast_in_place(torch, backbone, n_layers):
+    """Keep the first ``n_layers`` layers and turn every weight to f32 in
+    place, one tensor at a time, so the bf16 copy is freed as the f32 one is
+    made (every holder of the dict sees the f32 weights)."""
+    del backbone["layers"][n_layers:]
+    torch.cuda.empty_cache()
+
+    def walk(d):
+        for key, val in d.items():
+            if isinstance(val, dict):
+                walk(val)
+            else:
+                d[key] = val.float()
+
+    for key in [k for k in backbone if k != "layers"]:
+        walk(backbone[key])
+    for lp in backbone["layers"]:
+        walk(lp)
+    torch.cuda.empty_cache()
+
+
+def window_step_batch(torch, cfg, seq_len):
+    """Batch 1 x ``seq_len`` tokens from a seeded generator, answer mask on
+    the second half: a training row longer than h2o-danube's window."""
+    from repro_torch.core.types import Batch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq_len + 1), generator=gen, device="cuda")
+    mask = torch.zeros((1, seq_len), device="cuda")
+    mask[:, seq_len // 2:] = 1.0
+    return Batch(tokens=tokens[:, :-1], labels=tokens[:, 1:], mask=mask)
+
+
+def dense_arch(torch, tr, sv, counters, arch):
+    """One dense arch at published width. -> launches per kernel by path."""
+    from repro_torch.utils import tree_leaves
+
+    log(f"[dense] device memory before drawing {arch}: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    cfg = tr["get_config"](arch).with_(use_pallas=True)
+    t0 = time.perf_counter()
+    server = tr["init_server"](cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(server.backbone))
+    log(f"[dense] {arch} backbone: {n_params / 1e9:.3f} B params ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv_bias "
+        f"{cfg.qkv_bias}, window {cfg.sliding_window}, {cfg.dtype}) drawn in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated")
+    short = arch.split("-")[0]
+    launches = {}
+
+    # serving: 16 requests of 4 tenants and base traffic
+    names = [f"tenant{i}" for i in range(4)]
+    tenants = sv["synth"](0, cfg, names, "cuda")
+    kw = dict(DENSE_SERVE_KW, adapter_loader=tenants.__getitem__)
+    reqs = sv["make_requests"](cfg, names, 16, kw["prefill_len"], kw["max_new_tokens"], 0)
+    launches[f"serve_{short}"], *_ = serve_main_path(torch, cfg, server.backbone, sv["Engine"],
+                                                     counters, kw, reqs, arch)
+    if cfg.sliding_window is not None:
+        launches[f"serve_{short}_ring"] = serve_past_window(torch, cfg, server.backbone, sv,
+                                                            counters, tenants, names)
+    torch.cuda.empty_cache()
+
+    # training: FedNano 2 clients x 2 rounds, and one agg_chunk=1 round
+    st, train_launches = training_full(torch, tr, counters, arch=arch, server=server)
+    launches.update(train_launches)
+    run_vs_plain(torch, tr, st, held=1)
+    loop_timings(torch, tr, st)
+    trained = st["res"].server.global_adapters
+    if cfg.sliding_window is not None:
+        window_step(torch, tr, cfg, server.backbone, trained)
+
+    # f32 on the same weights upcast (internlm2-20b at DENSE_F32_LAYERS)
+    n32 = min(DENSE_F32_LAYERS.get(arch, cfg.n_layers), cfg.n_layers)
+    upcast_in_place(torch, server.backbone, n32)
+    cfg32 = cfg.with_(dtype="float32", n_layers=n32)
+    depth = f"{n32} of {cfg.n_layers} layers" if n32 < cfg.n_layers else "full depth"
+    log(f"[dense] {arch} upcast to f32 ({depth}): {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    eng32 = sv["Engine"](cfg32, server.backbone, use_pallas_grouped=True, **kw)
+    kernel32 = [eng32.prefill_logits(r) for r in reqs]
+    del eng32
+    with plain_versions():
+        plain_eng = sv["Engine"](cfg32, server.backbone, use_pallas_grouped=True, **kw)
+        plain32 = [plain_eng.prefill_logits(r) for r in reqs]
+        del plain_eng
+    worst = hold(torch, "float32", reqs, kernel32, plain32)
+    log(f"[serve] {arch} f32 ({depth}), kernels vs their plain versions: prefill logits of "
+        f"{len(reqs)} requests max |err| / ‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['float32']})")
+    batch = st["train"][0][0]
+    step_check(torch, tr, cfg32, server.backbone,
+               (("first step", server.global_adapters), ("trained", trained)), batch,
+               what=f"{arch} ({depth})")
+    if cfg.sliding_window is not None:
+        window_step(torch, tr, cfg32, server.backbone, trained)
+        ring_decode_check(torch, tr, cfg32, server.backbone)
+    del st, server, trained, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_past_window(torch, cfg, backbone, sv, counters, tenants, names):
+    """h2o-danube's prompts of 3,900-4,096 tokens and 64 new tokens: decode
+    wraps the 4,096-slot ring. -> launches per kernel."""
+    import numpy as np
+
+    kw = dict(H2O_RING_KW, adapter_loader=tenants.__getitem__)
+    reqs = sv["make_requests"](cfg, names, kw["max_slots"], kw["prefill_len"],
+                               kw["max_new_tokens"], 1)
+    rng = np.random.default_rng(2)
+    for r, n in zip(reqs, np.linspace(*H2O_RING_PROMPTS, len(reqs)).astype(int)):
+        r.prompt = rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+    eng = sv["Engine"](cfg, backbone, **kw)
+    ring = eng.slots.state["layers"].k.shape[2]
+    del eng
+    last = max(len(r.prompt) + r.max_new_tokens - 1 for r in reqs)
+    if ring != cfg.sliding_window or last < ring:
+        raise AssertionError(f"the ring has {ring} slots and decode reaches position {last}")
+    log(f"[serve] {cfg.name} past the window: prompt lengths {[len(r.prompt) for r in reqs]}, "
+        f"prefill_len {kw['prefill_len']}, {kw['max_new_tokens']} new tokens; the KV ring has "
+        f"{ring} slots and decode reaches position {last}")
+    launches, *_ = serve_main_path(torch, cfg, backbone, sv["Engine"], counters, kw, reqs,
+                                   f"{cfg.name} past the window")
+    return launches
+
+
+def window_step(torch, tr, cfg, backbone, adapters):
+    """One local step at batch 1 x 6,144 tokens, past h2o-danube's window,
+    on the first 2 layers: loss and adapter gradients, kernels against plain
+    versions, at LOSS_TOL and GRAD_TOL."""
+    n, seq = H2O_WINDOW_STEP["n_layers"], H2O_WINDOW_STEP["seq_len"]
+    cut = dict(backbone, layers=backbone["layers"][:n])
+    torch.cuda.reset_peak_memory_stats()
+    step_check(torch, tr, cfg.with_(n_layers=n), cut, (("trained", adapters),),
+               window_step_batch(torch, cfg, seq),
+               what=f"{cfg.name} window step (batch 1 x {seq} tokens, window "
+                    f"{cfg.sliding_window}, {n} of {cfg.n_layers} layers)")
+    log(f"[train-check] {cfg.name} {cfg.dtype} window step: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def ring_decode_check(torch, tr, cfg, backbone):
+    """h2o-danube's KV ring in f32 on its first 2 layers, past the window:
+    prefill (kernels) and teacher-forced decode of one sequence of
+    H2O_RING_CHECK tokens; every decode step's logits held at LOGIT_TOL
+    against the logits of the full windowed forward of the same tokens, run
+    once through the kernels and once through the plain versions (which
+    hold each other at the same bound)."""
+    model = tr["model"]
+    n, N = H2O_RING_CHECK["n_layers"], H2O_RING_CHECK["seq_len"]
+    cfg = cfg.with_(n_layers=n)
+    cut = dict(backbone, layers=backbone["layers"][:n])
+    w, tol = cfg.sliding_window, LOGIT_TOL["float32"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (1, N), generator=gen, device="cuda")
+    pos = torch.arange(N, device="cuda")[None]
+    with torch.no_grad():
+        emb = model.embed_tokens(cfg, cut, tokens)
+        full = model.logits(cfg, cut, model.forward(cfg, cut, emb, pos)[0])[0]
+        with plain_versions():
+            plain = model.logits(cfg, cut, model.forward(cfg, cut, emb, pos)[0])[0]
+        gap = rel_err(full, plain)
+        finite = bool(torch.isfinite(full).all()) and bool(torch.isfinite(plain).all())
+        worst = {}
+        for P in H2O_RING_CHECK["prefills"]:
+            state, _ = model.prefill(cfg, cut, emb[:, :P], pos[:, :P], capacity=N)
+            ring = state["layers"].k.shape[2]
+            if ring != w:
+                raise AssertionError(f"the ring has {ring} slots, not the window's {w}")
+            errs = []
+            for t in range(P, N):
+                got, state = model.decode_step(cfg, cut, emb[:, t:t + 1], state, t)
+                finite = finite and bool(torch.isfinite(got).all())
+                errs.append(max(rel_err([got[0, 0]], [full[t]]), rel_err([got[0, 0]], [plain[t]])))
+            worst[P] = (max(errs), P + errs.index(max(errs)))
+    if not finite or gap > tol or any(e > tol for e, _ in worst.values()):
+        raise AssertionError(f"{cfg.name} ring decode: finite {finite}, forward kernels vs "
+                             f"plain {gap:.3e}, "
+                             f"decode vs forward {worst} (bound {tol})")
+    log(f"[serve-check] {cfg.name} f32 ring ({n} of 24 layers, {w}-slot ring, {N} tokens): "
+        f"full windowed forward, kernels vs plain versions {gap:.3e}; decode vs the forwards, "
+        + "; ".join(f"prefill {P}, {N - P} steps to position {N - 1}: worst {e:.3e} at "
+                    f"position {t}" for P, (e, t) in worst.items())
+        + f" (bound {tol} of ‖ref‖∞)")
+
+
+def dense_timings(torch, F, fa_ops, fa_ref):
+    """The flash kernel at head dim 80: h2o-danube's prefill (1, 4096, 32, 80)
+    and training batch (4, 32, 32, 80), Hkv 8, its window 4096, bf16; and,
+    to tell the head dim from the sequence length, head dim 128 at the
+    prefill's 4,096 positions."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for label, (b, s_, hd) in (("h2o prefill", (1, 4096, 80)), ("h2o train", (4, 32, 80)),
+                               ("d128 at 4096", (1, 4096, 128))):
+        q = torch.randn((b, s_, 32, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, s_, 8, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        out[label] = flash_timing(torch, F, fa_ops, fa_ref, q, k, v, f" ({label})",
+                                  window=4096)
+    return out
+
+
 SOURCES = {
     "lora_residual": ("src/repro_torch/csrc/lora.cu", "src/repro/kernels/lora/lora.py:49"),
     "grouped_lora_residual": ("src/repro_torch/csrc/lora.cu",
@@ -2003,6 +2318,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.launch.serve import make_requests, synth_tenant_adapters
+    from repro_torch.models import model as model_lib
     from repro_torch.models.model import init_backbone
     from repro_torch.optim import adamw_init
     from repro_torch.serving import ServingEngine
@@ -2045,7 +2361,7 @@ def main() -> int:
               client=client_lib, fednano_loss=fednano_loss, fisher_pass=fisher_pass,
               make_federated_data=make_federated_data, adamw_init=adamw_init,
               get_strategy=get_strategy, available_strategies=available_strategies,
-              strategies=strategies)
+              strategies=strategies, model=model_lib)
     main_err.update(training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref,
                                     fm_ops, fm_ref))
     training_smoke(torch, tr)
@@ -2093,6 +2409,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     breakdown(torch, get_config, init_backbone, synth_tenant_adapters, make_requests,
               ServingEngine, arch=MAMBA)
+
+    # the dense family: h2o-danube-1.8b, glm4-9b, qwen1.5-4b, internlm2-20b
+    sv = dict(synth=synth_tenant_adapters, make_requests=make_requests, Engine=ServingEngine)
+    for arch in DENSE_ARCHS:
+        launches.update(dense_arch(torch, tr, sv, counters, arch))
+    times["flash_attention"]["shapes"].update(dense_timings(torch, F, fa_ops, fa_ref))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

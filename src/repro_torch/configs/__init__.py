@@ -1,19 +1,37 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
-Holds the configs whose families the port runs; the other architectures of
-``repro.configs`` join as their families are ported (ROADMAP queue 3).
+Holds the configs whose families the port runs: the paper's two MLLM
+backbones (vlm), mamba2-130m (ssm) and the dense family's four
+(h2o-danube-1.8b with its sliding window, glm4-9b and qwen1.5-4b with their
+QKV bias, internlm2-20b). The other architectures of ``repro.configs`` join
+as their families are ported (ROADMAP queue 3): qwen2-vl-72b with M-RoPE
+(3d), llama4-scout and grok-1 with the MoE family (3e), recurrentgemma-9b
+with the hybrid family (3f), whisper-base with the encoder-decoder family
+(3g).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import llava15_7b, mamba2_130m, minigpt4_7b
+from repro_torch.configs import (
+    glm4_9b,
+    h2o_danube_1_8b,
+    internlm2_20b,
+    llava15_7b,
+    mamba2_130m,
+    minigpt4_7b,
+    qwen1_5_4b,
+)
 from repro_torch.configs.base import AdapterConfig, ModelConfig, SSMConfig, reduced
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
+    "glm4-9b": glm4_9b.config,
+    "h2o-danube-1.8b": h2o_danube_1_8b.config,
+    "internlm2-20b": internlm2_20b.config,
     "llava-1.5-7b": llava15_7b.config,
     "mamba2-130m": mamba2_130m.config,
     "minigpt4-7b": minigpt4_7b.config,
+    "qwen1.5-4b": qwen1_5_4b.config,
 }
 
 

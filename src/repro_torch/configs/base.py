@@ -1,12 +1,21 @@
 """Configuration dataclasses of the PyTorch port.
 
 The port's own copy of ``repro.configs.base``, cut to what the ported
-families (``dense`` / ``vlm`` / ``ssm``) read. The field names and defaults
-are the JAX package's, so ``tests/test_torch_model.py`` can hold the smoke
-configs against each other field by field. The switches only other families
-set (sliding window, softcap, QKV bias, the sequence limit of learned
-positions) and the other sub-family configs (MoE, RG-LRU, encoder-decoder)
-arrive with those families (ROADMAP queue 3).
+families (``dense`` / ``vlm`` / ``ssm``) read. The field names, defaults and
+order are the JAX package's, so ``tests/test_torch_model.py`` can hold the
+configs against each other field by field.
+
+The port has the JAX fields that its configs set and its code reads; for the
+dense family that is ``qkv_bias`` and ``sliding_window``. A JAX field arrives
+with the config or caller that first sets it (ROADMAP queue 3):
+``mrope_sections`` with qwen2-vl (3d); ``moe`` and ``logit_softcap`` with
+the MoE family (3e, grok-1 caps its logits); ``rglru`` with the hybrid
+family (3f); ``max_seq_len`` with learned positions, and ``n_enc_layers``,
+``enc_seq_len`` and ``parallel_block``, with the encoder-decoder family (3g);
+``attn_chunk`` and ``loss_chunk`` with a long-sequence caller. The adapters'
+``dropout`` is read nowhere in the JAX package. The JAX package's execution
+switches for its TPU mesh (``remat``, ``scan_layers``, ``seq_parallel``,
+``ctx_parallel_attn``) change no number and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -50,9 +59,13 @@ class ModelConfig:
     d_ff: int = 512
     vocab_size: int = 1024
 
-    # positions / block structure
+    # attention / positions
     pos_type: str = "rope"         # the port runs rope | none
     rope_theta: float = 10000.0
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None   # SWA window (h2o-danube: 4096)
+
+    # block structure
     norm: str = "rmsnorm"          # the port runs rmsnorm
     act: str = "swiglu"            # the port runs swiglu
     tie_embeddings: bool = False   # logits read the embedding table (no unembed)
@@ -101,6 +114,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=d_model // n_heads,
         d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 512),
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
         dtype="float32",
         adapter=dataclasses.replace(cfg.adapter, rank=4, alpha=8.0),
     )

@@ -37,7 +37,11 @@
 //   never leaves registers, and a 16-row warp tile keeps D = 256's
 //   accumulator at 128 registers a thread; the price is about half of
 //   wgmma's issue rate, which PERF.md weighs against SDPA on the main path's
-//   short sequences (at most three 64-key tiles a block at S = 192). The
+//   short sequences (at most three 64-key tiles a block at S = 192). Head
+//   dims 32, 64, 80, 128 and 256: D = 80 (h2o-danube-1.8b) is five 16-deep
+//   k-steps and five n-tile pairs; its rows of 88 elements (176 bytes, 11
+//   16-byte chunks, an odd number) keep ldmatrix free of bank conflicts, and
+//   its 56,320 bytes of shared memory take the opt-in above 48 KB. The
 //   online softmax runs in registers on log2-scaled scores (scale * log2(e)
 //   folded into one multiply, exp2f), each row reduced across its quad of
 //   lanes with shuffles; masks are evaluated only on tiles that cross the
@@ -67,6 +71,8 @@ constexpr int kBQ = 16;       // query rows per block
 constexpr int kBK = 32;       // keys per shared-memory tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -2.0e38f;
+
+__host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -105,10 +111,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // Accumulator ownership: thread t holds columns d0 + c*TPR of rows rg + m*RG.
-  constexpr int TPR = D < kThreads ? D : kThreads;
+  // TPR, the threads of a row, is the largest common divisor of D and
+  // kThreads: at D = 80 that is 16 threads a row, 8 row groups, 5 columns
+  // and 2 rows a thread.
+  constexpr int TPR = gcd(D, kThreads);
   constexpr int RG = kThreads / TPR;
   constexpr int NC = D / TPR;
   constexpr int NR = kBQ / RG;
+  static_assert(RG * TPR == kThreads && NC * TPR == D && NR * RG == kBQ,
+                "the accumulator layout must cover the kBQ x D block exactly");
   const int d0 = t % TPR, rg = t / TPR;
   float acc[NR][NC];
 #pragma unroll
@@ -238,6 +249,8 @@ int dispatch_head_dim(int D, const void* q, const void* k, const void* v, void* 
       return launch<T, 32>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window, softcap, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window, softcap, scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window, softcap, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window, softcap, scale, stream);
     case 256:
@@ -269,6 +282,8 @@ __global__ void __launch_bounds__(kTcW * 32)
                    const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
                    int Sq, int Sk, int H, int Hkv, int causal, int window, float softcap,
                    float scale) {
+  // D in 16s: the k-steps of S = Q K^T and the n-tile pairs of O += P V.
+  static_assert(D % 16 == 0, "the bf16 kernel steps over D in 16s");
   constexpr int BQ = 16 * kTcW, NT = 32 * kTcW;
   constexpr int LD = D + 8;      // shared row stride in elements (16 bytes of padding)
   constexpr int CH = D / 8;      // 16-byte chunks in a row
@@ -501,6 +516,9 @@ int dispatch_bf16(int D, const void* q, const void* k, const void* v, void* out,
                                   softcap, scale, stream);
     case 64:
       return launch_bf16<64>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window,
+                                  softcap, scale, stream);
+    case 80:
+      return launch_bf16<80>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window,
                                   softcap, scale, stream);
     case 128:
       return launch_bf16<128>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, window,

@@ -5,6 +5,8 @@ example ``jax.tree.map(np.asarray, params)``), become the port's params, and
 back. The only change of layout is the layer stack: the JAX package stacks
 per-layer params on a leading axis for ``lax.scan``
 (``transformer.py:118-128``), the port keeps a list of per-layer dicts.
+Every leaf of a layer is unstacked and restacked alike: the projections,
+the norms and, for the QKV-bias configs, ``bq``/``bk``/``bv``.
 Projections keep the ``(in, out)`` layout in both packages, so nothing is
 transposed. bfloat16 arrays (numpy's ``bfloat16`` from ``ml_dtypes``) pass
 bit for bit through their 16-bit pattern.

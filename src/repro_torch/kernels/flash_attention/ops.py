@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (32, 64, 128, 256)  # the instantiations in csrc/flash_attention.cu
+HEAD_DIMS = (32, 64, 80, 128, 256)  # the instantiations in csrc/flash_attention.cu
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,

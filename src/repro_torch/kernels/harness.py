@@ -217,6 +217,27 @@ FLASH_EDGE_SHAPES = [
     ("decode-k129", 2, 1, 129, 4, 2, 128, True, None, 0.0, 0, 0),
     # causal with Sq - Sk >= 64: two whole 64-row tiles see no key (dead rows)
     ("dead-tiles-q130-k1", 1, 130, 1, 2, 2, 128, True, None, 0.0, 0, 0),
+    # head dim 80 (h2o-danube-1.8b): GQA 4 as h2o's 32 / 8, windows that cut
+    # tiles, Sq != Sk both ways, softcap, and a non-causal case
+    ("d80-s65-gqa4", 1, 65, 65, 8, 2, 80, True, None, 0.0, 0, 0),
+    ("d80-window-s129-gqa4", 2, 129, 129, 8, 2, 80, True, 40, 0.0, 0, 0),
+    ("d80-q63-k130-gqa4", 1, 63, 130, 4, 1, 80, True, 70, 0.0, 0, 0),
+    ("d80-q130-k65-window", 1, 130, 65, 4, 1, 80, True, 32, 0.0, 0, 0),
+    ("d80-softcap-s64", 1, 64, 64, 8, 2, 80, True, None, 30.0, 0, 0),
+    ("d80-bidir-q17-k129", 1, 17, 129, 4, 1, 80, False, None, 0.0, 0, 0),
+]
+# The dense family's full-width attention shapes, run on the card only:
+# h2o-danube-1.8b's prefill (4,096 positions), its training batch and the
+# 6,144-position window step (the 4,096-key window masks keys there), and the
+# training batch of glm4-9b (GQA 16), qwen1.5-4b (20 heads, MHA) and
+# internlm2-20b (GQA 6).
+DENSE_FLASH_SHAPES = [
+    ("h2o-prefill", 1, 4096, 4096, 32, 8, 80, True, 4096, 0.0, 0, 0),
+    ("h2o-train", 4, 32, 32, 32, 8, 80, True, 4096, 0.0, 0, 0),
+    ("h2o-window-6144", 1, 6144, 6144, 32, 8, 80, True, 4096, 0.0, 0, 0),
+    ("glm4-train", 4, 32, 32, 32, 2, 128, True, None, 0.0, 0, 0),
+    ("qwen1.5-train", 4, 32, 32, 20, 20, 128, True, None, 0.0, 0, 0),
+    ("internlm2-train", 4, 32, 32, 48, 8, 128, True, None, 0.0, 0, 0),
 ]
 LORA_EDGE_SHAPES = [
     # (t, d, rank, block_t): D and r off multiples of 8 and 16, T off 64

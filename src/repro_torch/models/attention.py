@@ -6,6 +6,8 @@ Layout conventions, as in the JAX package:
     k, v        (B, S, n_kv,   head_dim)
     cache k/v   (B, C, n_kv,   head_dim)   C = cache capacity
 RoPE is applied before caching, so decode never re-rotates history.
+Sliding-window configs decode from a ring buffer of capacity ``window``:
+the mask needs only slot validity, never slot age.
 
 Decode takes one position per batch row: the batch-dimension counterpart of
 the JAX engine's ``vmap`` over pool pages, each page at its own position.
@@ -13,7 +15,7 @@ The caches are updated in place where the JAX package returns new arrays.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,26 +32,39 @@ class KVCache(NamedTuple):
 
 
 def init_attention(gen, cfg, dtype):
+    """Projections, and with ``cfg.qkv_bias`` zero q/k/v biases, as the JAX
+    package initializes them (``attention.py:47-50``)."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
-    return {
+    p = {
         "wq": dense_init(gen, (d, nh * hd), dtype),
         "wk": dense_init(gen, (d, nkv * hd), dtype),
         "wv": dense_init(gen, (d, nkv * hd), dtype),
         "wo": dense_init(gen, (nh * hd, d), dtype, scale=(nh * hd) ** -0.5),
     }
+    if cfg.qkv_bias:
+        for name, n in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=gen.device)
+    return p
 
 
 def _project_q(cfg, params, x):
     B, S, _ = x.shape
-    return (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    q = x @ params["wq"]
+    if "bq" in params:
+        q = q + params["bq"].to(q.dtype)
+    return q.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
 
 
 def _project_kv(cfg, params, x):
     B, S, _ = x.shape
+    k, v = x @ params["wk"], x @ params["wv"]
+    if "bk" in params:
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
     shape = (B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return (x @ params["wk"]).reshape(shape), (x @ params["wv"]).reshape(shape)
+    return k.reshape(shape), v.reshape(shape)
 
 
 def sdpa(cfg, q, k, v, mask):
@@ -70,26 +85,34 @@ def sdpa(cfg, q, k, v, mask):
     return out.reshape(B, Sq, nh, hd)
 
 
-def causal_mask(s: int, device=None):
-    """(S, S) boolean mask, True where key position <= query position."""
-    pos = torch.arange(s, device=device)
-    return pos[None, :] <= pos[:, None]
+def causal_mask(sq: int, sk: int, *, q_offset: int = 0, window: Optional[int] = None,
+                device=None):
+    """(Sq, Sk) boolean mask, True = attend. Query i has absolute position
+    q_offset + i; with ``window`` it sees the last ``window`` keys only."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m = m & (qpos - kpos < window)
+    return m
 
 
 def full_attention(cfg, params, x, angles, *, return_kv: bool = False):
-    """Causal full-sequence self-attention for prefill.
+    """Causal full-sequence self-attention for training and prefill.
 
     ``cfg.use_pallas`` routes the scores through the flash-attention kernel
-    (``attention.py:196-202``). Returns (out, (k, v)) when ``return_kv``.
+    with the config's window (``attention.py:196-202``). Returns
+    (out, (k, v)) when ``return_kv``.
     """
     q = _project_q(cfg, params, x)
     k, v = _project_kv(cfg, params, x)
     q = apply_rotary(q, angles)
     k = apply_rotary(k, angles)
+    S = x.shape[1]
     if cfg.use_pallas:
-        out = flash_ops.flash_attention(q, k, v, causal=True)
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     else:
-        out = sdpa(cfg, q, k, v, causal_mask(x.shape[1], device=x.device))
+        out = sdpa(cfg, q, k, v, causal_mask(S, S, window=cfg.sliding_window, device=x.device))
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) @ params["wo"]
     if return_kv:
@@ -101,13 +124,26 @@ def full_attention(cfg, params, x, angles, *, return_kv: bool = False):
 # KV-cache decode
 # ---------------------------------------------------------------------------
 
+def cache_capacity(cfg, seq_len: int) -> int:
+    """Sliding-window configs bound the live KV by the window (a ring)."""
+    if cfg.sliding_window is not None:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
 def seed_cache(cache: KVCache, k, v) -> KVCache:
     """Write prefill KV (already rotated) into cache slots [0, S).
 
+    A prefill longer than the ring's capacity C keeps its last C positions,
+    rolled so that position p lands in slot p % C, where later decode writes
+    (slot = pos % C) overwrite the oldest entry (``attention.py:237-252``).
     In place: the JAX package's ``dynamic_update_slice`` returns a new cache.
-    The sliding-window ring arrives with the SWA configs (ROADMAP queue 3).
     """
-    S = k.shape[1]
+    C, S = cache.k.shape[1], k.shape[1]
+    if S > C:
+        k = torch.roll(k[:, -C:], S % C, dims=1)
+        v = torch.roll(v[:, -C:], S % C, dims=1)
+        S = C
     cache.k[:, :S] = k
     cache.v[:, :S] = v
     return cache
@@ -118,8 +154,9 @@ def decode_attention(cfg, params, x, angles, cache: KVCache, pos):
 
     Row b writes its new KV at slot ``pos[b] % C`` in place (the JAX package
     returns a new cache) and attends over slots ``j <= pos[b]``
-    (``attention.py:269-274``). Scores in f32; probabilities cast to the cache
-    dtype before the product with V (``attention.py:292-298``).
+    (``attention.py:269-274``): in a ring (pos >= C) every slot, which holds
+    exactly the window's last C positions. Scores in f32; probabilities cast
+    to the cache dtype before the product with V (``attention.py:292-298``).
     Returns (out (B, 1, D), cache).
     """
     B = x.shape[0]

@@ -96,6 +96,8 @@ def prefill_stack(cfg, stack, x, angles, capacity: int, length=None):
     ``length`` (int, optional) marks only the first ``length`` positions as
     real: the ssm layers keep pad steps out of their terminal state. The
     attention cache ignores it (pad KV is overwritten before decode reads it).
+    The caches hold ``cache_capacity(cfg, capacity)`` slots; a prefill longer
+    than a ring keeps its last positions (``attention.seed_cache``).
     """
     check_family(cfg)
     state = init_decode_state(cfg, x.shape[0], capacity, x.dtype, x.device)
@@ -141,12 +143,15 @@ def decode_stack(cfg, stack, x, angles, state, pos):
 def init_decode_state(cfg, batch: int, capacity: int, dtype, device):
     """Zero decode state: {"layers": KVCache of (L, B, C, n_kv, hd)}, or for
     the ssm family {"layers": SSMState of (L, B, d_conv-1, conv_dim) in
-    ``dtype`` and (L, B, H, P, N) in f32}; ``capacity`` is unused there."""
+    ``dtype`` and (L, B, H, P, N) in f32}; ``capacity`` is unused there. A
+    sliding-window config's caches hold ``cache_capacity`` slots, a ring of
+    at most the window (``transformer.py:342``)."""
     check_family(cfg)
     if cfg.family == "ssm":
         one = ssm_lib.init_ssm_state(cfg, batch, dtype, device)
         return {"layers": ssm_lib.SSMState(
             *(t.new_zeros((cfg.n_layers,) + tuple(t.shape)) for t in one))}
-    shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cap = attn_lib.cache_capacity(cfg, capacity)
+    shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"layers": attn_lib.KVCache(torch.zeros(shape, dtype=dtype, device=device),
                                        torch.zeros(shape, dtype=dtype, device=device))}

@@ -10,7 +10,10 @@ Exactness: prompts are right-padded to ``prefill_len``. Under the causal
 mask pad rows never influence real rows, and pad KV at slots
 ``[L_real, prefill_len)`` is only attended after decode has overwritten it
 (decode at position p writes slot p before attending slots <= p), so padded
-prefill + batched decode gives the tokens of one request at a time. The ssm
+prefill + batched decode gives the tokens of one request at a time. For a
+sliding-window config the same argument needs the padded prefill to fit the
+ring, which ``__init__`` checks (``engine.py:71-110``); decode then wraps the
+ring past the window. The ssm
 family integrates every prefill step into its recurrent state, so the engine
 passes the true length down to ``model.prefill``: pad steps get dt = 0 (an
 exact identity on the state) and the conv window is sliced at that length.
@@ -72,6 +75,12 @@ class ServingEngine:
         # image tokens prepend to the decoder stream
         self.img_prefix = num_patches(cfg) if cfg.frontend_dim else 0
         self.capacity = self.img_prefix + prefill_len + max_new_tokens + 1
+        w = cfg.sliding_window
+        if w is not None and self.img_prefix + prefill_len > w:
+            raise ValueError(
+                f"padded prefill ({self.img_prefix + prefill_len}) exceeds the attention "
+                f"window ({w}): pad slots would evict live KV from the ring; lower "
+                "prefill_len or serve a longer-window config")
 
         self.bank = AdapterBank(cfg, adapter_slots, self.device)
         self.cache = AdapterCache(self.bank, loader=adapter_loader)

@@ -1,13 +1,13 @@
 """Slot-paged decode-state pool of the port (``repro.serving.kv_cache``).
 
 The engine owns ONE fixed-shape decode state for ``n_slots`` concurrent
-requests: the stacked KV cache (L, n_slots, C, n_kv, hd), or for the ssm
+requests: the stacked KV cache (L, n_slots, C, n_kv, hd), where a
+sliding-window config's C is a ring of at most the window; or for the ssm
 family the stacked recurrent state (conv windows in the model dtype, h in
-f32). A request occupies
-one page (slot) from admission to completion; prefill's single-request state
-is copied into its page, and finishing frees the page. Per-slot positions
-are tracked on the host: slot j of a page is valid iff j <= pos, so a freed
-page needs no scrubbing.
+f32). A request occupies one page (slot) from admission to completion;
+prefill's single-request state is copied into its page, and finishing frees
+the page. Per-slot positions are tracked on the host: slot j of a page is
+valid iff j <= pos, so a freed page needs no scrubbing.
 """
 from __future__ import annotations
 

@@ -39,7 +39,7 @@ GROUPED_CASES = ([(t, d, r, n, bt, None, 0) for t, d, r, n, bt in GROUPED]
                     for _, t, d, r, n, ids, off in harness.GROUPED_LORA_EDGE_SHAPES])
 GROUPED_IDS = (["-".join(map(str, s)) for s in GROUPED]
                + [s[0] for s in harness.GROUPED_LORA_EDGE_SHAPES])
-FLASH = harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES
+FLASH = harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.DENSE_FLASH_SHAPES
 LORA_EDGE = harness.LORA_EDGE_SHAPES
 FLASH_EDGE = harness.FLASH_EDGE_SHAPES
 # the bf16 tensor-core kernels against their rounding models

@@ -72,7 +72,8 @@ def _batch(cfg, seed=0, seq=8):
     return jb, tb
 
 
-@pytest.mark.parametrize("arch", [ARCH, "mamba2-130m", "minigpt4-7b"])
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-130m", "minigpt4-7b", "h2o-danube-1.8b", "glm4-9b",
+                                  "qwen1.5-4b", "internlm2-20b"])
 @pytest.mark.parametrize("getter", ["full", "smoke"])
 def test_configs_match_reference(getter, arch):
     mine = (get_config if getter == "full" else get_smoke_config)(arch)
