@@ -162,6 +162,43 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       prefill's length.
    Phase 3 covers head dim 80 (``harness.FLASH_EDGE_SHAPES``) and the dense
    family's full-width attention shapes (``harness.DENSE_FLASH_SHAPES``).
+15. qwen2-vl-72b (80 layers, d_model 8192, 64 heads of 128 over 8, QKV
+   bias, M-RoPE, 64 image patches of width 1,280) and the MoE family,
+   llama4-scout-17b-a16e (48 layers, d_model 5120, 40 heads over 8, 16
+   experts top-1 of d_ff 8192 and a shared expert) and grok-1-314b (64
+   layers, d_model 6144, 48 heads over 8, 8 experts top-2 of d_ff 32768,
+   GELU, attention logits capped at 30):
+   a. smoke size, card (kernels, f32) against CPU (plain versions): phase
+      4's serving (tokens and prefill logits) and phase 7's two FedNano
+      rounds, the adapters held as phase 12a holds them;
+   b. each at published width in bf16, weights from seed 0, cut to its
+      first MOE_LAYERS layers (published depth does not fit one card; the
+      line says why), one after another, each freed before the next is
+      drawn: serving and training as phase 14 (``DENSE_SERVE_KW``, qwen2-vl
+      with 64 patches a request and a row), bf16 prefill logits at 1e-1 and
+      round 0 at 2e-2; every run on the plain versions that is held
+      against a kernel run takes that run's expert choices
+      (``replayed_routes``: rounding flips near-tied choices of the random
+      routers). For the MoE pair, the choices the capacity dropped in each
+      layer over the prefills, one decode step (each page routes alone and
+      drops none, else it fails) and one training batch, and the share of
+      expert choices on which free kernel and plain runs differ, by layer;
+      then the weights upcast to f32 in place at MOE_F32_LAYERS: prefill
+      logits at 1e-4, one step's loss and adapter gradients at 1e-4, round
+      0's loss at 1e-4 with its adapters beside a witness (the same round
+      by the use_pallas=False path), and the flips by layer of bf16 kernels
+      against bf16 plain versions and of bf16 plain versions against f32
+      plain versions at that depth;
+   c. the flash kernel timed at the three prefill shapes (grok's with its
+      softcap, beside no SDPA). Phase 3 holds the flash kernel at these
+      configs' full-width attention shapes (``harness.MOE_FLASH_SHAPES``)
+      and the softcap at GQA 5 and 6 (``harness.FLASH_EDGE_SHAPES``), the
+      LoRA kernel at their NanoEdge rows and the grouped kernel at their
+      decode banks, d_model 5,120, 6,144 and 8,192
+      (``harness.MOE_LORA_SHAPES``, ``MOE_GROUPED_SHAPES``; bf16 also
+      against the rounding model); phase 6 the flash gradient with the
+      softcap (``harness.MOE_FLASH_GRAD_SHAPES``) and the LoRA gradients at
+      those rows (``harness.MOE_LORA_GRAD_SHAPES``).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
@@ -246,17 +283,32 @@ H2O_WINDOW_STEP = dict(seq_len=6144, n_layers=2)
 # teacher-forced to its end. Every decode step's logits are held against the
 # full windowed forward of the 4,300 tokens, kernels and plain versions.
 H2O_RING_CHECK = dict(n_layers=2, seq_len=4300, prefills=(4000, 4200))
+# qwen2-vl-72b (M-RoPE, 64 heads on 8, QKV bias, 64 image patches of width
+# 1,280) and the MoE family, llama4-scout-17b-a16e (16 experts, top-1, a
+# shared expert; 40 heads on 8) and grok-1-314b (8 experts, top-2, GELU;
+# attention logits capped at 30; 48 heads on 8), at published width in bf16.
+# Published depth does not fit one 80 GB card (141, 211 and 630 GB of bf16
+# weights), so each keeps its first MOE_LAYERS layers (about 47, 57 and 52
+# GB), and its f32 checks, on the same weights upcast in place, its first
+# MOE_F32_LAYERS (about 38, 44 and 46 GB). The dense one-hot dispatch reads
+# every expert's weights on every call.
+MOE_ARCHS = ("qwen2-vl-72b", "llama4-scout-17b-a16e", "grok-1-314b")
+MOE_LAYERS = {"qwen2-vl-72b": 24, "llama4-scout-17b-a16e": 12, "grok-1-314b": 5}
+MOE_F32_LAYERS = {"qwen2-vl-72b": 8, "llama4-scout-17b-a16e": 4, "grok-1-314b": 2}
+SMOKE_SERVE.update({a: (dict(max_slots=3, prefill_len=8, max_new_tokens=6, adapter_slots=4), 6)
+                    for a in MOE_ARCHS})
+SMOKE_SEQ.update({a: 16 for a in MOE_ARCHS})
 # The kernels each main path must launch.
 SERVING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "grouped_lora_residual",
                                             "flash_attention"),
                            MAMBA: ("lora_residual", "grouped_lora_residual", "ssd_scan"),
                            **{a: ("lora_residual", "grouped_lora_residual", "flash_attention")
-                              for a in DENSE_ARCHS}}
+                              for a in DENSE_ARCHS + MOE_ARCHS}}
 TRAINING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "flash_attention",
                                              "fisher_merge"),
                             MAMBA: ("lora_residual", "ssd_scan", "fisher_merge"),
                             **{a: ("lora_residual", "flash_attention", "fisher_merge")
-                               for a in DENSE_ARCHS}}
+                               for a in DENSE_ARCHS + MOE_ARCHS}}
 
 
 def log(msg: str) -> None:
@@ -296,7 +348,7 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for t, d, r, _ in (harness.LORA_SHAPES + harness.FULL_LORA_SHAPES
-                           + harness.LORA_EDGE_SHAPES):
+                           + harness.LORA_EDGE_SHAPES + harness.MOE_LORA_SHAPES):
             x, down, up = randn((t, d), dtype=dtype), randn((d, r), 0.05), randn((r, d), 0.05)
             got = lora_ops.lora_residual(x, down, up, scale=SCALE)
             err = harness.check_close(got, lora_ref.lora_residual(x, down, up, scale=SCALE),
@@ -317,7 +369,8 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
         # 16-byte alignment)
         grouped = ([(f"t{t}d{d}n{n}", t, d, r, n, None, 0) for t, d, r, n, _ in
                     harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES
-                    + harness.MAMBA_GROUPED_SHAPES] + harness.GROUPED_LORA_EDGE_SHAPES)
+                    + harness.MAMBA_GROUPED_SHAPES + harness.MOE_GROUPED_SHAPES]
+                   + harness.GROUPED_LORA_EDGE_SHAPES)
         for label, t, d, r, n, ids, offset in grouped:
             x = harness.offset_view(randn((t, d), dtype=dtype), offset)
             down, up = randn((n, d, r), 0.05), randn((n, r, d), 0.05)
@@ -342,7 +395,8 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
                     and dtype_name == "bfloat16":
                 main_err["grouped_lora_residual"] = err
         for shape in (harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES
-                      + harness.FLASH_EDGE_SHAPES + harness.DENSE_FLASH_SHAPES):
+                      + harness.FLASH_EDGE_SHAPES + harness.DENSE_FLASH_SHAPES
+                      + harness.MOE_FLASH_SHAPES):
             label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
             q = randn((b, sq, h, d), dtype=dtype)
             k, v = randn((b, sk, hkv, d), dtype=dtype), randn((b, sk, hkv, d), dtype=dtype)
@@ -370,9 +424,11 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
         raise AssertionError("flash_attention accepted head dim 96")
     torch.cuda.synchronize()
     log(f"[parity] {n_cases} kernel-vs-plain cases passed (f32 and bf16, tile edges and "
-        f"head dim 80 included; the dense family's full-width attention shapes "
-        f"{[sh[0] for sh in harness.DENSE_FLASH_SHAPES]}); main-path bf16 max |err|: "
-        f"{json.dumps(main_err)}")
+        f"head dim 80 included; the dense, MoE and qwen2-vl full-width attention shapes "
+        f"{[sh[0] for sh in harness.DENSE_FLASH_SHAPES + harness.MOE_FLASH_SHAPES]}; the "
+        f"MoE and qwen2-vl LoRA rows {[sh[:2] for sh in harness.MOE_LORA_SHAPES]} and "
+        f"grouped banks {[sh[:2] for sh in harness.MOE_GROUPED_SHAPES]}); "
+        f"main-path bf16 max |err|: {json.dumps(main_err)}")
     bound = harness.BF16_MODEL_TOLERANCES["bfloat16"]
     for name, (err, share) in gaps.items():
         log(f"[parity] {name} bf16 kernel vs its rounding model over the grid, full-width and "
@@ -521,7 +577,7 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
     eng32 = Engine(cfg32, backbone32, use_pallas_grouped=True, **kw)
     done32 = eng32.run(reqs)
     kernel32 = [eng32.prefill_logits(r) for r in reqs]
-    done32_plain, plain32 = run_plain_versions(cfg32, backbone32, Engine, kw, reqs)
+    done32_plain, plain32, _ = run_plain_versions(cfg32, backbone32, Engine, kw, reqs)
     worst = hold(torch, cfg32.dtype, reqs, kernel32, plain32)
     log(f"[serve] {arch} f32, kernels vs their plain versions: prefill logits max |err| / "
         f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['float32']}); "
@@ -536,8 +592,10 @@ def serving_full(torch, get_config, init_backbone, synth, make_requests, Engine,
 def serve_main_path(torch, cfg, backbone, Engine, counters, kw, reqs, what):
     """Serve ``reqs`` through the kernels, with the launch counters reset just
     before the run and read just after it; then on the plain versions, and
-    hold the prefill logits at LOGIT_TOL. -> (launches, completions, kernel
-    logits, the plain run's completions, plain logits)."""
+    hold the prefill logits at LOGIT_TOL (an MoE config's plain prefills
+    take the kernel prefills' expert choices, ``replayed_routes``).
+    -> (launches, completions, kernel logits, the plain run's completions,
+    plain logits)."""
     # warm-up: cuBLAS handles, allocator pools, first kernel launches
     Engine(cfg, backbone, use_pallas_grouped=True, **kw).run(
         [dataclasses.replace(r, max_new_tokens=2) for r in reqs[:2]])
@@ -571,22 +629,24 @@ def serve_main_path(torch, cfg, backbone, Engine, counters, kw, reqs, what):
         f"({st['decode_steps']} steps, occupancy {eng.mean_occupancy():.2f}/{kw['max_slots']}) "
         f"| peak memory {peak / 2**30:.2f} GiB | launches {json.dumps(launches)}")
 
-    kernel_lg = [eng.prefill_logits(r) for r in reqs]
-    done_plain, plain_lg = run_plain_versions(cfg, backbone, Engine, kw, reqs)
+    kernel_lg, routes = prefill_routes(eng, reqs)
+    done_plain, plain_lg, own = run_plain_versions(cfg, backbone, Engine, kw, reqs, routes)
     worst = hold(torch, cfg.dtype, reqs, kernel_lg, plain_lg)
     log(f"[serve] {what} bf16, kernels vs their plain versions: prefill logits max |err| / "
-        f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['bfloat16']}); "
+        f"‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['bfloat16']}{replay_note(routes, own)}); "
         f"{agreement(reqs, done, done_plain)}")
     return launches, done, kernel_lg, done_plain, plain_lg
 
 
-def run_plain_versions(cfg, backbone, Engine, kw, reqs):
-    """Serve ``reqs`` with each kernel replaced by its plain version.
-    -> (completions, prefill logits per request)."""
+def run_plain_versions(cfg, backbone, Engine, kw, reqs, routes=None):
+    """Serve ``reqs`` with each kernel replaced by its plain version, then
+    prefill each alone (taking the expert choices of ``routes``, another
+    run's prefills of ``reqs``, where given). -> (completions, prefill
+    logits per request, their own routing records)."""
     with plain_versions():
         plain = Engine(cfg, backbone, use_pallas_grouped=True, **kw)
         done = plain.run(reqs)
-        return done, [plain.prefill_logits(r) for r in reqs]
+        return (done, *prefill_routes(plain, reqs, routes))
 
 
 def rel_err(got, want) -> float:
@@ -728,7 +788,8 @@ def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, 
         n_cases += cases
         if dtype_name == "float32":  # the main path: llava's tree at K = 2
             main_err["fisher_merge"], main_err["fisher_fold"] = errs[harness.FULL_FISHER_TREES[1]]
-        for t, d, r, _ in harness.LORA_GRAD_SHAPES + harness.FULL_LORA_GRAD_SHAPES:
+        for t, d, r, _ in (harness.LORA_GRAD_SHAPES + harness.FULL_LORA_GRAD_SHAPES
+                           + harness.MOE_LORA_GRAD_SHAPES):
             x, down, up = randn((t, d), dtype=dtype), randn((d, r), 0.05), randn((r, d), 0.05)
             got = sq_loss_grads(lambda a, b, c: lora_ops.lora_residual(a, b, c, scale=SCALE),
                                 x, down, up)
@@ -739,8 +800,12 @@ def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, 
                 if (t, d, r, _) in harness.FULL_LORA_GRAD_SHAPES:
                     key = f"lora_residual {name} {dtype_name}"
                     main_err[key] = max(main_err.get(key, 0.0), err)
+                elif (t, d, r, _) in harness.MOE_LORA_GRAD_SHAPES:
+                    key = f"lora_residual {name} {dtype_name} d{d}"
+                    main_err[key] = max(main_err.get(key, 0.0), err)
             n_cases += 1
-        for shape in harness.FLASH_GRAD_SHAPES + harness.FULL_FLASH_GRAD_SHAPES:
+        for shape in (harness.FLASH_GRAD_SHAPES + harness.FULL_FLASH_GRAD_SHAPES
+                      + harness.MOE_FLASH_GRAD_SHAPES):
             label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
             q = randn((b, sq, h, d), dtype=dtype)
             k_, v = randn((b, sk, hkv, d), dtype=dtype), randn((b, sk, hkv, d), dtype=dtype)
@@ -748,11 +813,14 @@ def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, 
             got = sq_loss_grads(lambda *a: fa_ops.flash_attention(*a, **kw), q, k_, v)
             want = sq_loss_grads(lambda *a: fa_ref.attention(*a, **kw), q, k_, v)
             full = label == harness.FULL_FLASH_GRAD_SHAPES[0][0]
-            tol = harness.FULL_FLASH_GRAD_TOLERANCES if full else harness.FLASH_GRAD_TOLERANCES
+            wide = full or shape in harness.MOE_FLASH_GRAD_SHAPES
+            tol = harness.FULL_FLASH_GRAD_TOLERANCES if wide else harness.FLASH_GRAD_TOLERANCES
             for name, g, wt in zip(("dq", "dk", "dv"), got, want):
                 err = harness.check_close(g, wt, dtype_name, f"flash grad {name} {label}", tol)
                 if full:
                     main_err[f"flash_attention {name} {dtype_name}"] = err
+                elif shape in harness.MOE_FLASH_GRAD_SHAPES:
+                    main_err[f"flash_attention {name} {dtype_name} {label}"] = err
             n_cases += 1
     torch.cuda.synchronize()
     log(f"[train-parity] {n_cases} kernel-vs-plain cases passed (fisher_merge, fisher_fold on "
@@ -819,13 +887,17 @@ def eval_params_err(strat, got, want):
 
 
 def training_smoke(torch, tr, arch="llava-1.5-7b", strategy="fednano", adapter_tol=1e-5,
-                   f64_witness=False):
+                   f64_witness=False, both_paths=False):
     """Two rounds of ``strategy`` on smoke ``arch`` in f32: card (kernels) vs CPU
     (plain). The adapters each client evaluates after the two rounds are held
     at ``adapter_tol``, the rest at 1e-5. With ``f64_witness`` the CPU run is
     also held against a CPU f64 run from the same weights and clients, and
     the adapters' bound becomes ``adapter_tol`` or ROUNDING_MARGIN times that
-    distance (f32's own rounding), whichever is smaller, but not below 1e-5."""
+    distance (f32's own rounding), whichever is smaller, but not below 1e-5.
+    With ``both_paths`` the witness is the larger distance from the f64 run
+    of two f32 summation orders on the CPU: the kernels' plain versions and
+    the model's ``use_pallas=False`` path (AdamW turns the rounding of one
+    order into sign-sized steps that another order does not take)."""
     from repro_torch.utils import tree_map
 
     cfg = tr["get_smoke_config"](arch).with_(use_pallas=True)
@@ -871,9 +943,18 @@ def training_smoke(torch, tr, arch="llava-1.5-7b", strategy="fednano", adapter_t
                                   rounds=2, hp=hp, use_pallas=True,
                                   server=fresh_server(server64))
         w_glob, w_own = eval_params_err(strat, cpu, f64)
-        adapter_tol = min(adapter_tol, max(1e-5, ROUNDING_MARGIN * max(w_glob, w_own)))
         witness = (f"; CPU f32 vs CPU f64 (plain, the same weights and clients): global "
                    f"{w_glob:.3e}, the clients' own {w_own:.3e}")
+        if both_paths:
+            cfg_p = cfg.with_(use_pallas=False)
+            train, evald, _ = tr["make_federated_data"](cfg_p, device="cpu", **data_kw)
+            other = tr["run_federated"](0, cfg_p, train, evald, strategy=strategy, rounds=2,
+                                        hp=hp, use_pallas=False, server=fresh_server(server_cpu))
+            o_glob, o_own = eval_params_err(strat, other, f64)
+            w_glob, w_own = max(w_glob, o_glob), max(w_own, o_own)
+            witness += (f"; the use_pallas=False order vs f64: global {o_glob:.3e}, the "
+                        f"clients' own {o_own:.3e}")
+        adapter_tol = min(adapter_tol, max(1e-5, ROUNDING_MARGIN * max(w_glob, w_own)))
     if max(adp_err, own_err) > adapter_tol or gpu.comm_totals != cpu.comm_totals:
         raise AssertionError(f"smoke training {strategy}: global adapters {adp_err:.3e}, the "
                              f"clients' own {own_err:.3e} (bound {adapter_tol:.3e}{witness}); "
@@ -889,7 +970,7 @@ def training_full(torch, tr, counters, arch="llava-1.5-7b", server=None):
     seed 0. -> (state for later phases, launches per kernel on its runs)."""
     from repro_torch.utils import tree_leaves
 
-    cfg = tr["get_config"](arch).with_(use_pallas=True)
+    cfg = (server.cfg if server is not None else tr["get_config"](arch)).with_(use_pallas=True)
     hp = tr["HyperParams"](**TRAIN_HP)
     t0 = time.perf_counter()
     if server is None:
@@ -918,13 +999,14 @@ def training_full(torch, tr, counters, arch="llava-1.5-7b", server=None):
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        res = tr["run_federated"](0, cfg, train, evald, strategy="fednano", hp=hp,
-                                  use_pallas=True, server=fresh_server(server), **kw)
+        with recorded_routes() as routes:
+            res = tr["run_federated"](0, cfg, train, evald, strategy="fednano", hp=hp,
+                                      use_pallas=True, server=fresh_server(server), **kw)
         torch.cuda.synchronize()
         return (res, time.perf_counter() - t0, {n: fn.launches for n, fn in counters.items()},
-                torch.cuda.max_memory_allocated())
+                torch.cuda.max_memory_allocated(), routes)
 
-    res, wall, launches, peak = main_path_run(rounds=2)
+    res, wall, launches, peak, routes = main_path_run(rounds=2)
     losses = [m["mean_loss"] for m in res.round_metrics]
     leaf_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(server.global_adapters))
     want_bytes = 2 * 2 * leaf_bytes
@@ -950,7 +1032,7 @@ def training_full(torch, tr, counters, arch="llava-1.5-7b", server=None):
         f"client accuracy {res.client_accuracy}, comm {c}; wall {wall:.3f} s with final eval; "
         f"peak memory {peak / 2**30:.2f} GiB | launches {json.dumps(launches)}")
 
-    res_f, wall_f, launches_f, _ = main_path_run(rounds=1, agg_chunk=1, final_eval=False)
+    res_f, wall_f, launches_f, _, _ = main_path_run(rounds=1, agg_chunk=1, final_eval=False)
     uploads = [(cl.adapters, cl.fisher, cl.n_examples) for cl in res_f.clients]
     if launches_f["fisher_fold"] != len(uploads) or launches_f["fisher_merge"] != 0:
         raise AssertionError(f"agg_chunk=1 must fold each upload's whole tree in one "
@@ -970,7 +1052,7 @@ def training_full(torch, tr, counters, arch="llava-1.5-7b", server=None):
     path = "train" if arch == "llava-1.5-7b" else f"train_{arch.split('-')[0]}"
     launches_by_path = {path: {n: launches[n] + launches_f[n] for n in launches}}
     state = dict(cfg=cfg, hp=hp, server=server, train=train, evald=evald, res=res,
-                 tokens_per_step=tokens_per_step, peak=peak)
+                 routes=routes, tokens_per_step=tokens_per_step, peak=peak)
     return state, launches_by_path
 
 
@@ -987,8 +1069,9 @@ def step_check(torch, tr, cfg, backbone, points, batch, what=None):
 
     out = []
     for label, adp in points:
-        lk, gk = loss_and_grads(adp)
-        with plain_versions():
+        with recorded_routes() as routes:
+            lk, gk = loss_and_grads(adp)
+        with plain_versions(), replayed_routes(routes):
             lp, gp = loss_and_grads(adp)
         le, ge = abs(lk - lp) / abs(lp), tree_rel_err(gk, gp)
         del gk, gp
@@ -1006,10 +1089,11 @@ def step_check(torch, tr, cfg, backbone, points, batch, what=None):
 
 def run_vs_plain(torch, tr, st, held: int):
     """The bf16 run's round losses, kernels against a run on the plain
-    versions from the same server; the first ``held`` rounds held at
-    RUN_LOSS_TOL_BF16, the rest reported."""
+    versions from the same server (an MoE config's taking the kernel run's
+    expert choices); the first ``held`` rounds held at RUN_LOSS_TOL_BF16,
+    the rest reported."""
     cfg, server = st["cfg"], st["server"]
-    with plain_versions():
+    with plain_versions(), replayed_routes(st["routes"]) as own:
         plain = tr["run_federated"](0, cfg, st["train"], st["evald"], strategy="fednano",
                                     hp=st["hp"], rounds=2, use_pallas=True,
                                     server=fresh_server(server))
@@ -1021,8 +1105,8 @@ def run_vs_plain(torch, tr, st, held: int):
         raise AssertionError(f"bf16 run, kernels vs plain versions: round losses {kl} vs {pl}")
     log(f"[train-check] {cfg.name} bf16 whole run, kernels vs plain versions: round losses "
         f"{kl} vs {pl} (rel {[f'{e:.3e}' for e in errs]}; the first {held} held at "
-        f"{RUN_LOSS_TOL_BF16}, the rest reported); final global adapters {ae:.3e} of "
-        f"‖ref‖∞ (reported)")
+        f"{RUN_LOSS_TOL_BF16}, the rest reported{replay_note(st['routes'], own)}); final "
+        f"global adapters {ae:.3e} of ‖ref‖∞ (reported)")
 
 
 def training_check(torch, tr, st):
@@ -1679,14 +1763,14 @@ def causal_pairs(s: int, window=None) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what="", window=None):
-    """The flash kernel (causal, with ``window``) beside its plain version,
-    SDPA and its bound. SDPA has no window: it is timed only where the window
-    masks nothing, and takes GQA's K/V heads as they are (``enable_gqa``).
-    -> a kernel-table row."""
+def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what="", window=None, softcap=0.0):
+    """The flash kernel (causal, with ``window`` and ``softcap``) beside its
+    plain version, SDPA and its bound. SDPA has neither window nor softcap:
+    it is timed only where neither applies, and takes GQA's K/V heads as
+    they are (``enable_gqa``). -> a kernel-table row."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=True, window=window, softcap=softcap)
     o, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **kw)
     pairs = causal_pairs(S, window) * H * B
     b_ms, b_by = bound(nbytes(q, k, v, o, lse), 4 * hd * pairs, "bf16")
@@ -1694,20 +1778,22 @@ def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what="", window=None):
     (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw)),
                                   time_ms(torch, lambda: fa_ref.attention(q, k, v, **kw)))
     l_ms = l_is = None
-    if window is None or window >= S:
+    if (window is None or window >= S) and not softcap:
         gqa = dict(enable_gqa=True) if Hkv != H else {}
         l_ms, l_is = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, **gqa))
     c_ms = time_ms_cold(torch, lambda *a: fa_ops.flash_attention(*a, **kw), (q, k, v),
                         nbytes(q, k, v, o, lse))
-    lib = f"{l_ms:.5f} ({l_is:.5f})" if l_ms is not None else "None (no window in SDPA)"
+    lib = (f"{l_ms:.5f} ({l_is:.5f})" if l_ms is not None
+           else "None (no window or softcap in SDPA)")
     log(f"[time] flash_attention at q ({B}, {S}, {H}, {hd}) k/v Hkv {Hkv} bf16 causal"
-        f"{f' window {window}' if window else ''}{what}, device ms per call (issued from "
+        f"{f' window {window}' if window else ''}{f' softcap {softcap}' if softcap else ''}"
+        f"{what}, device ms per call (issued from "
         f"Python): kernel {k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} | plain {p_ms:.5f} "
         f"({p_is:.5f}) | library SDPA {lib} | bound {b_ms:.5f} ({b_by}) | bound / time: warm "
         f"{b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
     return dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                bound_by=b_by, shape=[B, S, H, Hkv, hd, window])
+                bound_by=b_by, shape=[B, S, H, Hkv, hd, window] + ([softcap] if softcap else []))
 
 
 def timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
@@ -2148,31 +2234,124 @@ def dense_arch(torch, tr, sv, counters, arch):
 
     # f32 on the same weights upcast (internlm2-20b at DENSE_F32_LAYERS)
     n32 = min(DENSE_F32_LAYERS.get(arch, cfg.n_layers), cfg.n_layers)
-    upcast_in_place(torch, server.backbone, n32)
-    cfg32 = cfg.with_(dtype="float32", n_layers=n32)
-    depth = f"{n32} of {cfg.n_layers} layers" if n32 < cfg.n_layers else "full depth"
-    log(f"[dense] {arch} upcast to f32 ({depth}): {torch.cuda.memory_allocated() / 2**30:.2f} "
-        "GiB allocated")
-    eng32 = sv["Engine"](cfg32, server.backbone, use_pallas_grouped=True, **kw)
-    kernel32 = [eng32.prefill_logits(r) for r in reqs]
-    del eng32
-    with plain_versions():
-        plain_eng = sv["Engine"](cfg32, server.backbone, use_pallas_grouped=True, **kw)
-        plain32 = [plain_eng.prefill_logits(r) for r in reqs]
-        del plain_eng
-    worst = hold(torch, "float32", reqs, kernel32, plain32)
-    log(f"[serve] {arch} f32 ({depth}), kernels vs their plain versions: prefill logits of "
-        f"{len(reqs)} requests max |err| / ‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['float32']})")
-    batch = st["train"][0][0]
-    step_check(torch, tr, cfg32, server.backbone,
-               (("first step", server.global_adapters), ("trained", trained)), batch,
-               what=f"{arch} ({depth})")
+    cfg32, _ = f32_checks(torch, tr, sv, cfg, server, kw, reqs, trained, st["train"][0][0],
+                          n32, "dense")
     if cfg.sliding_window is not None:
         window_step(torch, tr, cfg32, server.backbone, trained)
         ring_decode_check(torch, tr, cfg32, server.backbone)
-    del st, server, trained, batch
+    del st, server, trained
     torch.cuda.empty_cache()
     return launches
+
+
+def f32_checks(torch, tr, sv, cfg, server, kw, reqs, trained, batch, n32, phase):
+    """The server's weights upcast to f32 in place, its first ``n32`` layers:
+    the prefill logits of ``reqs``, kernels against plain versions, at
+    LOGIT_TOL; one step's loss and adapter gradients at the first step and
+    at ``trained``, at LOSS_TOL and GRAD_TOL. The plain runs take the kernel
+    runs' expert choices. -> (the f32 config, the MoE routing records of
+    each prefill: the kernels', and the plain versions' own)."""
+    upcast_in_place(torch, server.backbone, n32)
+    cfg32 = cfg.with_(dtype="float32", n_layers=n32)
+    depth = f"{n32} of {cfg.n_layers} layers" if n32 < cfg.n_layers else "full depth"
+    log(f"[{phase}] {cfg.name} upcast to f32 ({depth}): "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    engine = lambda: sv["Engine"](cfg32, server.backbone, use_pallas_grouped=True, **kw)
+    kernel32, routes = prefill_routes(engine(), reqs)
+    with plain_versions():
+        plain32, plain_routes = prefill_routes(engine(), reqs, routes)
+    worst = hold(torch, "float32", reqs, kernel32, plain32)
+    log(f"[serve] {cfg.name} f32 ({depth}), kernels vs their plain versions: prefill logits of "
+        f"{len(reqs)} requests max |err| / ‖ref‖∞ = {worst:.3e} (limit {LOGIT_TOL['float32']})")
+    step_check(torch, tr, cfg32, server.backbone,
+               (("first step", server.global_adapters), ("trained", trained)), batch,
+               what=f"{cfg.name} ({depth})")
+    return cfg32, (routes, plain_routes)
+
+
+def detached(routing):
+    """A ``moe.Routing`` cut from autograd's graph."""
+    return type(routing)(*(t.detach() if hasattr(t, "detach") else t for t in routing))
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Yield a list that receives every MoE layer's ``moe.Routing`` while
+    inside, detached, one record a call (``moe.route`` swapped for a
+    recording wrapper)."""
+    from repro_torch.models import moe as moe_lib
+
+    routes, route = [], moe_lib.route
+
+    def recording(*args):
+        r = route(*args)
+        routes.append(detached(r))
+        return r
+
+    moe_lib.route = recording
+    try:
+        yield routes
+    finally:
+        moe_lib.route = route
+
+
+@contextlib.contextmanager
+def replayed_routes(recorded):
+    """Inside, the n-th ``moe.route`` call keeps the expert choices, slots
+    and drops of ``recorded[n]`` (another run's routing, in call order) and
+    takes its gates from this run's own router probabilities at those
+    choices. A run on the plain versions held against a kernel run then
+    meets the same experts: in bf16 the two runs' rounding flips near-tied
+    router choices (``moe_routing`` prints the share), and a token sent to
+    another expert meets other weights. Yields a list that receives this
+    run's own routing of each call, detached; fails unless the calls match
+    ``recorded`` one for one."""
+    from repro_torch.models import moe as moe_lib
+
+    own, route = [], moe_lib.route
+
+    def replaying(cfg, router, xg):
+        r = route(cfg, router, xg)
+        own.append(detached(r))
+        n = len(own) - 1
+        if n >= len(recorded) or recorded[n].idx.shape != r.idx.shape:
+            raise AssertionError(f"routing replay: call {n} of {len(recorded)} recorded has "
+                                 f"choices {tuple(r.idx.shape)}")
+        want = recorded[n]
+        gates = r.probs.gather(-1, want.idx)
+        gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+        return r._replace(gates=gates, idx=want.idx, keep=want.keep, slot=want.slot)
+
+    moe_lib.route = replaying
+    try:
+        yield own
+    finally:
+        moe_lib.route = route
+    if len(own) != len(recorded):
+        raise AssertionError(f"routing replay: {len(own)} calls, {len(recorded)} recorded")
+
+
+def replay_note(recorded, own) -> str:
+    """The log's note on a replayed run (empty for a config without experts)."""
+    flat = lambda rs: [x for r in rs for x in (r if isinstance(r, list) else [r])]
+    recorded, own = flat(recorded), flat(own)
+    if not recorded:
+        return ""
+    return (f"; the plain run took the kernel run's expert choices, where its own, layer by "
+            f"layer, agree on {route_agreement([recorded], [own]):.5f}")
+
+
+def prefill_routes(eng, reqs, replay=None):
+    """Prefill each of ``reqs`` alone on engine ``eng``. -> (its logits, its
+    MoE routing, one record a layer; empty for a config without experts).
+    With ``replay`` (another run's routing of the same prefills) each
+    prefill takes that run's expert choices, and the records are its own."""
+    logits, routes = [], []
+    for i, r in enumerate(reqs):
+        with (recorded_routes() if replay is None else replayed_routes(replay[i])) as rec:
+            logits.append(eng.prefill_logits(r))
+        routes.append(rec)
+    return logits, routes
 
 
 def serve_past_window(torch, cfg, backbone, sv, counters, tenants, names):
@@ -2274,6 +2453,225 @@ def dense_timings(torch, F, fa_ops, fa_ref):
                 for _ in range(2))
         out[label] = flash_timing(torch, F, fa_ops, fa_ref, q, k, v, f" ({label})",
                                   window=4096)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# qwen2-vl-72b and the MoE family: llama4-scout-17b-a16e, grok-1-314b
+# ---------------------------------------------------------------------------
+
+def moe_arch(torch, tr, sv, counters, arch):
+    """qwen2-vl-72b or an MoE config at published width and MOE_LAYERS depth.
+    -> launches per kernel by path."""
+    from repro_torch.utils import tree_leaves
+
+    full = tr["get_config"](arch)
+    n = MOE_LAYERS[arch]
+    cfg = full.with_(use_pallas=True, n_layers=n)
+    log(f"[moe] device memory before drawing {arch}: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    t0 = time.perf_counter()
+    server = tr["init_server"](cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    size = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    per_layer = size(server.backbone["layers"][0])
+    rest = size({k: v for k, v in server.backbone.items() if k != "layers"})
+    experts = (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff {cfg.d_ff}"
+               + (f" + a shared expert of {cfg.moe.shared_d_ff}" if cfg.moe.shared_d_ff else "")
+               + f", capacity factor {cfg.moe.capacity_factor}"
+               if cfg.moe else f"d_ff {cfg.d_ff}")
+    log(f"[moe] {arch}: {n} of its {full.n_layers} layers, because published depth holds "
+        f"{(full.n_layers * per_layer + rest) / 1e9:.1f} GB of {cfg.dtype} weights, more than "
+        f"one 80 GB card ({per_layer / 1e9:.2f} GB a layer, {rest / 1e9:.2f} GB outside the "
+        f"layers; {n} layers: {(n * per_layer + rest) / 1e9:.1f} GB); published width: d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.resolved_head_dim}, "
+        f"{experts}, vocab {cfg.vocab_size}, {cfg.act}, pos {cfg.pos_type}"
+        f"{f' {cfg.mrope_sections}' if cfg.mrope_sections else ''}, qkv_bias {cfg.qkv_bias}, "
+        f"softcap {cfg.logit_softcap}; drawn in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    short = arch.split("-")[0]
+    launches = {}
+
+    # serving: 16 requests of 4 tenants and base traffic (qwen2-vl: 64 patches each)
+    names = [f"tenant{i}" for i in range(4)]
+    tenants = sv["synth"](0, cfg, names, "cuda")
+    kw = dict(DENSE_SERVE_KW, adapter_loader=tenants.__getitem__)
+    reqs = sv["make_requests"](cfg, names, 16, kw["prefill_len"], kw["max_new_tokens"], 0)
+    launches[f"serve_{short}"], *_ = serve_main_path(torch, cfg, server.backbone, sv["Engine"],
+                                                     counters, kw, reqs, f"{arch} ({n} layers)")
+    torch.cuda.empty_cache()
+
+    # training: FedNano 2 clients x 2 rounds, and one agg_chunk=1 round
+    st, train_launches = training_full(torch, tr, counters, arch=arch, server=server)
+    launches.update(train_launches)
+    trained, batch = st["res"].server.global_adapters, st["train"][0][0]
+    run_vs_plain(torch, tr, st, held=1)
+    loop_timings(torch, tr, st)
+
+    # f32 on the same weights upcast, MOE_F32_LAYERS deep
+    n32 = MOE_F32_LAYERS[arch]
+    if cfg.moe is not None:
+        moe_routing(torch, tr, sv, cfg, server, kw, reqs, trained, batch)
+        cut = dict(server.backbone, layers=server.backbone["layers"][:n32])
+        plain16, kernel16 = free_prefill_routes(sv["Engine"], cfg.with_(n_layers=n32), cut, kw,
+                                                reqs)
+        del cut
+    cfg32, (routes, plain_routes) = f32_checks(torch, tr, sv, cfg, server, kw, reqs, trained,
+                                               batch, n32, "moe")
+    if cfg.moe is not None:
+        plain32, kernel32 = free_prefill_routes(sv["Engine"], cfg32, server.backbone, kw, reqs)
+        log(f"[moe] {arch} f32 ({n32} layers), kernels vs plain versions: expert choices "
+            f"agree on {route_agreement(routes, plain_routes):.5f} of the (layer, token, "
+            f"choice) picks of {len(reqs)} prefills (the plain run's own, given the kernel "
+            f"run's choices in the layers before)")
+        log(f"[moe] {arch} routing flips by layer, first {n32} layers, {len(reqs)} prefills, "
+            f"free runs (share of picks that differ): bf16 kernels vs bf16 plain versions "
+            f"{flips_by_layer(kernel16, plain16)}; bf16 plain versions vs f32 plain versions "
+            f"on the same weights {flips_by_layer(plain16, plain32)}; f32 kernels vs f32 plain "
+            f"versions {flips_by_layer(kernel32, plain32)}")
+    f32_round(torch, tr, st, cfg32, server)
+    del st, server, trained, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def free_prefill_routes(Engine, cfg, backbone, kw, reqs):
+    """Prefill routing records of ``reqs``, on the plain versions and on the
+    kernels, each run choosing its own experts. -> (plain, kernel records)."""
+    engine = lambda: Engine(cfg, backbone, use_pallas_grouped=True, **kw)
+    with plain_versions():
+        _, plain = prefill_routes(engine(), reqs)
+    return plain, prefill_routes(engine(), reqs)[1]
+
+
+def f32_round(torch, tr, st, cfg32, server):
+    """Round 0 of the FedNano run on the server's f32 weights, kernels against
+    the plain versions (taking the kernel run's expert choices), its loss
+    held at LOSS_TOL. The adapters are reported beside a witness: the same
+    round by the model's use_pallas=False path, another f32 order of the
+    same arithmetic, against the plain versions. AdamW's first steps move
+    each entry by about lr·sign(g) whatever |g| (above eps 1e-8), so an
+    entry whose gradient is at the f32 noise of either order can step the
+    other way, and the Fisher merge divides by F + 1e-8 where F is that
+    small; the counts beside each gap say how many entries moved how far."""
+    from repro_torch.utils import tree_leaves
+
+    kw = dict(strategy="fednano", hp=st["hp"], rounds=1, final_eval=False)
+    run = lambda cfg: tr["run_federated"](0, cfg, st["train"], st["evald"],
+                                          server=fresh_server(dataclasses.replace(server, cfg=cfg)),
+                                          use_pallas=cfg.use_pallas, **kw)
+    with recorded_routes() as routes:
+        got = run(cfg32)
+    with plain_versions(), replayed_routes(routes) as own:
+        want = run(cfg32)
+    with replayed_routes(routes):
+        other = run(cfg32.with_(use_pallas=False))
+    g, w = got.round_metrics[0]["mean_loss"], want.round_metrics[0]["mean_loss"]
+    err = abs(g - w) / abs(w)
+    if not math.isfinite(g) or err > LOSS_TOL["float32"]:
+        raise AssertionError(f"{cfg32.name} f32 round 0, kernels vs plain versions: loss {g} vs "
+                             f"{w} ({err:.3e}, bound {LOSS_TOL['float32']})")
+
+    def gaps(a):
+        uploads = max(tree_rel_err(x.adapters, y.adapters)
+                      for x, y in zip(a.clients, want.clients))
+        glob = (a.server.global_adapters, want.server.global_adapters)
+        return (f"clients' uploads {uploads:.3e}, global adapters {tree_rel_err(*glob):.3e} of "
+                f"‖ref‖∞ (entries more than 1e-3, 1e-1 of ‖ref‖∞ apart: "
+                f"{far_entries(*glob, 1e-3)}, {far_entries(*glob, 1e-1)} of "
+                f"{sum(t.numel() for t in tree_leaves(glob[1]))})")
+
+    log(f"[train-check] {cfg32.name} f32 ({cfg32.n_layers} layers) round 0, kernels vs plain "
+        f"versions: loss {g:.7f} vs {w:.7f} (rel {err:.3e}, bound {LOSS_TOL['float32']}"
+        f"{replay_note(routes, own)}); {gaps(got)} (reported); witness, the use_pallas=False "
+        f"path vs the plain versions: loss {other.round_metrics[0]['mean_loss']:.7f}, "
+        f"{gaps(other)}")
+
+
+def far_entries(got, want, rel) -> int:
+    """Entries of the leaves of ``got`` more than ``rel`` of their leaf's
+    ‖want‖∞ from ``want``."""
+    from repro_torch.utils import tree_leaves
+
+    return sum(int(((g.float() - w.float()).abs() > rel * float(w.abs().max())).sum())
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def moe_routing(torch, tr, sv, cfg, server, kw, reqs, adapters, batch):
+    """The MoE layers' routing in bf16, each run choosing its own experts:
+    the (token, choice) pairs that the capacity dropped in each layer over
+    the requests' prefills (pads included), on one decode step over every
+    page, and on one training batch; and the share of expert choices on
+    which the kernels' and the plain versions' prefills and training batch
+    differ, by layer (a flipped choice changes the layers after it too)."""
+    plain_routes, routes = free_prefill_routes(sv["Engine"], cfg, server.backbone, kw, reqs)
+    eng = sv["Engine"](cfg, server.backbone, use_pallas_grouped=True, **kw)
+    for r in reqs[:kw["max_slots"]]:
+        eng.submit(r)
+    eng._admit({})
+    with recorded_routes() as decode_routes:
+        eng._decode()
+    with torch.no_grad():
+        with recorded_routes() as train_routes:
+            tr["fednano_loss"](cfg, server.backbone, adapters, batch)
+        with plain_versions(), recorded_routes() as train_plain:
+            tr["fednano_loss"](cfg, server.backbone, adapters, batch)
+    decode_routes, train_routes, train_plain = [decode_routes], [train_routes], [train_plain]
+    dec = dropped_by_layer(decode_routes)
+    if any(dec):
+        raise AssertionError(f"{cfg.name}: a decode step routes each page alone and drops no "
+                             f"choice, but dropped {dec}")
+    K, C = cfg.moe.top_k, routes[0][0].capacity
+    log(f"[moe] {cfg.name} bf16 dropped (token, choice) pairs by layer: {len(reqs)} prefills of "
+        f"{kw['prefill_len']} positions, pads included (capacity {C} a group of "
+        f"{kw['prefill_len']}, {len(reqs) * kw['prefill_len'] * K} choices a layer): "
+        f"{dropped_by_layer(routes)}; one decode step over {kw['max_slots']} pages, each routed "
+        f"alone (capacity {decode_routes[0][0].capacity}): {dec}; one training batch "
+        f"{tuple(batch.tokens.shape)} as one group (capacity {train_routes[0][0].capacity}): "
+        f"{dropped_by_layer(train_routes)}")
+    log(f"[moe] {cfg.name} bf16 free runs, kernels vs plain versions: expert choices agree on "
+        f"{route_agreement(routes, plain_routes):.5f} of the (layer, token, choice) picks of "
+        f"{len(reqs)} prefills, flips by layer {flips_by_layer(routes, plain_routes)}; on the "
+        f"trained adapters' first training batch {route_agreement(train_routes, train_plain):.5f}"
+        f", flips by layer {flips_by_layer(train_routes, train_plain)}")
+
+
+def flips_by_layer(a, b):
+    """Share of each layer's expert picks on which two runs differ; ``a`` and
+    ``b`` hold one list of per-layer records a call."""
+    return [f"{1 - route_agreement([[x[i]] for x in a], [[y[i]] for y in b]):.4f}"
+            for i in range(len(a[0]))]
+
+
+def dropped_by_layer(routes):
+    """Dropped (token, choice) pairs of each layer, summed over the calls."""
+    return [sum(int((~call[i].keep).sum()) for call in routes) for i in range(len(routes[0]))]
+
+
+def route_agreement(a, b) -> float:
+    """Share of (layer, token, choice) expert picks on which two runs agree."""
+    same = total = 0
+    for call_a, call_b in zip(a, b):
+        for x, y in zip(call_a, call_b):
+            same += int((x.idx == y.idx).sum())
+            total += x.idx.numel()
+    return same / total
+
+
+def moe_timings(torch, F, fa_ops, fa_ref):
+    """The flash kernel at the new paths' prefill shapes, head dim 128 on 8 KV
+    heads, bf16: grok-1's 48 heads with its softcap of 30 (no SDPA beside
+    it), llama4-scout's 40 (GQA 5) and qwen2-vl's 64 over 64 patches + 128."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = {}
+    for label, (s_, h, cap) in (("grok prefill", (128, 48, 30.0)),
+                                ("llama4 prefill", (128, 40, 0.0)),
+                                ("qwen2-vl prefill", (192, 64, 0.0))):
+        q = torch.randn((1, s_, h, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((1, s_, 8, 128), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        out[label] = flash_timing(torch, F, fa_ops, fa_ref, q, k, v, f" ({label})",
+                                  softcap=cap)
     return out
 
 
@@ -2415,6 +2813,16 @@ def main() -> int:
     for arch in DENSE_ARCHS:
         launches.update(dense_arch(torch, tr, sv, counters, arch))
     times["flash_attention"]["shapes"].update(dense_timings(torch, F, fa_ops, fa_ref))
+
+    # qwen2-vl-72b and the MoE family: smoke size card vs CPU, then published width
+    for arch in MOE_ARCHS:
+        serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
+                      make_requests, ServingEngine, arch=arch)
+        training_smoke(torch, tr, arch=arch, adapter_tol=SMOKE_ADAPTER_TOL, f64_witness=True,
+                       both_paths=True)
+    for arch in MOE_ARCHS:
+        launches.update(moe_arch(torch, tr, sv, counters, arch))
+    times["flash_attention"]["shapes"].update(moe_timings(torch, F, fa_ops, fa_ref))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

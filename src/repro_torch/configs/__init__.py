@@ -1,13 +1,14 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
 Holds the configs whose families the port runs: the paper's two MLLM
-backbones (vlm), mamba2-130m (ssm) and the dense family's four
-(h2o-danube-1.8b with its sliding window, glm4-9b and qwen1.5-4b with their
-QKV bias, internlm2-20b). The other architectures of ``repro.configs`` join
-as their families are ported (ROADMAP queue 3): qwen2-vl-72b with M-RoPE
-(3d), llama4-scout and grok-1 with the MoE family (3e), recurrentgemma-9b
-with the hybrid family (3f), whisper-base with the encoder-decoder family
-(3g).
+backbones and qwen2-vl-72b with M-RoPE (vlm), mamba2-130m (ssm), the dense
+family's four (h2o-danube-1.8b with its sliding window, glm4-9b and
+qwen1.5-4b with their QKV bias, internlm2-20b) and the MoE family's two
+(llama4-scout-17b-a16e, top-1 with a shared expert; grok-1-314b, top-2 with
+GELU experts and capped attention logits). The other architectures of
+``repro.configs`` join as their families are ported (ROADMAP queue 3):
+recurrentgemma-9b with the hybrid family (3f), whisper-base with the
+encoder-decoder family (3g).
 """
 from __future__ import annotations
 
@@ -15,23 +16,29 @@ from typing import Callable, Dict
 
 from repro_torch.configs import (
     glm4_9b,
+    grok_1_314b,
     h2o_danube_1_8b,
     internlm2_20b,
+    llama4_scout_17b_a16e,
     llava15_7b,
     mamba2_130m,
     minigpt4_7b,
     qwen1_5_4b,
+    qwen2_vl_72b,
 )
-from repro_torch.configs.base import AdapterConfig, ModelConfig, SSMConfig, reduced
+from repro_torch.configs.base import AdapterConfig, ModelConfig, MoEConfig, SSMConfig, reduced
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "glm4-9b": glm4_9b.config,
+    "grok-1-314b": grok_1_314b.config,
     "h2o-danube-1.8b": h2o_danube_1_8b.config,
     "internlm2-20b": internlm2_20b.config,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e.config,
     "llava-1.5-7b": llava15_7b.config,
     "mamba2-130m": mamba2_130m.config,
     "minigpt4-7b": minigpt4_7b.config,
     "qwen1.5-4b": qwen1_5_4b.config,
+    "qwen2-vl-72b": qwen2_vl_72b.config,
 }
 
 
@@ -49,5 +56,5 @@ def get_smoke_config(arch: str, **overrides) -> ModelConfig:
     return reduced(get_config(arch), **overrides)
 
 
-__all__ = ["AdapterConfig", "ModelConfig", "SSMConfig", "get_config", "get_smoke_config",
-           "list_archs", "reduced"]
+__all__ = ["AdapterConfig", "ModelConfig", "MoEConfig", "SSMConfig", "get_config",
+           "get_smoke_config", "list_archs", "reduced"]

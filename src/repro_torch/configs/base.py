@@ -1,15 +1,15 @@
 """Configuration dataclasses of the PyTorch port.
 
 The port's own copy of ``repro.configs.base``, cut to what the ported
-families (``dense`` / ``vlm`` / ``ssm``) read. The field names, defaults and
-order are the JAX package's, so ``tests/test_torch_model.py`` can hold the
-configs against each other field by field.
+families (``dense`` / ``vlm`` / ``moe`` / ``ssm``) read. The field names,
+defaults and order are the JAX package's, so ``tests/test_torch_model.py``
+can hold the configs against each other field by field.
 
-The port has the JAX fields that its configs set and its code reads; for the
-dense family that is ``qkv_bias`` and ``sliding_window``. A JAX field arrives
-with the config or caller that first sets it (ROADMAP queue 3):
-``mrope_sections`` with qwen2-vl (3d); ``moe`` and ``logit_softcap`` with
-the MoE family (3e, grok-1 caps its logits); ``rglru`` with the hybrid
+The port has the JAX fields that its configs set and its code reads: the
+dense family's ``qkv_bias`` and ``sliding_window``, qwen2-vl's
+``mrope_sections``, and the MoE family's ``moe`` and ``logit_softcap``
+(grok-1 caps its attention logits). A JAX field arrives with the config or
+caller that first sets it (ROADMAP queue 3): ``rglru`` with the hybrid
 family (3f); ``max_seq_len`` with learned positions, and ``n_enc_layers``,
 ``enc_seq_len`` and ``parallel_block``, with the encoder-decoder family (3g);
 ``attn_chunk`` and ``loss_chunk`` with a long-sequence caller. The adapters'
@@ -22,6 +22,15 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01  # balance-loss weight; the backbone is frozen, so reported only
+    shared_d_ff: int = 0  # llama4-style shared expert FFN width (0 = none)
 
 
 @dataclass(frozen=True)
@@ -50,7 +59,7 @@ class AdapterConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "unnamed"
-    family: str = "dense"          # the port runs dense | vlm | ssm
+    family: str = "dense"          # the port runs dense | vlm | moe | ssm
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -60,17 +69,20 @@ class ModelConfig:
     vocab_size: int = 1024
 
     # attention / positions
-    pos_type: str = "rope"         # the port runs rope | none
+    pos_type: str = "rope"         # the port runs rope | mrope | none
     rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w) frequency slots
     qkv_bias: bool = False
     sliding_window: Optional[int] = None   # SWA window (h2o-danube: 4096)
+    logit_softcap: float = 0.0             # grok-style tanh cap on attention logits (0 = off)
 
     # block structure
     norm: str = "rmsnorm"          # the port runs rmsnorm
-    act: str = "swiglu"            # the port runs swiglu
+    act: str = "swiglu"            # the port runs swiglu | gelu
     tie_embeddings: bool = False   # logits read the embedding table (no unembed)
 
     # sub-family configs
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
 
     # modality frontend stub (vlm): incoming embedding width before connector
@@ -96,7 +108,7 @@ class ModelConfig:
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Smoke-test variant of the same family: <=2 layers, d_model <= 256.
+    """Smoke-test variant of the same family: <=2 layers, d_model <= 256, <=4 experts.
 
     Keeps every structural switch identical so the smoke test exercises the
     same code path as the full config (``repro.configs.base.reduced``).
@@ -106,18 +118,25 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
     if cfg.n_kv_heads < cfg.n_heads:
         n_kv = max(1, n_heads // max(1, cfg.q_per_kv))
+    head_dim = d_model // n_heads
     kw = dict(
         n_layers=min(cfg.n_layers, 2),
         d_model=d_model,
         n_heads=n_heads,
         n_kv_heads=n_kv,
-        head_dim=d_model // n_heads,
+        head_dim=head_dim,
         d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 512),
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
+        mrope_sections=(head_dim // 4, head_dim // 8, head_dim // 8) if cfg.mrope_sections else (),
         dtype="float32",
         adapter=dataclasses.replace(cfg.adapter, rank=4, alpha=8.0),
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=min(cfg.moe.n_experts, 4), top_k=min(cfg.moe.top_k, 2),
+            shared_d_ff=min(cfg.moe.shared_d_ff, 256) if cfg.moe.shared_d_ff else 0,
+        )
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk_size=32)
     if cfg.frontend_dim:

@@ -6,7 +6,10 @@ back. The only change of layout is the layer stack: the JAX package stacks
 per-layer params on a leading axis for ``lax.scan``
 (``transformer.py:118-128``), the port keeps a list of per-layer dicts.
 Every leaf of a layer is unstacked and restacked alike: the projections,
-the norms and, for the QKV-bias configs, ``bq``/``bk``/``bv``.
+the norms, for the QKV-bias configs ``bq``/``bk``/``bv``, and for the MoE
+family the f32 router (d, E) inside a bf16 backbone, the experts' (E, d, f)
+and (E, f, d) weights (``w_gate`` too, which GELU never reads) and
+the shared expert's MLP.
 Projections keep the ``(in, out)`` layout in both packages, so nothing is
 transposed. bfloat16 arrays (numpy's ``bfloat16`` from ``ml_dtypes``) pass
 bit for bit through their 16-bit pattern.

@@ -225,6 +225,10 @@ FLASH_EDGE_SHAPES = [
     ("d80-q130-k65-window", 1, 130, 65, 4, 1, 80, True, 32, 0.0, 0, 0),
     ("d80-softcap-s64", 1, 64, 64, 8, 2, 80, True, None, 30.0, 0, 0),
     ("d80-bidir-q17-k129", 1, 17, 129, 4, 1, 80, False, None, 0.0, 0, 0),
+    # grok-1's softcap of 30 at the MoE family's GQA groups: 5 (llama4-scout,
+    # 40 heads on 8) and 6 (grok-1, 48 on 8), off the 64-row tiles
+    ("d128-gqa5-softcap30-s70", 1, 70, 70, 10, 2, 128, True, None, 30.0, 0, 0),
+    ("d64-gqa6-softcap30-s65", 2, 65, 65, 12, 2, 64, True, None, 30.0, 0, 0),
 ]
 # The dense family's full-width attention shapes, run on the card only:
 # h2o-danube-1.8b's prefill (4,096 positions), its training batch and the
@@ -239,6 +243,35 @@ DENSE_FLASH_SHAPES = [
     ("qwen1.5-train", 4, 32, 32, 20, 20, 128, True, None, 0.0, 0, 0),
     ("internlm2-train", 4, 32, 32, 48, 8, 128, True, None, 0.0, 0, 0),
 ]
+# The MoE family's and qwen2-vl-72b's full-width attention, run on the card
+# only: serving's prefill (128 text positions; qwen2-vl 64 patches + 128) and
+# the training batch (4 x 32 tokens; qwen2-vl 4 x (64 + 32)), all at head dim
+# 128 on 8 KV heads: grok-1 48 heads with its softcap of 30, llama4-scout 40
+# (GQA 5), qwen2-vl 64.
+MOE_FLASH_SHAPES = [
+    ("grok-prefill", 1, 128, 128, 48, 8, 128, True, None, 30.0, 0, 0),
+    ("llama4-prefill", 1, 128, 128, 40, 8, 128, True, None, 0.0, 0, 0),
+    ("qwen2vl-prefill", 1, 192, 192, 64, 8, 128, True, None, 0.0, 0, 0),
+    ("grok-train", 4, 32, 32, 48, 8, 128, True, None, 30.0, 0, 0),
+    ("llama4-train", 4, 32, 32, 40, 8, 128, True, None, 0.0, 0, 0),
+    ("qwen2vl-train", 4, 96, 96, 64, 8, 128, True, None, 0.0, 0, 0),
+]
+# ... and the flash Function's gradient with the softcap: grok-1's training
+# batch, and a GQA-5 case off the tiles. Both are held at
+# FULL_FLASH_GRAD_TOLERANCES: at head dim 128 the D-trick's f32 noise passes
+# the grid's 2e-6 (dq 2.55e-6 of ‖ref‖∞ from autograd at the GQA-5 case on
+# the CPU, 2.1e-6 on an H100 at 700 W).
+MOE_FLASH_GRAD_SHAPES = [MOE_FLASH_SHAPES[3], FLASH_EDGE_SHAPES[-2]]
+# ... and their NanoEdge and tenant-bank LoRA at rank 64, on the card only:
+# the text adapter's rows at d_model 5,120 (llama4-scout), 6,144 (grok-1) and
+# 8,192 (qwen2-vl), 128 a prefill and 4 x 32 a training step; qwen2-vl's
+# image adapter over 64 patches a prefill and 4 x 64 a step; the grouped
+# bank at 8 decode slots of 8 tenants at each width.
+MOE_LORA_SHAPES = [(128, 5120, 64, 0), (128, 6144, 64, 0), (128, 8192, 64, 0),
+                   (64, 8192, 64, 0), (4 * 64, 8192, 64, 0)]
+MOE_LORA_GRAD_SHAPES = [(4 * 32, 5120, 64, 0), (4 * 32, 6144, 64, 0), (4 * 32, 8192, 64, 0),
+                        (4 * 64, 8192, 64, 0)]
+MOE_GROUPED_SHAPES = [(8, 5120, 64, 8, 0), (8, 6144, 64, 8, 0), (8, 8192, 64, 8, 0)]
 LORA_EDGE_SHAPES = [
     # (t, d, rank, block_t): D and r off multiples of 8 and 16, T off 64
     (63, 100, 5, 0),

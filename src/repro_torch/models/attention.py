@@ -67,17 +67,26 @@ def _project_kv(cfg, params, x):
     return k.reshape(shape), v.reshape(shape)
 
 
+def _softcap(logits, cap: float):
+    """grok-1's tanh cap on the scaled logits: cap · tanh(logits / cap)."""
+    if cap and cap > 0.0:
+        return torch.tanh(logits / cap) * cap
+    return logits
+
+
 def sdpa(cfg, q, k, v, mask):
     """Grouped-GQA scaled-dot-product attention (the plain path).
 
     q (B,Sq,nh,hd); k,v (B,Sk,n_kv,hd) unrepeated; mask (Sq, Sk) bool
-    (True = attend) or None. Scores in f32; probabilities cast to v's dtype
-    before the product with v, as the JAX package does.
+    (True = attend) or None. Scores in f32, capped by ``cfg.logit_softcap``
+    before the mask; probabilities cast to v's dtype before the product with
+    v, as the JAX package does (``attention.py:85-106``).
     """
     B, Sq, nh, hd = q.shape
     nkv = k.shape[2]
     qg = q.reshape(B, Sq, nkv, nh // nkv, hd)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * (hd ** -0.5)
+    logits = _softcap(logits, cfg.logit_softcap)
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -101,8 +110,8 @@ def full_attention(cfg, params, x, angles, *, return_kv: bool = False):
     """Causal full-sequence self-attention for training and prefill.
 
     ``cfg.use_pallas`` routes the scores through the flash-attention kernel
-    with the config's window (``attention.py:196-202``). Returns
-    (out, (k, v)) when ``return_kv``.
+    with the config's window and logit softcap (``attention.py:196-202``).
+    Returns (out, (k, v)) when ``return_kv``.
     """
     q = _project_q(cfg, params, x)
     k, v = _project_kv(cfg, params, x)
@@ -110,7 +119,8 @@ def full_attention(cfg, params, x, angles, *, return_kv: bool = False):
     k = apply_rotary(k, angles)
     S = x.shape[1]
     if cfg.use_pallas:
-        out = flash_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                                        softcap=cfg.logit_softcap)
     else:
         out = sdpa(cfg, q, k, v, causal_mask(S, S, window=cfg.sliding_window, device=x.device))
     B, S = x.shape[:2]
@@ -155,8 +165,9 @@ def decode_attention(cfg, params, x, angles, cache: KVCache, pos):
     Row b writes its new KV at slot ``pos[b] % C`` in place (the JAX package
     returns a new cache) and attends over slots ``j <= pos[b]``
     (``attention.py:269-274``): in a ring (pos >= C) every slot, which holds
-    exactly the window's last C positions. Scores in f32; probabilities cast
-    to the cache dtype before the product with V (``attention.py:292-298``).
+    exactly the window's last C positions. Scores in f32, capped by
+    ``cfg.logit_softcap``; probabilities cast to the cache dtype before the
+    product with V (``attention.py:292-298``).
     Returns (out (B, 1, D), cache).
     """
     B = x.shape[0]
@@ -173,6 +184,7 @@ def decode_attention(cfg, params, x, angles, cache: KVCache, pos):
     nkv = cfg.n_kv_heads
     qg = q.reshape(B, 1, nkv, cfg.n_heads // nkv, hd)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), cache.k.float()) * (hd ** -0.5)
+    logits = _softcap(logits, cfg.logit_softcap)
     logits = logits.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(cache.v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache.v)

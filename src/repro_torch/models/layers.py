@@ -57,21 +57,31 @@ def rmsnorm(params, x, eps: float = 1e-6):
     return (xf * params["scale"].float()).to(x.dtype)
 
 
-def init_mlp(gen, cfg, dtype):
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act={cfg.act!r}: the port runs swiglu only "
-                                  "(other activations: ROADMAP queue 3)")
-    d, f = cfg.d_model, cfg.d_ff
-    return {
-        "w_gate": dense_init(gen, (d, f), dtype),
-        "w_up": dense_init(gen, (d, f), dtype),
-        "w_down": dense_init(gen, (f, d), dtype),
-    }
+def init_mlp(gen, cfg, dtype, d_ff=None):
+    """SwiGLU's three projections, or GELU's two (no ``w_gate``); ``d_ff``
+    overrides the config's width (the MoE shared expert, ``layers.py:76-89``)."""
+    if cfg.act not in ("swiglu", "gelu"):
+        raise NotImplementedError(f"act={cfg.act!r}: the port runs swiglu and gelu "
+                                  "(GeGLU: ROADMAP queue 3f)")
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"w_gate": dense_init(gen, (d, f), dtype)} if cfg.act == "swiglu" else {}
+    p["w_up"] = dense_init(gen, (d, f), dtype)
+    p["w_down"] = dense_init(gen, (f, d), dtype)
+    return p
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation; the exact erf form
+    differs by up to 4.7e-4."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp(cfg, params, x):
-    """SwiGLU position-wise MLP: (silu(x·Wg) ⊙ x·Wu)·Wd."""
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    """Position-wise MLP: SwiGLU (silu(x·Wg) ⊙ x·Wu)·Wd, or GELU gelu(x·Wu)·Wd."""
+    if cfg.act == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    else:
+        h = gelu(x @ params["w_up"])
     return h @ params["w_down"]
 
 

@@ -1,4 +1,4 @@
-"""Backbone facade of the port, dense/vlm and ssm families
+"""Backbone facade of the port, dense/vlm, moe and ssm families
 (PyTorch counterpart of ``repro.models.model``).
 
     init_backbone(cfg, seed, device)              -> params
@@ -33,15 +33,22 @@ def param_dtype(cfg) -> torch.dtype:
     return torch_dtype(cfg.dtype)
 
 
+# what each family runs: norm, activations, position types
+SUPPORTED = {"dense": (("rmsnorm",), ("swiglu",), ("rope",)),
+             "vlm": (("rmsnorm",), ("swiglu",), ("rope", "mrope")),
+             "moe": (("rmsnorm",), ("swiglu", "gelu"), ("rope",)),
+             "ssm": (("rmsnorm",), ("swiglu",), ("none",))}
+
+
 def check_supported(cfg) -> None:
     """Raise for configs whose layers the port does not have yet."""
     transformer.check_family(cfg)
-    pos = "none" if cfg.family == "ssm" else "rope"
-    for field, want in (("norm", "rmsnorm"), ("act", "swiglu"), ("pos_type", pos)):
-        if getattr(cfg, field) != want:
+    for field, allowed in zip(("norm", "act", "pos_type"), SUPPORTED[cfg.family]):
+        if getattr(cfg, field) not in allowed:
             raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r}: the port runs {want} only for the "
-                f"{cfg.family} family (ROADMAP queue 3, 'The other families')")
+                f"{field}={getattr(cfg, field)!r}: the port runs {allowed} for the "
+                f"{cfg.family} family (LayerNorm and learned positions: ROADMAP queue 3g; "
+                "GeGLU: queue 3f)")
 
 
 def init_backbone(cfg, *, seed: int = 0, device="cuda"):
@@ -77,8 +84,9 @@ def connect(cfg, params, feats):
 def forward(cfg, params, embeds, positions):
     """Full-sequence causal forward (training and evaluation).
 
-    embeds (B, S, D), adapter-processed; positions (B, S) int.
-    Returns (hidden (B, S, D) after the final norm, aux scalar).
+    embeds (B, S, D), adapter-processed; positions (B, S) int, or (3, B, S)
+    under M-RoPE. Returns (hidden (B, S, D) after the final norm, aux: the
+    MoE balance loss summed over the layers, 0 for the other families).
     """
     angles = make_angles(cfg, positions)
     x, aux = transformer.forward_stack(cfg, params, embeds, angles)
@@ -93,15 +101,17 @@ def logits(cfg, params, hidden):
 def loss_fn(cfg, params, embeds, positions, labels, mask):
     """Masked LM loss of the frozen backbone on adapted embeddings -> (loss, aux).
 
-    The port's configs have no ``loss_chunk`` (llava sets none), so the full
-    (B, S, V) logits are formed, as in ``repro.models.model.loss_fn``.
+    aux, the MoE balance loss, is reported and never differentiated (the JAX
+    client's ``has_aux``), so it leaves the graph here. The port's configs
+    have no ``loss_chunk``, so the full (B, S, V) logits are formed, as in
+    ``repro.models.model.loss_fn``.
     """
     hidden, aux = forward(cfg, params, embeds, positions)
-    return lm_loss(logits(cfg, params, hidden), labels, mask), aux
+    return lm_loss(logits(cfg, params, hidden), labels, mask), aux.detach()
 
 
 def prefill(cfg, params, embeds, positions, capacity: int, length=None):
-    """embeds (B, S, D), positions (B, S) -> (stacked decode state, hidden).
+    """embeds (B, S, D), positions (B, S) or (3, B, S) -> (stacked decode state, hidden).
 
     ``length`` (int, optional): the number of real positions of a
     right-padded sequence. Only the ssm family reads it (its terminal state
@@ -116,6 +126,11 @@ def decode_step(cfg, params, embed, state, pos):
     """One-token decode. embed (B, 1, D); pos (B,) positions, or one int for all rows.
 
     Returns (logits (B, 1, V), state updated in place).
+
+    An MoE layer routes each row alone (groups of 1): the serving engine's
+    semantics, where the JAX engine ``vmap``s its decode over pages. JAX's
+    ``model.decode_step`` called on a whole batch routes the B rows as one
+    group instead; the two differ where that group's capacity drops a choice.
     """
     b = embed.shape[0]
     if not torch.is_tensor(pos):

@@ -1,8 +1,10 @@
 """Rotary position embeddings (PyTorch counterpart of ``repro.models.rotary``).
 
-Standard RoPE with the "rotate halves" convention, and no positions at all
-for the ssm family. M-RoPE (qwen2-vl) joins with that family (ROADMAP
-queue 3).
+Standard RoPE with the "rotate halves" convention; qwen2-vl's M-RoPE
+(arXiv:2409.12191 §2.1), whose head_dim/2 frequency slots split into
+``sections = (t, h, w)`` groups, each reading its own component of a
+3-component position id; and no positions at all for the ssm family. Text
+tokens carry three equal components, so on text M-RoPE equals RoPE.
 """
 from __future__ import annotations
 
@@ -22,6 +24,23 @@ def rope_angles(positions, head_dim: int, theta: float):
     return positions[..., None].to(torch.float32) * inv
 
 
+def mrope_angles(positions3, sections, head_dim: int, theta: float):
+    """positions3 (3, B, S) int -> angles (B, S, head_dim/2) f32.
+
+    The first ``sections[0]`` frequency slots read the temporal component,
+    the next ``sections[1]`` the height, the last ``sections[2]`` the width
+    (``rotary.py:26-42``).
+    """
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover head_dim/2 = "
+                         f"{head_dim // 2}")
+    inv = rope_freqs(head_dim, theta, positions3.device)
+    sel = torch.repeat_interleave(torch.arange(len(sections), device=positions3.device),
+                                  torch.tensor(sections, device=positions3.device))
+    pos = positions3.index_select(0, sel).permute(1, 2, 0)   # (B, S, half)
+    return pos.to(torch.float32) * inv
+
+
 def apply_rotary(x, angles):
     """x (..., S, H, D), angles (..., S, D/2) -> rotated x (same dtype).
 
@@ -37,11 +56,18 @@ def apply_rotary(x, angles):
 
 
 def make_angles(cfg, positions):
-    """positions (B, S) int -> (B, S, head_dim/2) angles, or None for
-    ``pos_type="none"`` (the ssm family has no positions)."""
+    """positions (B, S) int, or (3, B, S) for M-RoPE -> (B, S, head_dim/2)
+    angles, or None for ``pos_type="none"`` (the ssm family has no
+    positions). Under M-RoPE, (B, S) text positions broadcast to three equal
+    components (``rotary.py:61-74``)."""
+    hd = cfg.resolved_head_dim
     if cfg.pos_type == "none":
         return None
-    if cfg.pos_type != "rope":
-        raise NotImplementedError(f"pos_type={cfg.pos_type!r}: the port runs rope and none "
-                                  "(M-RoPE and learned positions: ROADMAP queue 3)")
-    return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    if cfg.pos_type == "rope":
+        return rope_angles(positions, hd, cfg.rope_theta)
+    if cfg.pos_type == "mrope":
+        if positions.ndim == 2:
+            positions = positions[None].expand((3,) + tuple(positions.shape))
+        return mrope_angles(positions, cfg.mrope_sections, hd, cfg.rope_theta)
+    raise NotImplementedError(f"pos_type={cfg.pos_type!r}: the port runs rope, mrope and none "
+                              "(learned positions: ROADMAP queue 3g)")

@@ -1,33 +1,35 @@
-"""Decoder stacks of the port, dense/vlm and ssm families
+"""Decoder stacks of the port, dense/vlm, moe and ssm families
 (PyTorch counterpart of ``repro.models.transformer``).
 
 Layer bodies:
     dense/vlm : x += attn(norm(x)); x += mlp(norm(x))
+    moe       : x += attn(norm(x)); x += moe(norm(x))   (+ shared expert)
     ssm       : x += mamba2(norm(x))
 
 The JAX package scans over per-layer params stacked on a leading axis; here
 ``params["layers"]`` is a list of per-layer dicts and the layer loop is a
 Python loop. The decode state keeps the JAX package's stacked layout
 (``KVCache`` of (L, B, C, n_kv, hd) tensors, or ``SSMState`` of (L, B, ...)
-tensors) and each layer reads and writes its slice in place. MoE, hybrid and
-encoder-decoder stacks arrive with their families (ROADMAP queue 3).
+tensors) and each layer reads and writes its slice in place. Hybrid and
+encoder-decoder stacks arrive with their families (ROADMAP queues 3f, 3g).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
-FAMILIES = ("dense", "vlm", "ssm")
+FAMILIES = ("dense", "vlm", "moe", "ssm")
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs {FAMILIES}; the moe, hybrid and "
-            "audio families are ROADMAP queue 3, 'The other families'")
+            f"family {cfg.family!r}: the port runs {FAMILIES}; the hybrid family is "
+            "ROADMAP queue 3f and the audio family queue 3g")
 
 
 def init_dense_layer(gen, cfg, dtype):
@@ -39,6 +41,15 @@ def init_dense_layer(gen, cfg, dtype):
     }
 
 
+def init_moe_layer(gen, cfg, dtype):
+    return {
+        "norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "attn": attn_lib.init_attention(gen, cfg, dtype),
+        "norm2": init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "moe": moe_lib.init_moe(gen, cfg, dtype),
+    }
+
+
 def init_ssm_layer(gen, cfg, dtype):
     return {"norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
             "ssm": ssm_lib.init_ssm(gen, cfg, dtype)}
@@ -46,7 +57,7 @@ def init_ssm_layer(gen, cfg, dtype):
 
 def init_stack(gen, cfg, dtype):
     check_family(cfg)
-    init = init_ssm_layer if cfg.family == "ssm" else init_dense_layer
+    init = {"ssm": init_ssm_layer, "moe": init_moe_layer}.get(cfg.family, init_dense_layer)
     return {"layers": [init(gen, cfg, dtype) for _ in range(cfg.n_layers)]}
 
 
@@ -56,16 +67,24 @@ def _layer_cache(state, i) -> attn_lib.KVCache:
 
 
 def dense_body(cfg, lp, x, angles):
-    """One layer over the full sequence -> (x, (k, v)).
+    """One attention layer over the full sequence -> (x, (k, v), aux).
 
-    Shared by training (``forward_stack``) and prefill. It writes nothing in
+    Shared by training (``forward_stack``) and prefill, dense and moe alike;
+    aux is the MoE balance loss, 0 for a dense layer. It writes nothing in
     place, so autograd can save its tensors; prefill seeds the cache after.
     """
     h = rmsnorm(lp["norm1"], x)
     out, kv = attn_lib.full_attention(cfg, lp["attn"], h, angles, return_kv=True)
     x = x + out
-    x = x + mlp(cfg, lp["mlp"], rmsnorm(lp["norm2"], x))
-    return x, kv
+    y, aux = _ffn(cfg, lp, rmsnorm(lp["norm2"], x))
+    return x + y, kv, aux
+
+
+def _ffn(cfg, lp, h, group=None):
+    """The layer's MLP or MoE layer -> (y, balance loss, 0 for an MLP)."""
+    if "moe" in lp:
+        return moe_lib.moe_apply(cfg, lp["moe"], h, group=group)
+    return mlp(cfg, lp["mlp"], h), 0.0
 
 
 def ssm_body(cfg, lp, x):
@@ -77,17 +96,20 @@ def ssm_body(cfg, lp, x):
 def forward_stack(cfg, stack, x, angles):
     """Full-sequence causal stack for training: x (B, S, D) -> (hidden, aux).
 
-    aux is the dense and ssm families' zero auxiliary loss (the MoE balance
-    loss arrives with that family). Activations are kept for the backward:
-    the JAX package's ``remat`` is a memory option that changes no number.
+    aux is the MoE balance loss summed over the layers, 0 for the other
+    families (``transformer.py:214-236``). Activations are kept for the
+    backward: the JAX package's ``remat`` is a memory option that changes
+    no number.
     """
     check_family(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in stack["layers"]:
         if cfg.family == "ssm":
             x = ssm_body(cfg, lp, x)
         else:
-            x, _ = dense_body(cfg, lp, x, angles)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, _, a = dense_body(cfg, lp, x, angles)
+            aux = aux + a
+    return x, aux
 
 
 def prefill_stack(cfg, stack, x, angles, capacity: int, length=None):
@@ -108,7 +130,7 @@ def prefill_stack(cfg, stack, x, angles, capacity: int, length=None):
             x = x + out
             _write_ssm_layer(state, i, st)
         else:
-            x, (k, v) = dense_body(cfg, lp, x, angles)
+            x, (k, v), _ = dense_body(cfg, lp, x, angles)
             attn_lib.seed_cache(_layer_cache(state, i), k, v)
     return x, state
 
@@ -120,10 +142,12 @@ def _write_ssm_layer(state, i, st: ssm_lib.SSMState) -> None:
 
 
 def _attn_step(cfg, lp, x, angles, cache, pos):
+    """One decode layer. An MoE layer routes each row alone (groups of 1),
+    as the JAX engine's ``vmap`` over its pages does (``engine.py:175-187``)."""
     h = rmsnorm(lp["norm1"], x)
     out, _ = attn_lib.decode_attention(cfg, lp["attn"], h, angles, cache, pos)
     x = x + out
-    return x + mlp(cfg, lp["mlp"], rmsnorm(lp["norm2"], x))
+    return x + _ffn(cfg, lp, rmsnorm(lp["norm2"], x), group=1)[0]
 
 
 def decode_stack(cfg, stack, x, angles, state, pos):

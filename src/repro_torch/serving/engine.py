@@ -17,6 +17,10 @@ ring past the window. The ssm
 family integrates every prefill step into its recurrent state, so the engine
 passes the true length down to ``model.prefill``: pad steps get dt = 0 (an
 exact identity on the state) and the conv window is sliced at that length.
+In the MoE family the pads route with the prompt and take expert capacity
+in prefill, as in the JAX engine, and a decode step routes each page alone,
+as the JAX engine's ``vmap`` over pages does (``engine.py:175-187``): a
+page's tokens never depend on the other pages.
 
 ``generate_naive`` (the one-request-at-a-time baseline) waits for a later
 slice (ROADMAP queue 4).

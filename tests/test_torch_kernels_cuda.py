@@ -7,8 +7,10 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.) Grids and
 tolerances are ``repro_torch.kernels.harness``, the port's copy of the JAX
-package's ``tests/kernel_harness.py``, plus the full-width llava-1.5-7b and
-mamba2-130m shapes. The gradients of ``lora_residual``, ``flash_attention``
+package's ``tests/kernel_harness.py``, plus the full-width shapes of
+llava-1.5-7b, mamba2-130m, the dense family, the MoE family and qwen2-vl-72b
+(grok-1's attention softcap of 30 at GQA 6, llama4-scout's GQA 5). The
+gradients of ``lora_residual``, ``flash_attention``
 and ``ssd`` (kernel forward, hand-written or recomputed backward) are held
 against ``torch.autograd`` through the plain versions; the Fisher-merge and
 SSD kernels against their plain versions (the Fisher kernels also over whole
@@ -30,8 +32,10 @@ from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 DTYPES = ("float32", "bfloat16")
 SCALE = 2.0
-LORA = harness.LORA_SHAPES + harness.FULL_LORA_SHAPES + harness.MAMBA_LORA_SHAPES
-GROUPED = harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES + harness.MAMBA_GROUPED_SHAPES
+LORA = (harness.LORA_SHAPES + harness.FULL_LORA_SHAPES + harness.MAMBA_LORA_SHAPES
+        + harness.MOE_LORA_SHAPES)
+GROUPED = (harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES
+           + harness.MAMBA_GROUPED_SHAPES + harness.MOE_GROUPED_SHAPES)
 # ... with ids uniform in [-1, n), then the grouped kernel's edges (id
 # patterns, ranks, widths, an x view off 16-byte alignment)
 GROUPED_CASES = ([(t, d, r, n, bt, None, 0) for t, d, r, n, bt in GROUPED]
@@ -39,15 +43,17 @@ GROUPED_CASES = ([(t, d, r, n, bt, None, 0) for t, d, r, n, bt in GROUPED]
                     for _, t, d, r, n, ids, off in harness.GROUPED_LORA_EDGE_SHAPES])
 GROUPED_IDS = (["-".join(map(str, s)) for s in GROUPED]
                + [s[0] for s in harness.GROUPED_LORA_EDGE_SHAPES])
-FLASH = harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.DENSE_FLASH_SHAPES
+FLASH = (harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.DENSE_FLASH_SHAPES
+         + harness.MOE_FLASH_SHAPES)
 LORA_EDGE = harness.LORA_EDGE_SHAPES
 FLASH_EDGE = harness.FLASH_EDGE_SHAPES
 # the bf16 tensor-core kernels against their rounding models
 LORA_MODEL = LORA + LORA_EDGE + harness.FULL_LORA_GRAD_SHAPES[1:]
 FLASH_MODEL = FLASH + FLASH_EDGE + harness.FULL_FLASH_GRAD_SHAPES
 LORA_GRAD = (harness.LORA_GRAD_SHAPES + harness.FULL_LORA_GRAD_SHAPES
-             + harness.MAMBA_LORA_GRAD_SHAPES)
-FLASH_GRAD = harness.FLASH_GRAD_SHAPES + harness.FULL_FLASH_GRAD_SHAPES
+             + harness.MAMBA_LORA_GRAD_SHAPES + harness.MOE_LORA_GRAD_SHAPES)
+FLASH_GRAD = (harness.FLASH_GRAD_SHAPES + harness.FULL_FLASH_GRAD_SHAPES
+              + harness.MOE_FLASH_GRAD_SHAPES)
 FISHER = (harness.FISHER_SHAPES + harness.FISHER_EXTRA_SHAPES + harness.FULL_FISHER_SHAPES
           + harness.MAMBA_FISHER_SHAPES)
 SSD = harness.SSD_SHAPES + harness.FULL_SSD_SHAPES
@@ -248,8 +254,8 @@ def test_flash_grad_matches_plain(cuda, shape, dtype):
     got = _grads(lambda *a: fa_ops.flash_attention(*a, **kw), q, k, v)
     want = _grads(lambda *a: fa_ref.attention(*a, **kw), q, k, v)
     torch.cuda.synchronize()
-    tol = (harness.FULL_FLASH_GRAD_TOLERANCES if shape in harness.FULL_FLASH_GRAD_SHAPES
-           else harness.FLASH_GRAD_TOLERANCES)
+    full = shape in harness.FULL_FLASH_GRAD_SHAPES or shape in harness.MOE_FLASH_GRAD_SHAPES
+    tol = harness.FULL_FLASH_GRAD_TOLERANCES if full else harness.FLASH_GRAD_TOLERANCES
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         harness.check_close(g, w, dtype, f"flash grad {name} {label}", tol)
 

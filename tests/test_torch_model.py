@@ -73,7 +73,8 @@ def _batch(cfg, seed=0, seq=8):
 
 
 @pytest.mark.parametrize("arch", [ARCH, "mamba2-130m", "minigpt4-7b", "h2o-danube-1.8b", "glm4-9b",
-                                  "qwen1.5-4b", "internlm2-20b"])
+                                  "qwen1.5-4b", "internlm2-20b", "qwen2-vl-72b",
+                                  "llama4-scout-17b-a16e", "grok-1-314b"])
 @pytest.mark.parametrize("getter", ["full", "smoke"])
 def test_configs_match_reference(getter, arch):
     mine = (get_config if getter == "full" else get_smoke_config)(arch)
@@ -81,7 +82,7 @@ def test_configs_match_reference(getter, arch):
     for f in dataclasses.fields(mine):
         want = getattr(ref, f.name)
         got = getattr(mine, f.name)
-        if f.name in ("adapter", "ssm") and got is not None:  # the port's own dataclasses
+        if f.name in ("adapter", "ssm", "moe") and got is not None:  # the port's own dataclasses
             assert want is not None, f.name
             for a in dataclasses.fields(got):
                 assert getattr(got, a.name) == getattr(want, a.name), f"{f.name}.{a.name}"
