@@ -199,6 +199,38 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       against the rounding model); phase 6 the flash gradient with the
       softcap (``harness.MOE_FLASH_GRAD_SHAPES``) and the LoRA gradients at
       those rows (``harness.MOE_LORA_GRAD_SHAPES``).
+16. The last two families: recurrentgemma-9b (hybrid: 12 (rec, rec, attn)
+   triples and 2 trailing RG-LRU layers, d_model 4096, 16 heads of 256 on
+   one KV head at a 2,048-key local window, GeGLU) and whisper-base (audio:
+   6 encoder and 6 decoder layers, d_model 512, 8 heads of 64, LayerNorm,
+   learned positions, 1,500 frames a clip through the connector and the
+   image adapter):
+   a. smoke size, card (kernels, f32) against CPU (plain versions): phase
+      4's serving (tokens and prefill logits) and phase 7's two FedNano
+      rounds, the adapters held as phase 12a holds them; smoke
+      recurrentgemma at 5 layers (``SMOKE_OVERRIDES``), so its extra
+      recurrent layers run, decoding past its 64-slot ring;
+   b. recurrentgemma-9b at published width and depth (38 layers) in bf16,
+      weights from seed 0: 16 requests with prompts of 2 and 64 to 2,048
+      tokens at prefill_len 2,048 (``NEW_SERVE_KW``) and FedNano as phase
+      14, bf16 prefill logits at 1e-1 and round 0 at 2e-2; then the same
+      weights upcast to f32 in place: prefill logits of ``NEW_F32_REQUESTS``
+      at 1e-4, one step's loss and adapter gradients at 1e-4; the line
+      prints the params' bytes, and ``[serve]`` the peak memory and the
+      decode step; then its ring in f32 on 5 layers (1 triple + 2 extras,
+      ``RGEMMA_RING_CHECK``): a prefill below the window and one above it,
+      each decoded past position 2,048, every step's logits held at 1e-4
+      against the full forward, kernels and plain versions;
+   c. whisper-base at published width and depth, the same in bf16 and f32,
+      with 1,500 frames a request and a training row;
+   d. the flash kernel timed at ``harness.HYBRID_FLASH_SHAPES`` and
+      ``AUDIO_FLASH_SHAPES`` beside SDPA (a band mask where the window cuts
+      keys) and its bound, the LoRA kernel over whisper's frames and the grouped
+      kernel at d_model 512.
+   Phase 3 holds the flash kernel at those shapes and the LoRA and grouped
+   kernels at ``harness.NEW_FAMILY_LORA_SHAPES`` and ``AUDIO_GROUPED_SHAPES``;
+   phase 6 the gradients at ``NEW_FAMILY_FLASH_GRAD_SHAPES`` and
+   ``NEW_FAMILY_LORA_GRAD_SHAPES``.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
@@ -298,17 +330,49 @@ MOE_F32_LAYERS = {"qwen2-vl-72b": 8, "llama4-scout-17b-a16e": 4, "grok-1-314b": 
 SMOKE_SERVE.update({a: (dict(max_slots=3, prefill_len=8, max_new_tokens=6, adapter_slots=4), 6)
                     for a in MOE_ARCHS})
 SMOKE_SEQ.update({a: 16 for a in MOE_ARCHS})
+# The last two families at published width and depth: recurrentgemma-9b
+# (hybrid: 12 (rec, rec, attn) triples + 2 recurrent layers, d_model 4096, 16
+# heads of 256 on one KV head at a 2,048-key local window, GeGLU; 10.4 B
+# params, 20.9 GB in bf16 and 41.8 GB in f32, so it runs at full depth in
+# either dtype) and whisper-base (audio: 6 encoder + 6 decoder layers,
+# d_model 512, 8 heads of 64, LayerNorm, learned positions, 1,500 frames).
+# Smoke recurrentgemma takes 5 layers, so that its two extra recurrent
+# layers run (``reduced()`` keeps one triple); its serving decodes past the
+# 64-slot ring and its training rows cross it.
+RGEMMA, WHISPER = "recurrentgemma-9b", "whisper-base"
+NEW_ARCHS = (RGEMMA, WHISPER)
+SMOKE_OVERRIDES = {RGEMMA: dict(n_layers=5)}
+SMOKE_SERVE.update({RGEMMA: (dict(max_slots=3, prefill_len=40, max_new_tokens=30,
+                                  adapter_slots=4), 6),
+                    WHISPER: (dict(max_slots=3, prefill_len=8, max_new_tokens=6,
+                                   adapter_slots=4), 6)})
+SMOKE_SEQ.update({RGEMMA: 80, WHISPER: 16})
+# Serving: 16 requests of 4 tenants and base traffic. recurrentgemma at
+# prefill_len 2,048, the most its window guard allows, with prompts of 2 and
+# 64 to 2,048 tokens; whisper at prefill_len 128 with 1,500 frames a request.
+NEW_SERVE_KW = {RGEMMA: dict(max_slots=8, prefill_len=2048, max_new_tokens=16, adapter_slots=8),
+                WHISPER: DENSE_SERVE_KW}
+# The f32 prefill check on the weights upcast takes these requests (a 2,048-
+# position f32 prefill of recurrentgemma costs about 41 TFLOP on the CUDA
+# cores): the shortest prompt and the three longest.
+NEW_F32_REQUESTS = {RGEMMA: (0, 13, 14, 15)}
+# recurrentgemma's ring in f32 on its first 5 layers (1 triple + the 2 extra
+# recurrent layers): one sequence of 2,200 tokens, prefilled to 2,000
+# positions (below the window; decode wraps the ring at 2,048) and to 2,100
+# (above it; the seeded ring is rolled), and decoded teacher-forced to its
+# end, each decode step held against the full forward.
+RGEMMA_RING_CHECK = dict(n_layers=5, seq_len=2200, prefills=(2000, 2100))
 # The kernels each main path must launch.
 SERVING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "grouped_lora_residual",
                                             "flash_attention"),
                            MAMBA: ("lora_residual", "grouped_lora_residual", "ssd_scan"),
                            **{a: ("lora_residual", "grouped_lora_residual", "flash_attention")
-                              for a in DENSE_ARCHS + MOE_ARCHS}}
+                              for a in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS}}
 TRAINING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "flash_attention",
                                              "fisher_merge"),
                             MAMBA: ("lora_residual", "ssd_scan", "fisher_merge"),
                             **{a: ("lora_residual", "flash_attention", "fisher_merge")
-                               for a in DENSE_ARCHS + MOE_ARCHS}}
+                               for a in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS}}
 
 
 def log(msg: str) -> None:
@@ -348,7 +412,8 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for t, d, r, _ in (harness.LORA_SHAPES + harness.FULL_LORA_SHAPES
-                           + harness.LORA_EDGE_SHAPES + harness.MOE_LORA_SHAPES):
+                           + harness.LORA_EDGE_SHAPES + harness.MOE_LORA_SHAPES
+                           + harness.NEW_FAMILY_LORA_SHAPES):
             x, down, up = randn((t, d), dtype=dtype), randn((d, r), 0.05), randn((r, d), 0.05)
             got = lora_ops.lora_residual(x, down, up, scale=SCALE)
             err = harness.check_close(got, lora_ref.lora_residual(x, down, up, scale=SCALE),
@@ -369,7 +434,8 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
         # 16-byte alignment)
         grouped = ([(f"t{t}d{d}n{n}", t, d, r, n, None, 0) for t, d, r, n, _ in
                     harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES
-                    + harness.MAMBA_GROUPED_SHAPES + harness.MOE_GROUPED_SHAPES]
+                    + harness.MAMBA_GROUPED_SHAPES + harness.MOE_GROUPED_SHAPES
+                    + harness.AUDIO_GROUPED_SHAPES]
                    + harness.GROUPED_LORA_EDGE_SHAPES)
         for label, t, d, r, n, ids, offset in grouped:
             x = harness.offset_view(randn((t, d), dtype=dtype), offset)
@@ -396,7 +462,8 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
                 main_err["grouped_lora_residual"] = err
         for shape in (harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES
                       + harness.FLASH_EDGE_SHAPES + harness.DENSE_FLASH_SHAPES
-                      + harness.MOE_FLASH_SHAPES):
+                      + harness.MOE_FLASH_SHAPES + harness.HYBRID_FLASH_SHAPES
+                      + harness.AUDIO_FLASH_SHAPES):
             label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
             q = randn((b, sq, h, d), dtype=dtype)
             k, v = randn((b, sk, hkv, d), dtype=dtype), randn((b, sk, hkv, d), dtype=dtype)
@@ -424,10 +491,13 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
         raise AssertionError("flash_attention accepted head dim 96")
     torch.cuda.synchronize()
     log(f"[parity] {n_cases} kernel-vs-plain cases passed (f32 and bf16, tile edges and "
-        f"head dim 80 included; the dense, MoE and qwen2-vl full-width attention shapes "
-        f"{[sh[0] for sh in harness.DENSE_FLASH_SHAPES + harness.MOE_FLASH_SHAPES]}; the "
-        f"MoE and qwen2-vl LoRA rows {[sh[:2] for sh in harness.MOE_LORA_SHAPES]} and "
-        f"grouped banks {[sh[:2] for sh in harness.MOE_GROUPED_SHAPES]}); "
+        f"head dim 80 included; the dense, MoE, qwen2-vl, recurrentgemma and whisper "
+        f"full-width attention shapes "
+        f"{[sh[0] for sh in harness.DENSE_FLASH_SHAPES + harness.MOE_FLASH_SHAPES + harness.HYBRID_FLASH_SHAPES + harness.AUDIO_FLASH_SHAPES]}; "
+        f"the MoE, qwen2-vl, recurrentgemma and whisper LoRA rows "
+        f"{[sh[:2] for sh in harness.MOE_LORA_SHAPES + harness.NEW_FAMILY_LORA_SHAPES]} and "
+        f"grouped banks "
+        f"{[sh[:2] for sh in harness.MOE_GROUPED_SHAPES + harness.AUDIO_GROUPED_SHAPES]}); "
         f"main-path bf16 max |err|: {json.dumps(main_err)}")
     bound = harness.BF16_MODEL_TOLERANCES["bfloat16"]
     for name, (err, share) in gaps.items():
@@ -499,7 +569,7 @@ def serving_smoke(torch, get_smoke_config, init_backbone, synth, make_requests, 
     kw, n_req = SMOKE_SERVE[arch]
     runs = {}
     for dev in ("cuda", "cpu"):
-        cfg = get_smoke_config(arch).with_(use_pallas=True)
+        cfg = get_smoke_config(arch, **SMOKE_OVERRIDES.get(arch, {})).with_(use_pallas=True)
         backbone = init_backbone(cfg, seed=1, device="cpu")
         tenants = synth(1, cfg, names, "cpu")
         if dev == "cuda":
@@ -525,11 +595,13 @@ def serving_smoke(torch, get_smoke_config, init_backbone, synth, make_requests, 
 
 def serve_requests(arch, cfg, names, make_requests, kw, seed):
     """The main path's 16 requests: ``make_requests``' mix of tenants and base
-    traffic; for mamba2 with ragged prompts of 64-512 tokens and one of 2."""
+    traffic (whisper's with 1,500 frames each); for mamba2 and
+    recurrentgemma with ragged prompts of 64 to prefill_len tokens (512 and
+    2,048) and one of 2."""
     import numpy as np
 
     reqs = make_requests(cfg, names, 16, kw["prefill_len"], kw["max_new_tokens"], seed)
-    if arch == MAMBA:
+    if arch in (MAMBA, RGEMMA):
         rng = np.random.default_rng(seed + 1)
         top = kw["prefill_len"]
         lengths = [2] + [int(v) for v in np.linspace(min(64, top), top, len(reqs) - 1)]
@@ -789,7 +861,7 @@ def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, 
         if dtype_name == "float32":  # the main path: llava's tree at K = 2
             main_err["fisher_merge"], main_err["fisher_fold"] = errs[harness.FULL_FISHER_TREES[1]]
         for t, d, r, _ in (harness.LORA_GRAD_SHAPES + harness.FULL_LORA_GRAD_SHAPES
-                           + harness.MOE_LORA_GRAD_SHAPES):
+                           + harness.MOE_LORA_GRAD_SHAPES + harness.NEW_FAMILY_LORA_GRAD_SHAPES):
             x, down, up = randn((t, d), dtype=dtype), randn((d, r), 0.05), randn((r, d), 0.05)
             got = sq_loss_grads(lambda a, b, c: lora_ops.lora_residual(a, b, c, scale=SCALE),
                                 x, down, up)
@@ -800,12 +872,13 @@ def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, 
                 if (t, d, r, _) in harness.FULL_LORA_GRAD_SHAPES:
                     key = f"lora_residual {name} {dtype_name}"
                     main_err[key] = max(main_err.get(key, 0.0), err)
-                elif (t, d, r, _) in harness.MOE_LORA_GRAD_SHAPES:
+                elif (t, d, r, _) in (harness.MOE_LORA_GRAD_SHAPES
+                                      + harness.NEW_FAMILY_LORA_GRAD_SHAPES):
                     key = f"lora_residual {name} {dtype_name} d{d}"
                     main_err[key] = max(main_err.get(key, 0.0), err)
             n_cases += 1
         for shape in (harness.FLASH_GRAD_SHAPES + harness.FULL_FLASH_GRAD_SHAPES
-                      + harness.MOE_FLASH_GRAD_SHAPES):
+                      + harness.MOE_FLASH_GRAD_SHAPES + harness.NEW_FAMILY_FLASH_GRAD_SHAPES):
             label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
             q = randn((b, sq, h, d), dtype=dtype)
             k_, v = randn((b, sk, hkv, d), dtype=dtype), randn((b, sk, hkv, d), dtype=dtype)
@@ -813,13 +886,14 @@ def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, 
             got = sq_loss_grads(lambda *a: fa_ops.flash_attention(*a, **kw), q, k_, v)
             want = sq_loss_grads(lambda *a: fa_ref.attention(*a, **kw), q, k_, v)
             full = label == harness.FULL_FLASH_GRAD_SHAPES[0][0]
-            wide = full or shape in harness.MOE_FLASH_GRAD_SHAPES
+            wider = harness.MOE_FLASH_GRAD_SHAPES + harness.NEW_FAMILY_FLASH_GRAD_SHAPES
+            wide = full or shape in wider
             tol = harness.FULL_FLASH_GRAD_TOLERANCES if wide else harness.FLASH_GRAD_TOLERANCES
             for name, g, wt in zip(("dq", "dk", "dv"), got, want):
                 err = harness.check_close(g, wt, dtype_name, f"flash grad {name} {label}", tol)
                 if full:
                     main_err[f"flash_attention {name} {dtype_name}"] = err
-                elif shape in harness.MOE_FLASH_GRAD_SHAPES:
+                elif shape in wider:
                     main_err[f"flash_attention {name} {dtype_name} {label}"] = err
             n_cases += 1
     torch.cuda.synchronize()
@@ -854,14 +928,13 @@ def upcast_clients(tr, strategy, cfg):
     from repro_torch.utils import tree_map
 
     base = tr["get_strategy"](strategy)
-    up = lambda tree: None if tree is None else tree_map(
-        lambda t: t.double() if t.is_floating_point() else t, tree)
+    up = lambda tree: tree_map(lambda t: t.double() if t.is_floating_point() else t, tree)
 
     def init_client(gen, _cfg, cid, n_examples):
         st = base.init_client(gen, cfg, cid, n_examples)
         return dataclasses.replace(st, adapters=up(st.adapters),
                                    local_adapters=up(st.local_adapters),
-                                   opt_state=type(st.opt_state)(*map(up, st.opt_state)))
+                                   opt_state=up(st.opt_state))
 
     strat = copy.copy(base)
     object.__setattr__(strat, "init_client", init_client)
@@ -900,7 +973,7 @@ def training_smoke(torch, tr, arch="llava-1.5-7b", strategy="fednano", adapter_t
     order into sign-sized steps that another order does not take)."""
     from repro_torch.utils import tree_map
 
-    cfg = tr["get_smoke_config"](arch).with_(use_pallas=True)
+    cfg = tr["get_smoke_config"](arch, **SMOKE_OVERRIDES.get(arch, {})).with_(use_pallas=True)
     hp = tr["HyperParams"](**TRAIN_HP)
     data_kw = dict(n_clients=2, examples_per_client=16, batch_size=4, seq_len=SMOKE_SEQ[arch],
                    seed=0)
@@ -1765,9 +1838,13 @@ def causal_pairs(s: int, window=None) -> int:
 
 def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what="", window=None, softcap=0.0):
     """The flash kernel (causal, with ``window`` and ``softcap``) beside its
-    plain version, SDPA and its bound. SDPA has neither window nor softcap:
-    it is timed only where neither applies, and takes GQA's K/V heads as
-    they are (``enable_gqa``). -> a kernel-table row."""
+    plain version, SDPA and its bound. SDPA has no softcap: it is timed
+    wherever none applies, takes GQA's K/V heads as they are
+    (``enable_gqa``), and takes a window shorter than the sequence as a
+    boolean band mask built before the timing (``attention.causal_mask``).
+    -> a kernel-table row."""
+    from repro_torch.models.attention import causal_mask
+
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     kw = dict(causal=True, window=window, softcap=softcap)
@@ -1778,14 +1855,26 @@ def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what="", window=None, softca
     (k_ms, k_is), (p_ms, p_is) = (time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw)),
                                   time_ms(torch, lambda: fa_ref.attention(q, k, v, **kw)))
     l_ms = l_is = None
-    if (window is None or window >= S) and not softcap:
-        gqa = dict(enable_gqa=True) if Hkv != H else {}
-        l_ms, l_is = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, **gqa))
+    lib_note = "None (no softcap in SDPA)"
+    if not softcap:
+        sdpa_kw = dict(enable_gqa=True) if Hkv != H else {}
+        if window is None or window >= S:
+            sdpa_kw["is_causal"] = True
+            lib_note = "causal"
+        else:
+            sdpa_kw["attn_mask"] = causal_mask(S, S, window=window, device=q.device)
+            lib_note = f"band mask of window {window}"
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw).transpose(1, 2)
+        lib_err = float((lib_out.float() - o.float()).abs().max())
+        if not lib_err <= 1e-1 * float(o.float().abs().max()):
+            raise AssertionError(f"SDPA ({lib_note}) is not the kernel's function: "
+                                 f"max abs difference {lib_err:.3e}")
+        lib_note += f", max abs difference from the kernel {lib_err:.3e}"
+        l_ms, l_is = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                           **sdpa_kw))
     c_ms = time_ms_cold(torch, lambda *a: fa_ops.flash_attention(*a, **kw), (q, k, v),
                         nbytes(q, k, v, o, lse))
-    lib = (f"{l_ms:.5f} ({l_is:.5f})" if l_ms is not None
-           else "None (no window or softcap in SDPA)")
+    lib = f"{l_ms:.5f} ({l_is:.5f}; {lib_note})" if l_ms is not None else lib_note
     log(f"[time] flash_attention at q ({B}, {S}, {H}, {hd}) k/v Hkv {Hkv} bf16 causal"
         f"{f' window {window}' if window else ''}{f' softcap {softcap}' if softcap else ''}"
         f"{what}, device ms per call (issued from "
@@ -2159,23 +2248,17 @@ def profile_summary(torch, prof, wall, what):
 # ---------------------------------------------------------------------------
 
 def upcast_in_place(torch, backbone, n_layers):
-    """Keep the first ``n_layers`` layers and turn every weight to f32 in
-    place, one tensor at a time, so the bf16 copy is freed as the f32 one is
-    made (every holder of the dict sees the f32 weights)."""
-    del backbone["layers"][n_layers:]
+    """Keep the first ``n_layers`` layers (a stack of ``layers``; the hybrid
+    and encoder-decoder stacks are kept whole, at full depth) and turn every
+    weight to f32 in place, one tensor at a time, so the bf16 copy is freed
+    as the f32 one is made (every holder of a weight sees it in f32)."""
+    from repro_torch.utils import tree_leaves
+
+    if "layers" in backbone:
+        del backbone["layers"][n_layers:]
     torch.cuda.empty_cache()
-
-    def walk(d):
-        for key, val in d.items():
-            if isinstance(val, dict):
-                walk(val)
-            else:
-                d[key] = val.float()
-
-    for key in [k for k in backbone if k != "layers"]:
-        walk(backbone[key])
-    for lp in backbone["layers"]:
-        walk(lp)
+    for t in tree_leaves(backbone):
+        t.data = t.data.float()
     torch.cuda.empty_cache()
 
 
@@ -2394,18 +2477,33 @@ def window_step(torch, tr, cfg, backbone, adapters):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def ring_decode_check(torch, tr, cfg, backbone):
-    """h2o-danube's KV ring in f32 on its first 2 layers, past the window:
-    prefill (kernels) and teacher-forced decode of one sequence of
-    H2O_RING_CHECK tokens; every decode step's logits held at LOGIT_TOL
-    against the logits of the full windowed forward of the same tokens, run
-    once through the kernels and once through the plain versions (which
-    hold each other at the same bound)."""
+def cut_depth(cfg, backbone, n):
+    """``cfg`` and ``backbone`` cut to their first ``n`` layers: a hybrid
+    stack keeps its first n // 3 triples and n % 3 of its extra layers."""
+    if cfg.family == "hybrid":
+        n_t = n // 3
+        extras = (backbone["extras"] or [])[:n - 3 * n_t] or None
+        return cfg.with_(n_layers=n), dict(backbone, triples=backbone["triples"][:n_t],
+                                           extras=extras)
+    return cfg.with_(n_layers=n), dict(backbone, layers=backbone["layers"][:n])
+
+
+def ring_decode_check(torch, tr, cfg, backbone, check=H2O_RING_CHECK):
+    """A config's KV ring in f32 on its first ``check["n_layers"]`` layers,
+    past the window: prefill (kernels) and teacher-forced decode of one
+    sequence of ``check["seq_len"]`` tokens from each of ``check["prefills"]``;
+    every decode step's logits held at LOGIT_TOL against the logits of the
+    full windowed forward of the same tokens, run once through the kernels
+    and once through the plain versions (which hold each other at the same
+    bound). h2o-danube's ring is its sliding window, recurrentgemma's its
+    attention layers' local window (its recurrent layers carry their state
+    through the same steps)."""
     model = tr["model"]
-    n, N = H2O_RING_CHECK["n_layers"], H2O_RING_CHECK["seq_len"]
-    cfg = cfg.with_(n_layers=n)
-    cut = dict(backbone, layers=backbone["layers"][:n])
-    w, tol = cfg.sliding_window, LOGIT_TOL["float32"]
+    n, N = check["n_layers"], check["seq_len"]
+    depth = cfg.n_layers
+    cfg, cut = cut_depth(cfg, backbone, n)
+    w = cfg.rglru.local_window if cfg.family == "hybrid" else cfg.sliding_window
+    tol = LOGIT_TOL["float32"]
     gen = torch.Generator(device="cuda").manual_seed(9)
     tokens = torch.randint(0, cfg.vocab_size, (1, N), generator=gen, device="cuda")
     pos = torch.arange(N, device="cuda")[None]
@@ -2417,11 +2515,11 @@ def ring_decode_check(torch, tr, cfg, backbone):
         gap = rel_err(full, plain)
         finite = bool(torch.isfinite(full).all()) and bool(torch.isfinite(plain).all())
         worst = {}
-        for P in H2O_RING_CHECK["prefills"]:
+        for P in check["prefills"]:
             state, _ = model.prefill(cfg, cut, emb[:, :P], pos[:, :P], capacity=N)
-            ring = state["layers"].k.shape[2]
-            if ring != w:
-                raise AssertionError(f"the ring has {ring} slots, not the window's {w}")
+            kv = state["triples"]["attn"] if cfg.family == "hybrid" else state["layers"]
+            if kv.k.shape[2] != w:
+                raise AssertionError(f"the ring has {kv.k.shape[2]} slots, not the window's {w}")
             errs = []
             for t in range(P, N):
                 got, state = model.decode_step(cfg, cut, emb[:, t:t + 1], state, t)
@@ -2432,7 +2530,7 @@ def ring_decode_check(torch, tr, cfg, backbone):
         raise AssertionError(f"{cfg.name} ring decode: finite {finite}, forward kernels vs "
                              f"plain {gap:.3e}, "
                              f"decode vs forward {worst} (bound {tol})")
-    log(f"[serve-check] {cfg.name} f32 ring ({n} of 24 layers, {w}-slot ring, {N} tokens): "
+    log(f"[serve-check] {cfg.name} f32 ring ({n} of {depth} layers, {w}-slot ring, {N} tokens): "
         f"full windowed forward, kernels vs plain versions {gap:.3e}; decode vs the forwards, "
         + "; ".join(f"prefill {P}, {N - P} steps to position {N - 1}: worst {e:.3e} at "
                     f"position {t}" for P, (e, t) in worst.items())
@@ -2675,6 +2773,103 @@ def moe_timings(torch, F, fa_ops, fa_ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the last two families: recurrentgemma-9b (hybrid) and whisper-base (audio)
+# ---------------------------------------------------------------------------
+
+def new_family_arch(torch, tr, sv, counters, arch):
+    """recurrentgemma-9b or whisper-base at published width and depth, bf16
+    weights from seed 0, then the same weights upcast to f32 in place.
+    -> launches per kernel by path."""
+    from repro_torch.utils import tree_leaves
+
+    cfg = tr["get_config"](arch).with_(use_pallas=True)
+    t0 = time.perf_counter()
+    server = tr["init_server"](cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(server.backbone))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(server.backbone))
+    if arch == RGEMMA:
+        shape = (f"{cfg.n_layers} layers = {len(server.backbone['triples'])} (rec, rec, attn) "
+                 f"triples + {len(server.backbone['extras'])} rec, d_rnn {cfg.rglru.d_rnn}, "
+                 f"conv {cfg.rglru.conv_width}, local window {cfg.rglru.local_window}")
+    else:
+        shape = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+                 f"{cfg.enc_seq_len} frames, {cfg.norm}, {cfg.pos_type} positions "
+                 f"({cfg.max_seq_len} rows)")
+    log(f"[new] {arch} backbone at published width and depth: {n_params / 1e9:.4f} B params, "
+        f"{n_bytes / 1e9:.3f} GB of {cfg.dtype} weights ({shape}; d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff} {cfg.act}, vocab {cfg.vocab_size}); drawn in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated")
+    short = arch.split("-")[0]
+    launches = {}
+
+    # serving: 16 requests of 4 tenants and base traffic
+    names = [f"tenant{i}" for i in range(4)]
+    tenants = sv["synth"](0, cfg, names, "cuda")
+    kw = dict(NEW_SERVE_KW[arch], adapter_loader=tenants.__getitem__)
+    reqs = serve_requests(arch, cfg, names, sv["make_requests"], kw, 0)
+    frames = reqs[0].patches.shape if reqs[0].patches is not None else None
+    log(f"[serve] {arch}: prompt lengths {[len(r.prompt) for r in reqs]}, prefill_len "
+        f"{kw['prefill_len']}, frames a request {frames}, tenants {[r.tenant for r in reqs]}")
+    launches[f"serve_{short}"], *_ = serve_main_path(torch, cfg, server.backbone, sv["Engine"],
+                                                     counters, kw, reqs, arch)
+    torch.cuda.empty_cache()
+
+    # training: FedNano 2 clients x 2 rounds, and one agg_chunk=1 round
+    st, train_launches = training_full(torch, tr, counters, arch=arch, server=server)
+    launches.update(train_launches)
+    trained, batch = st["res"].server.global_adapters, st["train"][0][0]
+    run_vs_plain(torch, tr, st, held=1)
+    loop_timings(torch, tr, st)
+
+    # f32 on the same weights upcast in place, at full depth
+    picked = [reqs[i] for i in NEW_F32_REQUESTS.get(arch, range(len(reqs)))]
+    cfg32, _ = f32_checks(torch, tr, sv, cfg, server, kw, picked, trained, batch, cfg.n_layers,
+                          "new")
+    log(f"[new] {arch} f32 at full depth: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated; the f32 prefill check took requests {[r.rid for r in picked]} (prompts "
+        f"{[len(r.prompt) for r in picked]})")
+    if arch == RGEMMA:
+        ring_decode_check(torch, tr, cfg32, server.backbone, RGEMMA_RING_CHECK)
+    del st, server, trained, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def new_family_timings(torch, F, fa_ops, fa_ref, lora_ops, lora_ref, harness):
+    """The flash kernel at recurrentgemma's head dim 256 (16 heads on one KV
+    head, its 2,048 window: the serving prefill, the training batch and a
+    4,096-position forward where the window masks keys) and whisper's
+    decoder at head dim 64 (8 heads, MHA), beside SDPA (with the band mask
+    where the window masks keys) and the bound; the LoRA kernel over whisper's 4 x 1,500
+    training frames and one request's 1,500 at d_model 512, and the grouped
+    kernel at its decode step. -> (flash rows, LoRA rows, the grouped row)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    flash = {}
+    for label, b, s_, _, h, hkv, hd, _, window, cap, _, _ in (harness.HYBRID_FLASH_SHAPES
+                                                             + harness.AUDIO_FLASH_SHAPES):
+        q = torch.randn((b, s_, h, hd), generator=gen, device="cuda").to(bf16)
+        k, v = (torch.randn((b, s_, hkv, hd), generator=gen, device="cuda").to(bf16)
+                for _ in range(2))
+        flash[label] = flash_timing(torch, F, fa_ops, fa_ref, q, k, v, f" ({label})",
+                                    window=window, softcap=cap)
+    lora = {}
+    for t, d, r, _ in harness.NEW_FAMILY_LORA_SHAPES[:2]:
+        x = torch.randn((t, d), generator=gen, device="cuda").to(bf16)
+        A = torch.randn((d, r), generator=gen, device="cuda") * 0.05
+        Bm = torch.randn((r, d), generator=gen, device="cuda") * 0.05
+        lora[f"whisper frames x ({t}, {d})"] = lora_timing(torch, lora_ops, lora_ref, x, A, Bm,
+                                                           " (whisper-base frames)")
+    _, d, r, n, _ = harness.AUDIO_GROUPED_SHAPES[0]
+    grouped = grouped_timing(torch, lora_ops, lora_ref, gen, d, [0, 1, 2, 3, 0, 1, 2, -1],
+                             " (whisper-base)", r=r, N=n)
+    return flash, lora, grouped
+
+
 SOURCES = {
     "lora_residual": ("src/repro_torch/csrc/lora.cu", "src/repro/kernels/lora/lora.py:49"),
     "grouped_lora_residual": ("src/repro_torch/csrc/lora.cu",
@@ -2823,6 +3018,19 @@ def main() -> int:
     for arch in MOE_ARCHS:
         launches.update(moe_arch(torch, tr, sv, counters, arch))
     times["flash_attention"]["shapes"].update(moe_timings(torch, F, fa_ops, fa_ref))
+
+    # the last two families: recurrentgemma-9b (hybrid) and whisper-base (audio)
+    for arch in NEW_ARCHS:
+        serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
+                      make_requests, ServingEngine, arch=arch)
+        training_smoke(torch, tr, arch=arch, adapter_tol=SMOKE_ADAPTER_TOL, f64_witness=True)
+    for arch in NEW_ARCHS:
+        launches.update(new_family_arch(torch, tr, sv, counters, arch))
+    flash_times, lora_times, grouped_time = new_family_timings(torch, F, fa_ops, fa_ref,
+                                                               lora_ops, lora_ref, harness)
+    times["flash_attention"]["shapes"].update(flash_times)
+    times["lora_residual"]["shapes"].update(lora_times)
+    times["grouped_lora_residual"]["shapes"]["whisper-base 4 in use"] = grouped_time
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -1,14 +1,13 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
-Holds the configs whose families the port runs: the paper's two MLLM
-backbones and qwen2-vl-72b with M-RoPE (vlm), mamba2-130m (ssm), the dense
-family's four (h2o-danube-1.8b with its sliding window, glm4-9b and
-qwen1.5-4b with their QKV bias, internlm2-20b) and the MoE family's two
-(llama4-scout-17b-a16e, top-1 with a shared expert; grok-1-314b, top-2 with
-GELU experts and capped attention logits). The other architectures of
-``repro.configs`` join as their families are ported (ROADMAP queue 3):
-recurrentgemma-9b with the hybrid family (3f), whisper-base with the
-encoder-decoder family (3g).
+Holds every config of ``repro.configs``: the paper's two MLLM backbones and
+qwen2-vl-72b with M-RoPE (vlm), mamba2-130m (ssm), the dense family's four
+(h2o-danube-1.8b with its sliding window, glm4-9b and qwen1.5-4b with their
+QKV bias, internlm2-20b), the MoE family's two (llama4-scout-17b-a16e, top-1
+with a shared expert; grok-1-314b, top-2 with GELU experts and capped
+attention logits), recurrentgemma-9b (hybrid: RG-LRU and local attention,
+GeGLU) and whisper-base (audio: encoder-decoder, LayerNorm, learned
+positions).
 """
 from __future__ import annotations
 
@@ -25,8 +24,11 @@ from repro_torch.configs import (
     minigpt4_7b,
     qwen1_5_4b,
     qwen2_vl_72b,
+    recurrentgemma_9b,
+    whisper_base,
 )
-from repro_torch.configs.base import AdapterConfig, ModelConfig, MoEConfig, SSMConfig, reduced
+from repro_torch.configs.base import (AdapterConfig, ModelConfig, MoEConfig, RGLRUConfig,
+                                      SSMConfig, reduced)
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "glm4-9b": glm4_9b.config,
@@ -39,6 +41,8 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "minigpt4-7b": minigpt4_7b.config,
     "qwen1.5-4b": qwen1_5_4b.config,
     "qwen2-vl-72b": qwen2_vl_72b.config,
+    "recurrentgemma-9b": recurrentgemma_9b.config,
+    "whisper-base": whisper_base.config,
 }
 
 
@@ -56,5 +60,5 @@ def get_smoke_config(arch: str, **overrides) -> ModelConfig:
     return reduced(get_config(arch), **overrides)
 
 
-__all__ = ["AdapterConfig", "ModelConfig", "MoEConfig", "SSMConfig", "get_config",
-           "get_smoke_config", "list_archs", "reduced"]
+__all__ = ["AdapterConfig", "ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig",
+           "get_config", "get_smoke_config", "list_archs", "reduced"]

@@ -1,20 +1,21 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port's own copy of ``repro.configs.base``, cut to what the ported
-families (``dense`` / ``vlm`` / ``moe`` / ``ssm``) read. The field names,
-defaults and order are the JAX package's, so ``tests/test_torch_model.py``
-can hold the configs against each other field by field.
+The port's own copy of ``repro.configs.base``, cut to what the six families
+(``dense`` / ``vlm`` / ``moe`` / ``ssm`` / ``hybrid`` / ``audio``) read.
+The field names, defaults and order are the JAX package's, so
+``tests/test_torch_model.py`` can hold the configs against each other field
+by field.
 
 The port has the JAX fields that its configs set and its code reads: the
 dense family's ``qkv_bias`` and ``sliding_window``, qwen2-vl's
-``mrope_sections``, and the MoE family's ``moe`` and ``logit_softcap``
-(grok-1 caps its attention logits). A JAX field arrives with the config or
-caller that first sets it (ROADMAP queue 3): ``rglru`` with the hybrid
-family (3f); ``max_seq_len`` with learned positions, and ``n_enc_layers``,
-``enc_seq_len`` and ``parallel_block``, with the encoder-decoder family (3g);
-``attn_chunk`` and ``loss_chunk`` with a long-sequence caller. The adapters'
-``dropout`` is read nowhere in the JAX package. The JAX package's execution
-switches for its TPU mesh (``remat``, ``scan_layers``, ``seq_parallel``,
+``mrope_sections``, the MoE family's ``moe`` and ``logit_softcap`` (grok-1
+caps its attention logits), the hybrid family's ``rglru``, and the
+encoder-decoder family's ``max_seq_len`` (the learned position table),
+``n_enc_layers`` and ``enc_seq_len``. ``parallel_block`` is set by no
+config and read by no layer of the JAX package, and the adapters'
+``dropout`` is read nowhere in it; ``attn_chunk`` and ``loss_chunk`` wait
+for a long-sequence caller. The JAX package's execution switches for its
+TPU mesh (``remat``, ``scan_layers``, ``seq_parallel``,
 ``ctx_parallel_attn``) change no number and have no counterpart here.
 """
 from __future__ import annotations
@@ -47,6 +48,16 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    """RG-LRU recurrent block (Griffin/RecurrentGemma, arXiv:2402.19427)."""
+
+    d_rnn: int = 0            # recurrence width (0 -> d_model)
+    conv_width: int = 4
+    block_pattern: Tuple[str, ...] = ("rec", "rec", "attn")  # 1:2 attn:recurrent
+    local_window: int = 2048  # local-attention window of the attn layers
+
+
+@dataclass(frozen=True)
 class AdapterConfig:
     """NanoEdge / NanoAdapter configuration (the paper's contribution)."""
 
@@ -59,7 +70,7 @@ class AdapterConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "unnamed"
-    family: str = "dense"          # the port runs dense | vlm | moe | ssm
+    family: str = "dense"          # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -67,9 +78,10 @@ class ModelConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
     d_ff: int = 512
     vocab_size: int = 1024
+    max_seq_len: int = 8192        # rows of the learned position table
 
     # attention / positions
-    pos_type: str = "rope"         # the port runs rope | mrope | none
+    pos_type: str = "rope"         # rope | mrope | learned | none
     rope_theta: float = 10000.0
     mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w) frequency slots
     qkv_bias: bool = False
@@ -77,15 +89,20 @@ class ModelConfig:
     logit_softcap: float = 0.0             # grok-style tanh cap on attention logits (0 = off)
 
     # block structure
-    norm: str = "rmsnorm"          # the port runs rmsnorm
-    act: str = "swiglu"            # the port runs swiglu | gelu
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    act: str = "swiglu"            # swiglu | geglu | gelu
     tie_embeddings: bool = False   # logits read the embedding table (no unembed)
 
     # sub-family configs
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
 
-    # modality frontend stub (vlm): incoming embedding width before connector
+    # encoder-decoder (audio family, whisper-style)
+    n_enc_layers: int = 0
+    enc_seq_len: int = 1500        # fixed encoder memory length (frames)
+
+    # modality frontend stub (vlm/audio): incoming embedding width before connector
     frontend_dim: int = 0
 
     # NanoEdge
@@ -108,7 +125,8 @@ class ModelConfig:
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Smoke-test variant of the same family: <=2 layers, d_model <= 256, <=4 experts.
+    """Smoke-test variant of the same family: <=2 layers (a hybrid stack 3, one
+    (rec, rec, attn) triple), d_model <= 256, <=4 experts.
 
     Keeps every structural switch identical so the smoke test exercises the
     same code path as the full config (``repro.configs.base.reduced``).
@@ -127,6 +145,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=head_dim,
         d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 512),
+        max_seq_len=min(cfg.max_seq_len, 512),
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
         mrope_sections=(head_dim // 4, head_dim // 8, head_dim // 8) if cfg.mrope_sections else (),
         dtype="float32",
@@ -139,6 +158,13 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         )
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk_size=32)
+    if cfg.rglru is not None:
+        kw["rglru"] = dataclasses.replace(
+            cfg.rglru, d_rnn=0, local_window=min(cfg.rglru.local_window, 64))
+        kw["n_layers"] = 3  # one full (rec, rec, attn) block
+    if cfg.n_enc_layers:
+        kw["n_enc_layers"] = min(cfg.n_enc_layers, 2)
+        kw["enc_seq_len"] = min(cfg.enc_seq_len, 64)
     if cfg.frontend_dim:
         kw["frontend_dim"] = min(cfg.frontend_dim, 128)
     kw.update(overrides)

@@ -18,6 +18,7 @@ def config() -> ModelConfig:
         n_kv_heads=2,
         d_ff=13696,
         vocab_size=151552,
+        max_seq_len=131072,
         pos_type="rope",
         rope_theta=10000.0,
         qkv_bias=True,

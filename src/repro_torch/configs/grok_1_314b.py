@@ -21,6 +21,7 @@ def config() -> ModelConfig:
         n_kv_heads=8,
         d_ff=32768,
         vocab_size=131072,
+        max_seq_len=8192,
         pos_type="rope",
         rope_theta=10000.0,
         logit_softcap=30.0,

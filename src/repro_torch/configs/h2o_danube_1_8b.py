@@ -16,6 +16,7 @@ def config() -> ModelConfig:
         n_kv_heads=8,
         d_ff=6912,
         vocab_size=32000,
+        max_seq_len=16384,
         pos_type="rope",
         rope_theta=10000.0,
         sliding_window=4096,

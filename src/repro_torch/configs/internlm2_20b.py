@@ -16,6 +16,7 @@ def config() -> ModelConfig:
         n_kv_heads=8,
         d_ff=16384,
         vocab_size=92544,
+        max_seq_len=32768,
         pos_type="rope",
         rope_theta=1000000.0,
         norm="rmsnorm",

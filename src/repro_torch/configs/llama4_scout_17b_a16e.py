@@ -17,6 +17,7 @@ def config() -> ModelConfig:
         n_kv_heads=8,
         d_ff=8192,
         vocab_size=202048,
+        max_seq_len=32768,
         pos_type="rope",
         rope_theta=500000.0,
         norm="rmsnorm",

@@ -18,6 +18,7 @@ def config() -> ModelConfig:
         n_kv_heads=24,
         d_ff=0,
         vocab_size=50280,
+        max_seq_len=1048576,
         pos_type="none",
         norm="rmsnorm",
         tie_embeddings=True,

@@ -17,6 +17,7 @@ def config() -> ModelConfig:
         n_kv_heads=32,
         d_ff=11008,
         vocab_size=32000,
+        max_seq_len=4096,
         pos_type="rope",
         rope_theta=10000.0,
         norm="rmsnorm",

@@ -16,6 +16,7 @@ def config() -> ModelConfig:
         n_kv_heads=20,
         d_ff=6912,
         vocab_size=151936,
+        max_seq_len=32768,
         pos_type="rope",
         rope_theta=1000000.0,
         qkv_bias=True,

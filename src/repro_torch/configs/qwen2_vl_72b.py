@@ -21,6 +21,7 @@ def config() -> ModelConfig:
         n_kv_heads=8,
         d_ff=29568,
         vocab_size=152064,
+        max_seq_len=32768,
         pos_type="mrope",
         rope_theta=1000000.0,
         mrope_sections=(16, 24, 24),

@@ -5,8 +5,9 @@ A NanoAdapter is a low-rank residual map at the connector→LLM interface,
     y = x + (alpha / rank) · (x · W_down) · W_up,
 
 with ``W_up`` zero-initialized, one per modality: text token embeddings and
-connected image embeddings. ``nanoedge_forward`` is the client half of the
-split execution: embed + connect + adapt.
+connected image (or, for the audio family, frame) embeddings.
+``nanoedge_forward`` is the client half of the split execution: embed +
+connect + adapt.
 """
 from __future__ import annotations
 
@@ -53,11 +54,13 @@ def nano_adapter_apply(params, x, *, rank: int, alpha: float, use_pallas: bool =
 
 
 def nanoedge_forward(cfg, backbone, adapters, batch: Batch):
-    """Client-side compute: embed + connect + adapt.
+    """Client-side compute: embed + connect + adapt (``adapters.py:79-125``).
 
-    Returns (embeds (B, M+S, D), positions (B, M+S), labels, mask, None);
-    the image prefix is unsupervised. The last slot is the audio encoder
-    stream of the JAX package, which arrives with that family.
+    Returns (embeds, positions, labels, mask, enc_embeds): for an image
+    family embeds (B, M+S, D) with the image prefix unsupervised; for the
+    audio family the decoder's token embeddings (B, S, D) and, last, the
+    adapted frame embeddings (B, M, D) of the encoder stream, which take no
+    decoder position; None there for the other families.
     """
     model_lib.check_supported(cfg)
     acfg = cfg.adapter
@@ -68,6 +71,13 @@ def nanoedge_forward(cfg, backbone, adapters, batch: Batch):
         tok_emb = nano_adapter_apply(adapters["text"], tok_emb, **kw)
     B, S = batch.tokens.shape
     dev = tok_emb.device
+
+    if cfg.family == "audio":
+        enc = model_lib.connect(cfg, backbone, batch.patches)
+        if "image" in adapters:
+            enc = nano_adapter_apply(adapters["image"], enc, **kw)
+        positions = torch.arange(S, dtype=torch.long, device=dev).expand(B, S)
+        return tok_emb, positions, batch.labels, batch.mask, enc
 
     if cfg.frontend_dim and batch.patches is not None:
         img = model_lib.connect(cfg, backbone, batch.patches)
@@ -91,5 +101,5 @@ def fednano_loss(cfg, backbone, adapters, batch: Batch):
     never require grad, so autograd reaches them as constants.
     Returns (loss, aux).
     """
-    embeds, positions, labels, mask, _ = nanoedge_forward(cfg, backbone, adapters, batch)
-    return model_lib.loss_fn(cfg, backbone, embeds, positions, labels, mask)
+    embeds, positions, labels, mask, enc = nanoedge_forward(cfg, backbone, adapters, batch)
+    return model_lib.loss_fn(cfg, backbone, embeds, positions, labels, mask, enc)

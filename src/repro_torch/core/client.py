@@ -61,10 +61,10 @@ class ClientState:
 
 def to_device(state: ClientState, device) -> ClientState:
     """A fresh client's adapters, personal adapters and AdamW state on ``device``."""
-    move = lambda tree: None if tree is None else tree_map(lambda t: t.to(device), tree)
+    move = lambda tree: tree_map(lambda t: t.to(device), tree)
     return dataclasses.replace(state, adapters=move(state.adapters),
                                local_adapters=move(state.local_adapters),
-                               opt_state=type(state.opt_state)(*map(move, state.opt_state)))
+                               opt_state=move(state.opt_state))
 
 
 def value_and_grad(loss_fn, adapters, allow_unused: bool = False):
@@ -90,13 +90,13 @@ def combined_loss(cfg, backbone, adapters, local_adapters, batch: Batch):
     embeds, positions, labels, mask, enc = adapters_lib.nanoedge_forward(
         cfg, backbone, adapters, batch)
     embeds, enc = _apply_personal(cfg, local_adapters, embeds, enc, cfg.use_pallas)
-    return model_lib.loss_fn(cfg, backbone, embeds, positions, labels, mask)
+    return model_lib.loss_fn(cfg, backbone, embeds, positions, labels, mask, enc)
 
 
 def _apply_personal(cfg, local_adapters, embeds, enc, use_pallas: bool):
     """The personal text adapter on the whole embedding sequence (the image
-    prefix included), the personal image adapter on an encoder stream only,
-    which no family of the port has."""
+    prefix included), the personal image adapter on the audio family's
+    encoder stream only."""
     kw = dict(rank=cfg.adapter.rank, alpha=cfg.adapter.alpha, use_pallas=use_pallas)
     if "text" in local_adapters:
         embeds = adapters_lib.nano_adapter_apply(local_adapters["text"], embeds, **kw)
@@ -202,7 +202,7 @@ def _accuracy(cfg, backbone, adapters, local_adapters, batch: Batch):
         cfg, backbone, adapters, batch)
     if local_adapters is not None:
         embeds, enc = _apply_personal(cfg, local_adapters, embeds, enc, cfg.use_pallas)
-    hidden, _ = model_lib.forward(cfg, backbone, embeds, positions)
+    hidden, _ = model_lib.forward(cfg, backbone, embeds, positions, enc)
     return token_accuracy(model_lib.logits(cfg, backbone, hidden), labels, mask)
 
 

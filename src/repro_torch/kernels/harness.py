@@ -272,6 +272,34 @@ MOE_LORA_SHAPES = [(128, 5120, 64, 0), (128, 6144, 64, 0), (128, 8192, 64, 0),
 MOE_LORA_GRAD_SHAPES = [(4 * 32, 5120, 64, 0), (4 * 32, 6144, 64, 0), (4 * 32, 8192, 64, 0),
                         (4 * 64, 8192, 64, 0)]
 MOE_GROUPED_SHAPES = [(8, 5120, 64, 8, 0), (8, 6144, 64, 8, 0), (8, 8192, 64, 8, 0)]
+# The hybrid family's full-width attention, run on the card only:
+# recurrentgemma-9b's 16 heads of 256 on one KV head (GQA 16) at its local
+# window of 2,048: serving's prefill at prefill_len 2,048, the training batch
+# (4 x 32) and a 4,096-position forward, where the window masks keys.
+HYBRID_FLASH_SHAPES = [
+    ("rgemma-prefill", 1, 2048, 2048, 16, 1, 256, True, 2048, 0.0, 0, 0),
+    ("rgemma-train", 4, 32, 32, 16, 1, 256, True, 2048, 0.0, 0, 0),
+    ("rgemma-window-4096", 1, 4096, 4096, 16, 1, 256, True, 2048, 0.0, 0, 0),
+]
+# ... and the audio family's decoder self-attention (whisper-base: 8 heads of
+# 64, MHA, causal, no window): serving's prefill at prefill_len 128 and the
+# training batch (4 x 32). Its encoder and cross-attention run sdpa.
+AUDIO_FLASH_SHAPES = [
+    ("whisper-prefill", 1, 128, 128, 8, 8, 64, True, None, 0.0, 0, 0),
+    ("whisper-train", 4, 32, 32, 8, 8, 64, True, None, 0.0, 0, 0),
+]
+# ... the flash Function's gradient at both training batches, held at
+# FULL_FLASH_GRAD_TOLERANCES (head dim 256 sums the widest dot products)
+NEW_FAMILY_FLASH_GRAD_SHAPES = [HYBRID_FLASH_SHAPES[1], AUDIO_FLASH_SHAPES[1]]
+# ... and their LoRA at rank 64: whisper's image adapter over 1,500 frames a
+# request and 4 x 1,500 a training step, its text adapter over a 128-token
+# prefill and 4 x 32 tokens, all at d_model 512; recurrentgemma's text
+# adapter over its 2,048-token prefill (its 4 x 32 rows at d_model 4,096 are
+# llava's FULL_LORA_GRAD_SHAPES[0]); the grouped bank at d_model 512.
+NEW_FAMILY_LORA_SHAPES = [(1500, 512, 64, 0), (4 * 1500, 512, 64, 0), (128, 512, 64, 0),
+                          (4 * 32, 512, 64, 0), (2048, 4096, 64, 0)]
+NEW_FAMILY_LORA_GRAD_SHAPES = [(4 * 1500, 512, 64, 0), (4 * 32, 512, 64, 0)]
+AUDIO_GROUPED_SHAPES = [(8, 512, 64, 8, 0)]
 LORA_EDGE_SHAPES = [
     # (t, d, rank, block_t): D and r off multiples of 8 and 16, T off 64
     (63, 100, 5, 0),

@@ -106,24 +106,34 @@ def causal_mask(sq: int, sk: int, *, q_offset: int = 0, window: Optional[int] = 
     return m
 
 
-def full_attention(cfg, params, x, angles, *, return_kv: bool = False):
-    """Causal full-sequence self-attention for training and prefill.
+def full_attention(cfg, params, x, angles, *, causal: bool = True, memory=None,
+                   return_kv: bool = False):
+    """Full-sequence attention for training and prefill (``attention.py:162-215``).
 
-    ``cfg.use_pallas`` routes the scores through the flash-attention kernel
-    with the config's window and logit softcap (``attention.py:196-202``).
+    Causal self-attention by default, or bidirectional (``causal=False``, the
+    encoder's); ``memory`` (B, M, D) makes it cross-attention: keys and values
+    from the memory, no mask, no rotary. Rotary only where ``angles`` is given
+    (learned positions have none). ``cfg.use_pallas`` routes causal
+    self-attention through the flash-attention kernel with the config's
+    window and logit softcap (``attention.py:196-202``); the encoder and the
+    cross-attention take ``sdpa``, as in the JAX package.
     Returns (out, (k, v)) when ``return_kv``.
     """
     q = _project_q(cfg, params, x)
-    k, v = _project_kv(cfg, params, x)
-    q = apply_rotary(q, angles)
-    k = apply_rotary(k, angles)
+    k, v = _project_kv(cfg, params, x if memory is None else memory)
+    if angles is not None and memory is None:
+        q = apply_rotary(q, angles)
+        k = apply_rotary(k, angles)
+    self_causal = causal and memory is None
     S = x.shape[1]
-    if cfg.use_pallas:
+    if cfg.use_pallas and self_causal:
         out = flash_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
                                         softcap=cfg.logit_softcap)
     else:
-        out = sdpa(cfg, q, k, v, causal_mask(S, S, window=cfg.sliding_window, device=x.device))
-    B, S = x.shape[:2]
+        mask = (causal_mask(S, S, window=cfg.sliding_window, device=x.device)
+                if self_causal else None)
+        out = sdpa(cfg, q, k, v, mask)
+    B = x.shape[0]
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) @ params["wo"]
     if return_kv:
         return out, (k, v)
@@ -173,9 +183,10 @@ def decode_attention(cfg, params, x, angles, cache: KVCache, pos):
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     C = cache.k.shape[1]
-    q = apply_rotary(_project_q(cfg, params, x), angles)
+    q = _project_q(cfg, params, x)
     k, v = _project_kv(cfg, params, x)
-    k = apply_rotary(k, angles)
+    if angles is not None:
+        q, k = apply_rotary(q, angles), apply_rotary(k, angles)
     rows = torch.arange(B, device=x.device)
     slot = torch.remainder(pos, C)
     cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
@@ -189,3 +200,12 @@ def decode_attention(cfg, params, x, angles, cache: KVCache, pos):
     probs = torch.softmax(logits, dim=-1).to(cache.v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache.v)
     return out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"], cache
+
+
+def cross_decode_attention(cfg, params, x, mem_kv: KVCache):
+    """One decoder token's cross-attention over a fixed encoder memory
+    (``attention.py:303-317``): x (B, 1, D), mem_kv (B, M, n_kv, hd), no
+    mask; ``sdpa``'s arithmetic (no audio config sets a softcap, which the
+    JAX function lacks). Returns out (B, 1, D)."""
+    out = sdpa(cfg, _project_q(cfg, params, x), mem_kv.k, mem_kv.v, None)
+    return out.reshape(x.shape[0], 1, cfg.n_heads * cfg.resolved_head_dim) @ params["wo"]

@@ -42,7 +42,7 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32):
 
 
 # ---------------------------------------------------------------------------
-# norm / MLP / embeddings
+# norms / MLP / embeddings
 # ---------------------------------------------------------------------------
 
 def init_rmsnorm(d: int, dtype, device):
@@ -57,14 +57,38 @@ def rmsnorm(params, x, eps: float = 1e-6):
     return (xf * params["scale"].float()).to(x.dtype)
 
 
+def init_layernorm(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """LayerNorm in f32 inside, cast back to the activation dtype
+    (``layers.py:54-61``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * params["scale"].float() + params["bias"].float()).to(x.dtype)
+
+
+def init_norm(cfg, d: int, dtype, device):
+    """The config's norm: LayerNorm (scale and bias) or RMSNorm (scale)."""
+    if cfg.norm == "layernorm":
+        return init_layernorm(d, dtype, device)
+    return init_rmsnorm(d, dtype, device)
+
+
+def norm(cfg, params, x):
+    return layernorm(params, x) if cfg.norm == "layernorm" else rmsnorm(params, x)
+
+
 def init_mlp(gen, cfg, dtype, d_ff=None):
-    """SwiGLU's three projections, or GELU's two (no ``w_gate``); ``d_ff``
-    overrides the config's width (the MoE shared expert, ``layers.py:76-89``)."""
-    if cfg.act not in ("swiglu", "gelu"):
-        raise NotImplementedError(f"act={cfg.act!r}: the port runs swiglu and gelu "
-                                  "(GeGLU: ROADMAP queue 3f)")
+    """SwiGLU's or GeGLU's three projections, or GELU's two (no ``w_gate``);
+    ``d_ff`` overrides the config's width (the MoE shared expert,
+    ``layers.py:76-89``)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    p = {"w_gate": dense_init(gen, (d, f), dtype)} if cfg.act == "swiglu" else {}
+    p = {"w_gate": dense_init(gen, (d, f), dtype)} if cfg.act in ("swiglu", "geglu") else {}
     p["w_up"] = dense_init(gen, (d, f), dtype)
     p["w_down"] = dense_init(gen, (f, d), dtype)
     return p
@@ -77,9 +101,12 @@ def gelu(x):
 
 
 def mlp(cfg, params, x):
-    """Position-wise MLP: SwiGLU (silu(x·Wg) ⊙ x·Wu)·Wd, or GELU gelu(x·Wu)·Wd."""
+    """Position-wise MLP: SwiGLU (silu(x·Wg) ⊙ x·Wu)·Wd, GeGLU
+    (gelu(x·Wg) ⊙ x·Wu)·Wd, or GELU gelu(x·Wu)·Wd (``layers.py:92-104``)."""
     if cfg.act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif cfg.act == "geglu":
+        h = gelu(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = gelu(x @ params["w_up"])
     return h @ params["w_down"]
@@ -96,6 +123,10 @@ def embed(params, tokens):
 def unembed(params, x):
     """Project back to vocab."""
     return x @ params["table"].t().to(x.dtype)
+
+
+def init_learned_pos(gen, max_len: int, d: int, dtype):
+    return {"pos": embed_init(gen, (max_len, d), dtype)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,28 +1,36 @@
-"""Backbone facade of the port, dense/vlm, moe and ssm families
+"""Backbone facade of the port, one API over the six families
 (PyTorch counterpart of ``repro.models.model``).
 
     init_backbone(cfg, seed, device)              -> params
     embed_tokens(cfg, params, tokens)             -> (B, S, D)
     connect(cfg, params, feats)                   -> (B, M, D)   connector
-    forward(cfg, params, embeds, positions)       -> (hidden, aux)
+    forward(cfg, params, embeds, positions, enc_embeds=None) -> (hidden, aux)
     logits(cfg, params, hidden)                   -> (B, S, V)
-    loss_fn(cfg, params, embeds, positions, labels, mask) -> (loss, aux)
-    prefill(cfg, params, embeds, positions, capacity, length) -> (state, hidden)
-    decode_step(cfg, params, embed, state, pos)   -> (logits, state)
+    loss_fn(cfg, params, embeds, positions, labels, mask, enc_embeds=None) -> (loss, aux)
+    prefill(cfg, params, embeds, positions, capacity, enc_embeds=None, length=None)
+                                                  -> (state, hidden)
+    decode_step(cfg, params, embed, state, pos, moe_group=None) -> (logits, state)
     init_state(cfg, batch, capacity, dtype, device)
+
+The audio family (whisper) runs the encoder-decoder of
+``repro_torch.models.encdec``: ``enc_embeds`` are its connected frame
+embeddings, and its decoder adds learned positions to ``embeds``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import (
     dense_init,
     embed,
     init_embedding,
-    init_rmsnorm,
+    init_learned_pos,
+    init_norm,
     lm_loss,
-    rmsnorm,
+    norm,
     torch_dtype,
     unembed,
 )
@@ -37,37 +45,48 @@ def param_dtype(cfg) -> torch.dtype:
 SUPPORTED = {"dense": (("rmsnorm",), ("swiglu",), ("rope",)),
              "vlm": (("rmsnorm",), ("swiglu",), ("rope", "mrope")),
              "moe": (("rmsnorm",), ("swiglu", "gelu"), ("rope",)),
-             "ssm": (("rmsnorm",), ("swiglu",), ("none",))}
+             "ssm": (("rmsnorm",), ("swiglu",), ("none",)),
+             "hybrid": (("rmsnorm",), ("geglu",), ("rope",)),
+             "audio": (("layernorm",), ("gelu",), ("learned",))}
 
 
 def check_supported(cfg) -> None:
-    """Raise for configs whose layers the port does not have yet."""
+    """Raise for a combination of family and layers that no config of the
+    JAX package has, so the port has never been held against it."""
     transformer.check_family(cfg)
     for field, allowed in zip(("norm", "act", "pos_type"), SUPPORTED[cfg.family]):
         if getattr(cfg, field) not in allowed:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r}: the port runs {allowed} for the "
-                f"{cfg.family} family (LayerNorm and learned positions: ROADMAP queue 3g; "
-                "GeGLU: queue 3f)")
+                f"{cfg.family} family")
 
 
 def init_backbone(cfg, *, seed: int = 0, device="cuda"):
-    """Random frozen backbone drawn from a seeded generator on ``device``."""
+    """Random frozen backbone drawn from a seeded generator on ``device``,
+    with the JAX package's leaves (``model.py:40-60``)."""
     check_supported(cfg)
     dtype = param_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
+    dev = gen.device
     params = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
-        "final_norm": init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "final_norm": init_norm(cfg, cfg.d_model, dtype, dev),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
+    if cfg.pos_type == "learned":
+        params["pos"] = init_learned_pos(gen, cfg.max_seq_len, cfg.d_model, dtype)
     if cfg.frontend_dim:
         params["connector"] = {
             "w": dense_init(gen, (cfg.frontend_dim, cfg.d_model), dtype),
-            "b": torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device),
+            "b": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
         }
-    params.update(transformer.init_stack(gen, cfg, dtype))
+    if cfg.family == "audio":
+        params.update(encdec.init_encdec_stacks(gen, cfg, dtype))
+        params["enc_pos"] = init_learned_pos(gen, cfg.enc_seq_len, cfg.d_model, dtype)
+        params["enc_final_norm"] = init_norm(cfg, cfg.d_model, dtype, dev)
+    else:
+        params.update(transformer.init_stack(gen, cfg, dtype))
     return params
 
 
@@ -81,16 +100,40 @@ def connect(cfg, params, feats):
     return feats.to(c["w"].dtype) @ c["w"] + c["b"]
 
 
-def forward(cfg, params, embeds, positions):
+def _add_learned_pos(cfg, params, x, positions):
+    """x + the learned position rows of ``positions`` (B, S) (``model.py:75-79``)."""
+    if cfg.pos_type != "learned":
+        return x
+    return x + params["pos"]["pos"][positions].to(x.dtype)
+
+
+def _encode_memory(cfg, params, enc_embeds):
+    """The encoder over connected frame embeddings (B, M, D), after its
+    learned positions, through its final norm (``model.py:82-88``)."""
+    m = enc_embeds.shape[1]
+    mem = enc_embeds + params["enc_pos"]["pos"][:m][None].to(enc_embeds.dtype)
+    return norm(cfg, params["enc_final_norm"], encdec.encode(cfg, params, mem))
+
+
+def _text_positions(positions):
+    return positions if positions.ndim == 2 else positions[0]
+
+
+def forward(cfg, params, embeds, positions, enc_embeds=None):
     """Full-sequence causal forward (training and evaluation).
 
     embeds (B, S, D), adapter-processed; positions (B, S) int, or (3, B, S)
-    under M-RoPE. Returns (hidden (B, S, D) after the final norm, aux: the
-    MoE balance loss summed over the layers, 0 for the other families).
+    under M-RoPE; enc_embeds (B, M, D), the connected frame embeddings of
+    the audio family. Returns (hidden (B, S, D) after the final norm, aux:
+    the MoE balance loss summed over the layers, 0 for the other families).
     """
+    x = _add_learned_pos(cfg, params, embeds, _text_positions(positions))
     angles = make_angles(cfg, positions)
-    x, aux = transformer.forward_stack(cfg, params, embeds, angles)
-    return rmsnorm(params["final_norm"], x), aux
+    if cfg.family == "audio":
+        x, aux = encdec.decode_forward(cfg, params, x, _encode_memory(cfg, params, enc_embeds))
+    else:
+        x, aux = transformer.forward_stack(cfg, params, x, angles)
+    return norm(cfg, params["final_norm"], x), aux
 
 
 def logits(cfg, params, hidden):
@@ -98,7 +141,7 @@ def logits(cfg, params, hidden):
     return unembed(params["embed" if cfg.tie_embeddings else "unembed"], hidden)
 
 
-def loss_fn(cfg, params, embeds, positions, labels, mask):
+def loss_fn(cfg, params, embeds, positions, labels, mask, enc_embeds=None):
     """Masked LM loss of the frozen backbone on adapted embeddings -> (loss, aux).
 
     aux, the MoE balance loss, is reported and never differentiated (the JAX
@@ -106,39 +149,54 @@ def loss_fn(cfg, params, embeds, positions, labels, mask):
     have no ``loss_chunk``, so the full (B, S, V) logits are formed, as in
     ``repro.models.model.loss_fn``.
     """
-    hidden, aux = forward(cfg, params, embeds, positions)
+    hidden, aux = forward(cfg, params, embeds, positions, enc_embeds)
     return lm_loss(logits(cfg, params, hidden), labels, mask), aux.detach()
 
 
-def prefill(cfg, params, embeds, positions, capacity: int, length=None):
+def prefill(cfg, params, embeds, positions, capacity: int, enc_embeds=None, length=None):
     """embeds (B, S, D), positions (B, S) or (3, B, S) -> (stacked decode state, hidden).
 
     ``length`` (int, optional): the number of real positions of a
-    right-padded sequence. Only the ssm family reads it (its terminal state
-    must not integrate pad steps); the attention cache ignores it.
+    right-padded sequence. Only the recurrent families (ssm, hybrid) read
+    it, so their terminal state integrates no pad step; the attention and
+    encoder-decoder caches ignore it. ``enc_embeds``: the audio family's
+    frames, encoded once here into each decoder layer's cross KV.
     """
+    x = _add_learned_pos(cfg, params, embeds, _text_positions(positions))
     angles = make_angles(cfg, positions)
-    x, state = transformer.prefill_stack(cfg, params, embeds, angles, capacity, length=length)
-    return state, rmsnorm(params["final_norm"], x)
+    if cfg.family == "audio":
+        x, state = encdec.dec_prefill(cfg, params, x, _encode_memory(cfg, params, enc_embeds),
+                                      capacity)
+    else:
+        x, state = transformer.prefill_stack(cfg, params, x, angles, capacity, length=length)
+    return state, norm(cfg, params["final_norm"], x)
 
 
-def decode_step(cfg, params, embed, state, pos):
+def decode_step(cfg, params, embed, state, pos, moe_group: Optional[int] = None):
     """One-token decode. embed (B, 1, D); pos (B,) positions, or one int for all rows.
 
     Returns (logits (B, 1, V), state updated in place).
 
-    An MoE layer routes each row alone (groups of 1): the serving engine's
-    semantics, where the JAX engine ``vmap``s its decode over pages. JAX's
-    ``model.decode_step`` called on a whole batch routes the B rows as one
-    group instead; the two differ where that group's capacity drops a choice.
+    ``moe_group`` sets how an MoE layer routes the B rows: None (the
+    default) as one group of ``_group_size(B)``, as JAX's
+    ``model.decode_step`` does on a batch; 1 each row alone, as the serving
+    engine does, where the JAX engine ``vmap``s its decode over pages. The
+    two differ where the batch's group capacity drops a choice.
     """
     b = embed.shape[0]
     if not torch.is_tensor(pos):
         pos = torch.full((b,), int(pos), dtype=torch.long, device=embed.device)
+    x = _add_learned_pos(cfg, params, embed, pos[:, None])
     angles = make_angles(cfg, pos[:, None])
-    x, state = transformer.decode_stack(cfg, params, embed, angles, state, pos)
-    return logits(cfg, params, rmsnorm(params["final_norm"], x)), state
+    if cfg.family == "audio":
+        x, state = encdec.dec_step(cfg, params, x, state, pos)
+    else:
+        x, state = transformer.decode_stack(cfg, params, x, angles, state, pos,
+                                            moe_group=moe_group)
+    return logits(cfg, params, norm(cfg, params["final_norm"], x)), state
 
 
 def init_state(cfg, batch: int, capacity: int, dtype, device):
+    if cfg.family == "audio":
+        return encdec.init_dec_state(cfg, batch, capacity, dtype, device)
     return transformer.init_decode_state(cfg, batch, capacity, dtype, device)

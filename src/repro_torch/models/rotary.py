@@ -3,8 +3,9 @@
 Standard RoPE with the "rotate halves" convention; qwen2-vl's M-RoPE
 (arXiv:2409.12191 §2.1), whose head_dim/2 frequency slots split into
 ``sections = (t, h, w)`` groups, each reading its own component of a
-3-component position id; and no positions at all for the ssm family. Text
-tokens carry three equal components, so on text M-RoPE equals RoPE.
+3-component position id; and no rotary at all for learned positions
+(whisper) or none (the ssm family). Text tokens carry three equal
+components, so on text M-RoPE equals RoPE.
 """
 from __future__ import annotations
 
@@ -57,11 +58,12 @@ def apply_rotary(x, angles):
 
 def make_angles(cfg, positions):
     """positions (B, S) int, or (3, B, S) for M-RoPE -> (B, S, head_dim/2)
-    angles, or None for ``pos_type="none"`` (the ssm family has no
-    positions). Under M-RoPE, (B, S) text positions broadcast to three equal
-    components (``rotary.py:61-74``)."""
+    angles, or None for ``pos_type`` "learned" (whisper adds its positions to
+    the embeddings) and "none" (the ssm family has no positions). Under
+    M-RoPE, (B, S) text positions broadcast to three equal components
+    (``rotary.py:61-74``)."""
     hd = cfg.resolved_head_dim
-    if cfg.pos_type == "none":
+    if cfg.pos_type in ("learned", "none"):
         return None
     if cfg.pos_type == "rope":
         return rope_angles(positions, hd, cfg.rope_theta)
@@ -69,5 +71,4 @@ def make_angles(cfg, positions):
         if positions.ndim == 2:
             positions = positions[None].expand((3,) + tuple(positions.shape))
         return mrope_angles(positions, cfg.mrope_sections, hd, cfg.rope_theta)
-    raise NotImplementedError(f"pos_type={cfg.pos_type!r}: the port runs rope, mrope and none "
-                              "(learned positions: ROADMAP queue 3g)")
+    raise ValueError(f"unknown pos_type {cfg.pos_type!r}")

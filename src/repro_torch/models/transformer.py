@@ -1,82 +1,139 @@
-"""Decoder stacks of the port, dense/vlm, moe and ssm families
+"""Decoder stacks of the port, dense/vlm, moe, ssm and hybrid families
 (PyTorch counterpart of ``repro.models.transformer``).
 
 Layer bodies:
     dense/vlm : x += attn(norm(x)); x += mlp(norm(x))
     moe       : x += attn(norm(x)); x += moe(norm(x))   (+ shared expert)
     ssm       : x += mamba2(norm(x))
+    hybrid    : n // 3 (rec, rec, attn) triples + n % 3 trailing rec layers
+                (recurrentgemma-9b: 12 × 3 + 2), every sub-layer followed by
+                its own MLP (Griffin's residual pattern); the attn
+                sub-layers use the local window ``rglru.local_window``.
 
 The JAX package scans over per-layer params stacked on a leading axis; here
-``params["layers"]`` is a list of per-layer dicts and the layer loop is a
-Python loop. The decode state keeps the JAX package's stacked layout
-(``KVCache`` of (L, B, C, n_kv, hd) tensors, or ``SSMState`` of (L, B, ...)
-tensors) and each layer reads and writes its slice in place. Hybrid and
-encoder-decoder stacks arrive with their families (ROADMAP queues 3f, 3g).
+``params["layers"]`` is a list of per-layer dicts (a hybrid stack:
+``params["triples"]``, a list of {"rec0", "rec1", "attn"} dicts, and
+``params["extras"]``, a list or None) and the layer loop is a Python loop.
+The decode state keeps the JAX package's stacked layout (``KVCache`` of
+(L, B, C, n_kv, hd) tensors, ``SSMState`` or ``RGLRUState`` of (L, B, ...)
+tensors) and each layer reads and writes its slice in place. The
+encoder-decoder stack of the audio family is ``repro_torch.models.encdec``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
+from repro_torch.models.layers import init_mlp, init_norm, mlp, norm
 
-FAMILIES = ("dense", "vlm", "moe", "ssm")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs {FAMILIES}; the hybrid family is "
-            "ROADMAP queue 3f and the audio family queue 3g")
+        raise NotImplementedError(f"family {cfg.family!r}: the port runs {FAMILIES}")
+
+
+def _attn_cfg(cfg):
+    """Attention-sublayer view of the config: a hybrid stack's attention
+    sees the local window (``transformer.py:40-44``)."""
+    if cfg.family == "hybrid":
+        return cfg.with_(sliding_window=cfg.rglru.local_window)
+    return cfg
 
 
 def init_dense_layer(gen, cfg, dtype):
+    dev = gen.device
     return {
-        "norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "norm1": init_norm(cfg, cfg.d_model, dtype, dev),
         "attn": attn_lib.init_attention(gen, cfg, dtype),
-        "norm2": init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "norm2": init_norm(cfg, cfg.d_model, dtype, dev),
         "mlp": init_mlp(gen, cfg, dtype),
     }
 
 
 def init_moe_layer(gen, cfg, dtype):
+    dev = gen.device
     return {
-        "norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "norm1": init_norm(cfg, cfg.d_model, dtype, dev),
         "attn": attn_lib.init_attention(gen, cfg, dtype),
-        "norm2": init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "norm2": init_norm(cfg, cfg.d_model, dtype, dev),
         "moe": moe_lib.init_moe(gen, cfg, dtype),
     }
 
 
 def init_ssm_layer(gen, cfg, dtype):
-    return {"norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
+    return {"norm1": init_norm(cfg, cfg.d_model, dtype, gen.device),
             "ssm": ssm_lib.init_ssm(gen, cfg, dtype)}
+
+
+def init_rec_layer(gen, cfg, dtype):
+    dev = gen.device
+    return {
+        "norm1": init_norm(cfg, cfg.d_model, dtype, dev),
+        "rgl": rglru_lib.init_rglru(gen, cfg, dtype),
+        "norm2": init_norm(cfg, cfg.d_model, dtype, dev),
+        "mlp": init_mlp(gen, cfg, dtype),
+    }
+
+
+def hybrid_split(cfg):
+    """(n_triples, n_extra_rec): 38 = 12 × 3 + 2 for recurrentgemma-9b. The
+    stack is built of (rec, rec, attn) triples, the only ``block_pattern``
+    the JAX package builds; another pattern is refused."""
+    if tuple(cfg.rglru.block_pattern) != ("rec", "rec", "attn"):
+        raise ValueError(f"{cfg.name}: the hybrid stack is built of (rec, rec, attn) "
+                         f"triples, not block_pattern={cfg.rglru.block_pattern}")
+    n_triples = cfg.n_layers // 3
+    return n_triples, cfg.n_layers - 3 * n_triples
 
 
 def init_stack(gen, cfg, dtype):
     check_family(cfg)
+    if cfg.family == "hybrid":
+        n_t, n_e = hybrid_split(cfg)
+        triples = [{"rec0": init_rec_layer(gen, cfg, dtype),
+                    "rec1": init_rec_layer(gen, cfg, dtype),
+                    "attn": init_dense_layer(gen, _attn_cfg(cfg), dtype)} for _ in range(n_t)]
+        extras = [init_rec_layer(gen, cfg, dtype) for _ in range(n_e)] or None
+        return {"triples": triples, "extras": extras}
     init = {"ssm": init_ssm_layer, "moe": init_moe_layer}.get(cfg.family, init_dense_layer)
     return {"layers": [init(gen, cfg, dtype) for _ in range(cfg.n_layers)]}
 
 
-def _layer_cache(state, i) -> attn_lib.KVCache:
-    """Views of layer i in the stacked state: writes land in the stack."""
-    return attn_lib.KVCache(state["layers"].k[i], state["layers"].v[i])
+def _layer_cache(layers, i) -> attn_lib.KVCache:
+    """Views of layer i in a stacked KVCache: writes land in the stack."""
+    return attn_lib.KVCache(layers.k[i], layers.v[i])
+
+
+def _write_layer(stacked, i, st) -> None:
+    """Layer i's new recurrent state (an ``SSMState`` or ``RGLRUState``),
+    written field by field into the stacked state."""
+    for dst, src in zip(stacked, st):
+        dst[i].copy_(src)
+
+
+def _layer_state(stacked, i):
+    return type(stacked)(*(t[i] for t in stacked))
 
 
 def dense_body(cfg, lp, x, angles):
     """One attention layer over the full sequence -> (x, (k, v), aux).
 
-    Shared by training (``forward_stack``) and prefill, dense and moe alike;
-    aux is the MoE balance loss, 0 for a dense layer. It writes nothing in
-    place, so autograd can save its tensors; prefill seeds the cache after.
+    Shared by training (``forward_stack``) and prefill, dense, moe and the
+    hybrid stack's attention alike; aux is the MoE balance loss, 0 for a
+    dense layer. It writes nothing in place, so autograd can save its
+    tensors; prefill seeds the cache after.
     """
-    h = rmsnorm(lp["norm1"], x)
+    h = norm(cfg, lp["norm1"], x)
     out, kv = attn_lib.full_attention(cfg, lp["attn"], h, angles, return_kv=True)
     x = x + out
-    y, aux = _ffn(cfg, lp, rmsnorm(lp["norm2"], x))
+    y, aux = _ffn(cfg, lp, norm(cfg, lp["norm2"], x))
     return x + y, kv, aux
 
 
@@ -89,8 +146,17 @@ def _ffn(cfg, lp, h, group=None):
 
 def ssm_body(cfg, lp, x):
     """One Mamba2 layer over the full sequence (``transformer.py:174-177``)."""
-    return x + ssm_lib.ssm_apply(cfg, lp["ssm"], rmsnorm(lp["norm1"], x),
+    return x + ssm_lib.ssm_apply(cfg, lp["ssm"], norm(cfg, lp["norm1"], x),
                                  use_pallas=cfg.use_pallas)
+
+
+def rec_prefill(cfg, lp, x, length=None):
+    """One recurrent layer and its MLP over the full sequence -> (x, RGLRUState)
+    (``transformer.py:180-183, 268-273``)."""
+    out, st = rglru_lib.rglru_block_prefill(cfg, lp["rgl"], norm(cfg, lp["norm1"], x),
+                                            length=length)
+    x = x + out
+    return x + mlp(cfg, lp["mlp"], norm(cfg, lp["norm2"], x)), st
 
 
 def forward_stack(cfg, stack, x, angles):
@@ -103,6 +169,15 @@ def forward_stack(cfg, stack, x, angles):
     """
     check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        acfg = _attn_cfg(cfg)
+        for lp in stack["triples"]:
+            x = rec_prefill(cfg, lp["rec0"], x)[0]
+            x = rec_prefill(cfg, lp["rec1"], x)[0]
+            x = dense_body(acfg, lp["attn"], x, angles)[0]
+        for lp in stack["extras"] or []:
+            x = rec_prefill(cfg, lp, x)[0]
+        return x, aux
     for lp in stack["layers"]:
         if cfg.family == "ssm":
             x = ssm_body(cfg, lp, x)
@@ -116,52 +191,89 @@ def prefill_stack(cfg, stack, x, angles, capacity: int, length=None):
     """x (B, S, D) -> (hidden (B, S, D), stacked decode state).
 
     ``length`` (int, optional) marks only the first ``length`` positions as
-    real: the ssm layers keep pad steps out of their terminal state. The
-    attention cache ignores it (pad KV is overwritten before decode reads it).
-    The caches hold ``cache_capacity(cfg, capacity)`` slots; a prefill longer
-    than a ring keeps its last positions (``attention.seed_cache``).
+    real: the recurrent layers (ssm, and the hybrid stack's rec sub-layers)
+    keep pad steps out of their terminal state. The attention cache ignores
+    it (pad KV is overwritten before decode reads it). The caches hold
+    ``cache_capacity(cfg, capacity)`` slots; a prefill longer than a ring
+    keeps its last positions (``attention.seed_cache``).
     """
     check_family(cfg)
     state = init_decode_state(cfg, x.shape[0], capacity, x.dtype, x.device)
+    if cfg.family == "hybrid":
+        acfg, tri = _attn_cfg(cfg), state["triples"]
+        for i, lp in enumerate(stack["triples"]):
+            x, st = rec_prefill(cfg, lp["rec0"], x, length)
+            _write_layer(tri["rec0"], i, st)
+            x, st = rec_prefill(cfg, lp["rec1"], x, length)
+            _write_layer(tri["rec1"], i, st)
+            x, (k, v), _ = dense_body(acfg, lp["attn"], x, angles)
+            attn_lib.seed_cache(_layer_cache(tri["attn"], i), k, v)
+        for i, lp in enumerate(stack["extras"] or []):
+            x, st = rec_prefill(cfg, lp, x, length)
+            _write_layer(state["extras"], i, st)
+        return x, state
     for i, lp in enumerate(stack["layers"]):
         if cfg.family == "ssm":
-            out, st = ssm_lib.ssm_prefill(cfg, lp["ssm"], rmsnorm(lp["norm1"], x), length,
+            out, st = ssm_lib.ssm_prefill(cfg, lp["ssm"], norm(cfg, lp["norm1"], x), length,
                                           use_pallas=cfg.use_pallas)
             x = x + out
-            _write_ssm_layer(state, i, st)
+            _write_layer(state["layers"], i, st)
         else:
             x, (k, v), _ = dense_body(cfg, lp, x, angles)
-            attn_lib.seed_cache(_layer_cache(state, i), k, v)
+            attn_lib.seed_cache(_layer_cache(state["layers"], i), k, v)
     return x, state
 
 
-def _write_ssm_layer(state, i, st: ssm_lib.SSMState) -> None:
-    """Layer i's new conv window and h, written into the stacked state."""
-    state["layers"].conv[i].copy_(st.conv)
-    state["layers"].h[i].copy_(st.h)
-
-
-def _attn_step(cfg, lp, x, angles, cache, pos):
-    """One decode layer. An MoE layer routes each row alone (groups of 1),
-    as the JAX engine's ``vmap`` over its pages does (``engine.py:175-187``)."""
-    h = rmsnorm(lp["norm1"], x)
+def _attn_step(cfg, lp, x, angles, cache, pos, moe_group: Optional[int]):
+    """One decode layer of attention and its MLP or MoE layer."""
+    h = norm(cfg, lp["norm1"], x)
     out, _ = attn_lib.decode_attention(cfg, lp["attn"], h, angles, cache, pos)
     x = x + out
-    return x + _ffn(cfg, lp, rmsnorm(lp["norm2"], x), group=1)[0]
+    return x + _ffn(cfg, lp, norm(cfg, lp["norm2"], x), group=moe_group)[0]
 
 
-def decode_stack(cfg, stack, x, angles, state, pos):
-    """x (B, 1, D), pos (B,) -> (hidden (B, 1, D), state updated in place)."""
+def _rec_step(cfg, lp, x, stacked, i):
+    """One decode step of a recurrent layer and its MLP; layer i of the
+    stacked ``RGLRUState`` is updated in place."""
+    out, st = rglru_lib.rglru_block_step(cfg, lp["rgl"], norm(cfg, lp["norm1"], x),
+                                         _layer_state(stacked, i))
+    _write_layer(stacked, i, st)
+    x = x + out
+    return x + mlp(cfg, lp["mlp"], norm(cfg, lp["norm2"], x))
+
+
+def decode_stack(cfg, stack, x, angles, state, pos, moe_group: Optional[int] = None):
+    """x (B, 1, D), pos (B,) -> (hidden (B, 1, D), state updated in place).
+
+    ``moe_group`` is the MoE layers' routing group: None routes the B rows as
+    one group of ``_group_size(B)``, as the JAX package's ``model.decode_step``
+    does on a batch (``moe.py:57-62``); 1 routes each row alone, as the JAX
+    engine's ``vmap`` over its pages does (``engine.py:175-187``).
+    """
     check_family(cfg)
+    if cfg.family == "hybrid":
+        acfg, tri = _attn_cfg(cfg), state["triples"]
+        for i, lp in enumerate(stack["triples"]):
+            x = _rec_step(cfg, lp["rec0"], x, tri["rec0"], i)
+            x = _rec_step(cfg, lp["rec1"], x, tri["rec1"], i)
+            x = _attn_step(acfg, lp["attn"], x, angles, _layer_cache(tri["attn"], i), pos, None)
+        for i, lp in enumerate(stack["extras"] or []):
+            x = _rec_step(cfg, lp, x, state["extras"], i)
+        return x, state
     for i, lp in enumerate(stack["layers"]):
         if cfg.family == "ssm":
-            layer = ssm_lib.SSMState(state["layers"].conv[i], state["layers"].h[i])
-            out, st = ssm_lib.ssm_decode_step(cfg, lp["ssm"], rmsnorm(lp["norm1"], x), layer)
+            out, st = ssm_lib.ssm_decode_step(cfg, lp["ssm"], norm(cfg, lp["norm1"], x),
+                                              _layer_state(state["layers"], i))
             x = x + out
-            _write_ssm_layer(state, i, st)
+            _write_layer(state["layers"], i, st)
         else:
-            x = _attn_step(cfg, lp, x, angles, _layer_cache(state, i), pos)
+            x = _attn_step(cfg, lp, x, angles, _layer_cache(state["layers"], i), pos, moe_group)
     return x, state
+
+
+def _stacked(one, n: int):
+    """n zero copies of a per-layer state namedtuple, stacked on a leading axis."""
+    return type(one)(*(t.new_zeros((n,) + tuple(t.shape)) for t in one))
 
 
 def init_decode_state(cfg, batch: int, capacity: int, dtype, device):
@@ -169,13 +281,27 @@ def init_decode_state(cfg, batch: int, capacity: int, dtype, device):
     the ssm family {"layers": SSMState of (L, B, d_conv-1, conv_dim) in
     ``dtype`` and (L, B, H, P, N) in f32}; ``capacity`` is unused there. A
     sliding-window config's caches hold ``cache_capacity`` slots, a ring of
-    at most the window (``transformer.py:342``)."""
+    at most the window (``transformer.py:342``). The hybrid family's
+    {"triples": {"rec0", "rec1": RGLRUState of (n_t, B, cw-1, d_rnn) in
+    ``dtype`` and (n_t, B, d_rnn) in f32, "attn": KVCache of a ring of at
+    most the local window}, "extras": RGLRUState of (n_e, ...) or None}
+    (``transformer.py:425-448``)."""
     check_family(cfg)
+    if cfg.family == "hybrid":
+        n_t, n_e = hybrid_split(cfg)
+        one = rglru_lib.init_rglru_state(cfg, batch, dtype, device)
+        return {"triples": {"rec0": _stacked(one, n_t), "rec1": _stacked(one, n_t),
+                            "attn": _kv_state(_attn_cfg(cfg), n_t, batch, capacity, dtype,
+                                              device)},
+                "extras": _stacked(one, n_e) if n_e else None}
     if cfg.family == "ssm":
-        one = ssm_lib.init_ssm_state(cfg, batch, dtype, device)
-        return {"layers": ssm_lib.SSMState(
-            *(t.new_zeros((cfg.n_layers,) + tuple(t.shape)) for t in one))}
+        return {"layers": _stacked(ssm_lib.init_ssm_state(cfg, batch, dtype, device),
+                                   cfg.n_layers)}
+    return {"layers": _kv_state(cfg, cfg.n_layers, batch, capacity, dtype, device)}
+
+
+def _kv_state(cfg, n: int, batch: int, capacity: int, dtype, device) -> attn_lib.KVCache:
     cap = attn_lib.cache_capacity(cfg, capacity)
-    shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"layers": attn_lib.KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                                       torch.zeros(shape, dtype=dtype, device=device))}
+    shape = (n, batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return attn_lib.KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                            torch.zeros(shape, dtype=dtype, device=device))

@@ -2,25 +2,29 @@
 (``repro.serving.engine``).
 
 One frozen backbone, many tenants' NanoAdapters. Every engine step first
-admits queued requests into free pages of the KV pool (one prefill each),
-then runs ONE decode step over all pages: embed -> grouped per-tenant text
-adapter -> decode with one position per page.
+admits queued requests into free pages of the decode-state pool (one
+prefill each), then runs ONE decode step over all pages: embed -> grouped
+per-tenant text adapter -> decode with one position per page.
 
 Exactness: prompts are right-padded to ``prefill_len``. Under the causal
 mask pad rows never influence real rows, and pad KV at slots
 ``[L_real, prefill_len)`` is only attended after decode has overwritten it
 (decode at position p writes slot p before attending slots <= p), so padded
 prefill + batched decode gives the tokens of one request at a time. For a
-sliding-window config the same argument needs the padded prefill to fit the
-ring, which ``__init__`` checks (``engine.py:71-110``); decode then wraps the
-ring past the window. The ssm
-family integrates every prefill step into its recurrent state, so the engine
-passes the true length down to ``model.prefill``: pad steps get dt = 0 (an
-exact identity on the state) and the conv window is sliced at that length.
-In the MoE family the pads route with the prompt and take expert capacity
-in prefill, as in the JAX engine, and a decode step routes each page alone,
-as the JAX engine's ``vmap`` over pages does (``engine.py:175-187``): a
-page's tokens never depend on the other pages.
+config with a ring (a sliding window, or the hybrid family's local
+attention window) the same argument needs the padded prefill to fit the
+smallest ring, which ``__init__`` checks (``engine.py:71-110``); decode then
+wraps the ring past the window. The recurrent families (ssm, and the hybrid
+family's RG-LRU layers) integrate every prefill step into their state, so
+the engine passes the true length down to ``model.prefill``: pad steps are
+an exact identity on the state (dt = 0 for the SSD scan, (a, b) = (1, 0)
+for RG-LRU) and the conv windows are sliced at that length. The audio
+family's frames run through the encoder and the cross-attention and take no
+decoder position; each page holds its own cross KV. In the MoE family the
+pads route with the prompt and take expert capacity in prefill, as in the
+JAX engine, and a decode step routes each page alone (``moe_group=1``), as
+the JAX engine's ``vmap`` over pages does (``engine.py:175-187``): a page's
+tokens never depend on the other pages.
 
 ``generate_naive`` (the one-request-at-a-time baseline) waits for a later
 slice (ROADMAP queue 4).
@@ -46,7 +50,8 @@ from repro_torch.serving.kv_cache import KVSlotManager
 @dataclass
 class Request:
     """One generation request: a tenant id (None = base model, no adapter),
-    an unpadded prompt, optionally image patches, and a token budget."""
+    an unpadded prompt, optionally image patches or audio frames, and a
+    token budget."""
 
     rid: int
     tenant: Optional[str]
@@ -60,6 +65,17 @@ class Completion:
     rid: int
     tenant: Optional[str]
     tokens: List[int] = field(default_factory=list)
+
+
+def _min_window(cfg) -> Optional[int]:
+    """The smallest attention ring of the config: its sliding window, or the
+    hybrid family's local window (``engine.py:71-77``); None without one."""
+    ws = []
+    if cfg.sliding_window is not None:
+        ws.append(cfg.sliding_window)
+    if cfg.family == "hybrid" and cfg.rglru is not None:
+        ws.append(cfg.rglru.local_window)
+    return min(ws) if ws else None
 
 
 class ServingEngine:
@@ -76,10 +92,11 @@ class ServingEngine:
         self.stop_token = stop_token
         self.use_pallas_grouped = use_pallas_grouped
 
-        # image tokens prepend to the decoder stream
-        self.img_prefix = num_patches(cfg) if cfg.frontend_dim else 0
+        # image tokens prepend to the decoder stream; the audio encoder stream
+        # runs through cross-attention and takes no decoder slot
+        self.img_prefix = num_patches(cfg) if cfg.frontend_dim and cfg.family != "audio" else 0
         self.capacity = self.img_prefix + prefill_len + max_new_tokens + 1
-        w = cfg.sliding_window
+        w = _min_window(cfg)
         if w is not None and self.img_prefix + prefill_len > w:
             raise ValueError(
                 f"padded prefill ({self.img_prefix + prefill_len}) exceeds the attention "
@@ -152,11 +169,11 @@ class ServingEngine:
         batch = Batch(tokens=tokens, labels=torch.zeros_like(tokens),
                       mask=torch.zeros(tokens.shape, dtype=torch.float32, device=self.device),
                       patches=patches)
-        embeds, positions, _, _, _ = nano.nanoedge_forward(
+        embeds, positions, _, _, enc = nano.nanoedge_forward(
             self.cfg, self.backbone, self._gather_adapters(aslot), batch)
         last_idx = self.img_prefix + L - 1
         state, hidden = model_lib.prefill(self.cfg, self.backbone, embeds, positions,
-                                          self.capacity, length=last_idx + 1)
+                                          self.capacity, enc_embeds=enc, length=last_idx + 1)
         # logits at last_idx only (engine.py:149-151)
         lg = model_lib.logits(self.cfg, self.backbone, hidden[:, last_idx:last_idx + 1])
         return state, lg[0, 0], last_idx
@@ -192,7 +209,8 @@ class ServingEngine:
             flat = grouped_adapter_apply(self.bank, "text", emb[:, 0, :], aslots,
                                          use_pallas=self.use_pallas_grouped)
             emb = flat[:, None, :]
-        lg, _ = model_lib.decode_step(self.cfg, self.backbone, emb, self.slots.state, pos)
+        lg, _ = model_lib.decode_step(self.cfg, self.backbone, emb, self.slots.state, pos,
+                                      moe_group=1)
         return torch.argmax(lg[:, 0, :], dim=-1).cpu().numpy()
 
     def _step(self, done: Dict[int, Completion]) -> None:

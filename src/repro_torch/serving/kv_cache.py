@@ -2,9 +2,11 @@
 
 The engine owns ONE fixed-shape decode state for ``n_slots`` concurrent
 requests: the stacked KV cache (L, n_slots, C, n_kv, hd), where a
-sliding-window config's C is a ring of at most the window; or for the ssm
+sliding-window config's C is a ring of at most the window; for the ssm
 family the stacked recurrent state (conv windows in the model dtype, h in
-f32). A request occupies one page (slot) from admission to completion;
+f32); for the hybrid family both, by triple and extra layer; for the
+encoder-decoder family the self KV and the cross KV. Every leaf has the
+page on axis 1. A request occupies one page (slot) from admission to completion;
 prefill's single-request state is copied into its page, and finishing frees
 the page. Per-slot positions are tracked on the host: slot j of a page is
 valid iff j <= pos, so a freed page needs no scrubbing.
@@ -16,6 +18,7 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.models import model as model_lib
+from repro_torch.utils import tree_leaves
 
 
 class KVSlotManager:
@@ -47,9 +50,11 @@ class KVSlotManager:
         self.pos[slot] = 0
 
     def write(self, slot: int, page, start_pos: int) -> None:
-        """Install a single-request prefill state into ``slot``, in place, field
-        by field of the state's namedtuple, each in the pool's own dtype (the
-        JAX package's ``dynamic_update_index_in_dim`` returns a new pool)."""
-        for pool_t, page_t in zip(self.state["layers"], page["layers"]):
+        """Install a single-request prefill state into ``slot``, in place,
+        every leaf of the state tree on its batch axis 1, each in the pool's
+        own dtype (``kv_cache.py:29-34``; the JAX package's
+        ``dynamic_update_index_in_dim`` returns a new pool)."""
+        for pool_t, page_t in zip(tree_leaves(self.state), tree_leaves(page), strict=True):
             pool_t[:, slot].copy_(page_t[:, 0])
         self.pos[slot] = start_pos
+

@@ -1,6 +1,8 @@
 """Tree helpers of the port (the parts of ``repro.utils.tree`` the port
-needs). A tree is nested dicts and lists (a backbone's ``layers``) whose
-leaves are tensors."""
+needs). A tree is nested dicts, lists and tuples (a backbone's ``layers``,
+a decode state's ``KVCache`` and recurrent states, flattened field by
+field) whose leaves are tensors; ``None`` is an empty subtree, as in JAX
+(a hybrid stack with no extra layers)."""
 from __future__ import annotations
 
 import math
@@ -10,16 +12,23 @@ import torch
 
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over one or more trees of the same structure."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     return fn(tree, *rest)
 
 
 def tree_leaves(tree):
     """Leaves in insertion order (the order ``tree_map`` visits them)."""
-    if isinstance(tree, (dict, list)):
+    if tree is None:
+        return []
+    if isinstance(tree, (dict, list, tuple)):
         return [leaf for v in (tree.values() if isinstance(tree, dict) else tree)
                 for leaf in tree_leaves(v)]
     return [tree]

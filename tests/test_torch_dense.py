@@ -155,7 +155,7 @@ def test_interop_carries_qkv_biases():
     for i in range(cfg.n_layers):
         np.testing.assert_array_equal(params["layers"][i]["attn"]["bv"].numpy(),
                                       tree["layers"]["attn"]["bv"][i])
-    back = interop.backbone_to_numpy(params)
+    back = interop.backbone_to_numpy(params, cfg)
     for name in ("bq", "bk", "bv"):
         np.testing.assert_array_equal(back["layers"]["attn"][name], tree["layers"]["attn"][name])
 

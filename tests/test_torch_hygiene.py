@@ -102,7 +102,7 @@ def test_interop_round_trips_stacked_layers():
     assert len(params["layers"]) == jcfg.n_layers
     np.testing.assert_array_equal(params["layers"][1]["mlp"]["w_up"].numpy(),
                                   tree["layers"]["mlp"]["w_up"][1])
-    back = interop.backbone_to_numpy(params)
+    back = interop.backbone_to_numpy(params, get_smoke_config("llava-1.5-7b"))
     flat_a = jax.tree_util.tree_flatten_with_path(tree)[0]
     flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
     assert len(flat_a) == len(flat_b)

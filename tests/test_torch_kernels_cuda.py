@@ -9,7 +9,9 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 tolerances are ``repro_torch.kernels.harness``, the port's copy of the JAX
 package's ``tests/kernel_harness.py``, plus the full-width shapes of
 llava-1.5-7b, mamba2-130m, the dense family, the MoE family and qwen2-vl-72b
-(grok-1's attention softcap of 30 at GQA 6, llama4-scout's GQA 5). The
+(grok-1's attention softcap of 30 at GQA 6, llama4-scout's GQA 5),
+recurrentgemma-9b (head dim 256, 16 heads on one KV head, its 2,048 window)
+and whisper-base (head dim 64, LoRA over 1,500 frames at d_model 512). The
 gradients of ``lora_residual``, ``flash_attention``
 and ``ssd`` (kernel forward, hand-written or recomputed backward) are held
 against ``torch.autograd`` through the plain versions; the Fisher-merge and
@@ -33,9 +35,10 @@ from repro_torch.kernels.ssd_scan import ref as ssd_ref
 DTYPES = ("float32", "bfloat16")
 SCALE = 2.0
 LORA = (harness.LORA_SHAPES + harness.FULL_LORA_SHAPES + harness.MAMBA_LORA_SHAPES
-        + harness.MOE_LORA_SHAPES)
+        + harness.MOE_LORA_SHAPES + harness.NEW_FAMILY_LORA_SHAPES)
 GROUPED = (harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES
-           + harness.MAMBA_GROUPED_SHAPES + harness.MOE_GROUPED_SHAPES)
+           + harness.MAMBA_GROUPED_SHAPES + harness.MOE_GROUPED_SHAPES
+           + harness.AUDIO_GROUPED_SHAPES)
 # ... with ids uniform in [-1, n), then the grouped kernel's edges (id
 # patterns, ranks, widths, an x view off 16-byte alignment)
 GROUPED_CASES = ([(t, d, r, n, bt, None, 0) for t, d, r, n, bt in GROUPED]
@@ -44,16 +47,17 @@ GROUPED_CASES = ([(t, d, r, n, bt, None, 0) for t, d, r, n, bt in GROUPED]
 GROUPED_IDS = (["-".join(map(str, s)) for s in GROUPED]
                + [s[0] for s in harness.GROUPED_LORA_EDGE_SHAPES])
 FLASH = (harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.DENSE_FLASH_SHAPES
-         + harness.MOE_FLASH_SHAPES)
+         + harness.MOE_FLASH_SHAPES + harness.HYBRID_FLASH_SHAPES + harness.AUDIO_FLASH_SHAPES)
 LORA_EDGE = harness.LORA_EDGE_SHAPES
 FLASH_EDGE = harness.FLASH_EDGE_SHAPES
 # the bf16 tensor-core kernels against their rounding models
 LORA_MODEL = LORA + LORA_EDGE + harness.FULL_LORA_GRAD_SHAPES[1:]
 FLASH_MODEL = FLASH + FLASH_EDGE + harness.FULL_FLASH_GRAD_SHAPES
 LORA_GRAD = (harness.LORA_GRAD_SHAPES + harness.FULL_LORA_GRAD_SHAPES
-             + harness.MAMBA_LORA_GRAD_SHAPES + harness.MOE_LORA_GRAD_SHAPES)
+             + harness.MAMBA_LORA_GRAD_SHAPES + harness.MOE_LORA_GRAD_SHAPES
+             + harness.NEW_FAMILY_LORA_GRAD_SHAPES)
 FLASH_GRAD = (harness.FLASH_GRAD_SHAPES + harness.FULL_FLASH_GRAD_SHAPES
-              + harness.MOE_FLASH_GRAD_SHAPES)
+              + harness.MOE_FLASH_GRAD_SHAPES + harness.NEW_FAMILY_FLASH_GRAD_SHAPES)
 FISHER = (harness.FISHER_SHAPES + harness.FISHER_EXTRA_SHAPES + harness.FULL_FISHER_SHAPES
           + harness.MAMBA_FISHER_SHAPES)
 SSD = harness.SSD_SHAPES + harness.FULL_SSD_SHAPES
@@ -254,7 +258,8 @@ def test_flash_grad_matches_plain(cuda, shape, dtype):
     got = _grads(lambda *a: fa_ops.flash_attention(*a, **kw), q, k, v)
     want = _grads(lambda *a: fa_ref.attention(*a, **kw), q, k, v)
     torch.cuda.synchronize()
-    full = shape in harness.FULL_FLASH_GRAD_SHAPES or shape in harness.MOE_FLASH_GRAD_SHAPES
+    full = shape in (harness.FULL_FLASH_GRAD_SHAPES + harness.MOE_FLASH_GRAD_SHAPES
+                     + harness.NEW_FAMILY_FLASH_GRAD_SHAPES)
     tol = harness.FULL_FLASH_GRAD_TOLERANCES if full else harness.FLASH_GRAD_TOLERANCES
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         harness.check_close(g, w, dtype, f"flash grad {name} {label}", tol)

@@ -74,7 +74,8 @@ def _batch(cfg, seed=0, seq=8):
 
 @pytest.mark.parametrize("arch", [ARCH, "mamba2-130m", "minigpt4-7b", "h2o-danube-1.8b", "glm4-9b",
                                   "qwen1.5-4b", "internlm2-20b", "qwen2-vl-72b",
-                                  "llama4-scout-17b-a16e", "grok-1-314b"])
+                                  "llama4-scout-17b-a16e", "grok-1-314b", "recurrentgemma-9b",
+                                  "whisper-base"])
 @pytest.mark.parametrize("getter", ["full", "smoke"])
 def test_configs_match_reference(getter, arch):
     mine = (get_config if getter == "full" else get_smoke_config)(arch)
@@ -82,12 +83,51 @@ def test_configs_match_reference(getter, arch):
     for f in dataclasses.fields(mine):
         want = getattr(ref, f.name)
         got = getattr(mine, f.name)
-        if f.name in ("adapter", "ssm", "moe") and got is not None:  # the port's own dataclasses
+        if f.name in ("adapter", "ssm", "moe", "rglru") and got is not None:  # the port's own
             assert want is not None, f.name
             for a in dataclasses.fields(got):
                 assert getattr(got, a.name) == getattr(want, a.name), f"{f.name}.{a.name}"
         else:
             assert got == want, f.name
+
+
+def test_every_reference_config_is_in_the_port():
+    from repro.configs import list_archs as jax_list_archs
+    from repro_torch.configs import list_archs
+
+    assert sorted(list_archs()) == sorted(jax_list_archs())
+
+
+# the stacked layouts: the hybrid family's triples with and without extras,
+# and the encoder-decoder's two stacks
+LAYOUTS = [("recurrentgemma-9b", {}, {"triples": 1, "extras": None}),
+           ("recurrentgemma-9b", {"n_layers": 5}, {"triples": 1, "extras": 2}),
+           ("whisper-base", {}, {"enc_layers": 2, "dec_layers": 2})]
+
+
+@pytest.mark.parametrize("arch,kw,stacks", LAYOUTS, ids=["hybrid-3", "hybrid-5", "encdec"])
+def test_interop_round_trips_the_stacked_layout(arch, kw, stacks):
+    """Every leaf out and back bit for bit, each stack a list of its depth
+    (None for a hybrid stack without extras), and a stack whose leading axis
+    disagrees with the config refused in both directions."""
+    jcfg = jax_smoke_config(arch, **kw)
+    tree = jax.tree.map(np.asarray, jmodel.init_backbone(jax.random.PRNGKey(2), jcfg))
+    cfg = get_smoke_config(arch, **kw)
+    params = interop.backbone_from_numpy(cfg, tree, "cpu")
+    for name, n in stacks.items():
+        assert (params[name] if n is None else len(params[name])) == n, name
+    back = interop.backbone_to_numpy(params, cfg)
+    flat_a = jax.tree_util.tree_flatten_with_path(tree)[0]
+    flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(flat_b[path], leaf)
+    wrong = cfg.with_(n_layers=cfg.n_layers + 3)
+    moved = "dec_layers" if "dec_layers" in stacks else "triples"
+    with pytest.raises(ValueError, match=f"stacked {moved} axis"):
+        interop.backbone_from_numpy(wrong, tree, "cpu")
+    with pytest.raises(ValueError, match=f"stacked {moved} axis"):
+        interop.backbone_to_numpy(params, wrong)
 
 
 def test_rmsnorm():

@@ -188,6 +188,41 @@ def test_decode_routes_each_row_alone():
     assert float((together - rows).abs().max()) > 1e-3  # the batch's capacity dropped some
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_batched_decode_step_matches_reference_decode_step(arch, monkeypatch):
+    """``model.decode_step`` on 16 rows routes them as one group of 16, as
+    JAX's ``model.decode_step`` does, and the group's capacity drops choices
+    (asserted); with ``moe_group=1`` each row routes alone, drops none, and
+    equals JAX's decode of that row alone (the JAX engine's vmap)."""
+    jcfg, tree, cfg, params = _backbone(arch)
+    B, P = 16, 4
+    jparams, jemb, emb = _embeds(jcfg, tree, cfg, params, B, P, seed=1)
+    pos = np.tile(np.arange(P), (B, 1))
+    x = _tokens(cfg.d_model, B, 1, seed=1)
+    jstate, _ = jmodel.prefill(jcfg, jparams, jemb, jnp.asarray(pos), capacity=8)
+    want, _ = jmodel.decode_step(jcfg, jparams, jnp.asarray(x), jstate, jnp.int32(P))
+
+    def decode(moe_group):
+        state, _ = model_lib.prefill(cfg, params, emb, torch.from_numpy(pos), capacity=8)
+        routes = _recorded_routes(monkeypatch)
+        lg, _ = model_lib.decode_step(cfg, params, torch.from_numpy(x), state, P,
+                                      moe_group=moe_group)
+        monkeypatch.undo()
+        return lg, routes
+
+    got, routes = decode(None)
+    assert [r.idx.shape[:2] for r in routes] == [(1, B)] * cfg.n_layers
+    assert sum(int((~r.keep).sum()) for r in routes) > 0  # the batch's capacity dropped some
+    assert rel_err(got, want) <= TOL
+    alone, routes = decode(1)
+    assert all(r.idx.shape[:2] == (B, 1) and bool(r.keep.all()) for r in routes)
+    for b in (0, 7, 15):
+        jst = jax.tree.map(lambda a: a[:, b:b + 1], jstate)
+        row, _ = jmodel.decode_step(jcfg, jparams, jnp.asarray(x[b:b + 1]), jst, jnp.int32(P))
+        assert rel_err(alone[b:b + 1], row) <= TOL, b
+    assert rel_err(alone, got) > 1e-3
+
+
 def _chip_smoke():
     root = Path(__file__).resolve().parents[1]
     spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
@@ -260,7 +295,7 @@ def test_interop_carries_the_moe_tree():
     np.testing.assert_array_equal(lp["w_gate"].numpy(), tree["layers"]["moe"]["w_gate"][1])
     np.testing.assert_array_equal(lp["shared"]["w_down"].numpy(),
                                   tree["layers"]["moe"]["shared"]["w_down"][1])
-    back = interop.backbone_to_numpy(params)
+    back = interop.backbone_to_numpy(params, cfg)
     jax.tree.map(np.testing.assert_array_equal, back["layers"]["moe"], tree["layers"]["moe"])
 
 
@@ -527,11 +562,19 @@ def test_moe_configs_are_supported(arch):
 
 
 def test_unported_families_name_their_queue():
+    """Every family of the JAX package runs in the port: the hybrid and audio
+    families, ROADMAP queues 3f and 3g, through their configs. A family, or
+    a family's layer combination, that no JAX config has is refused with
+    what the port runs."""
     from repro_torch.configs.base import ModelConfig
 
-    with pytest.raises(NotImplementedError, match="3f"):
+    for arch in ("recurrentgemma-9b", "whisper-base"):
+        model_lib.check_supported(get_smoke_config(arch))
+    with pytest.raises(NotImplementedError, match="geglu"):
         model_lib.check_supported(ModelConfig(family="hybrid"))
-    with pytest.raises(NotImplementedError, match="3g"):
+    with pytest.raises(NotImplementedError, match="layernorm"):
         model_lib.check_supported(ModelConfig(family="audio"))
-    with pytest.raises(NotImplementedError, match="3f"):
+    with pytest.raises(NotImplementedError, match="'swiglu', 'gelu'"):
         model_lib.check_supported(ModelConfig(family="moe", act="geglu"))
+    with pytest.raises(NotImplementedError, match="family"):
+        model_lib.check_supported(ModelConfig(family="retnet"))

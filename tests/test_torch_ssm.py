@@ -68,7 +68,7 @@ def test_backbone_is_tied_and_round_trips():
     _, jparams, cfg, params = _setup()
     assert "unembed" not in params and cfg.tie_embeddings
     assert params["layers"][1]["ssm"]["A_log"].shape == (ssm._dims(cfg)[1],)
-    back = interop.backbone_to_numpy(params)
+    back = interop.backbone_to_numpy(params, cfg)
     flat_a = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, jparams))[0]
     flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
     assert len(flat_a) == len(flat_b)
