@@ -232,6 +232,40 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    phase 6 the gradients at ``NEW_FAMILY_FLASH_GRAD_SHAPES`` and
    ``NEW_FAMILY_LORA_GRAD_SHAPES``.
 
+17. Resume under failures, checkpoint-loaded tenants and the naive loop,
+   run right after phase 11 on phase 8's llava-1.5-7b server:
+   a. smoke llava in f32, FedNano with 3 clients for RESUME_ROUNDS rounds
+      under a FailureModel (dropout 0.3, crash 0.3, the seed of
+      FAILURE_KW), uninterrupted against cut after RESUME_CUT and resumed,
+      on the card (kernels) and on the CPU (plain versions): each device's
+      resumed run equal to its uninterrupted one (RESUME_TOL), card against
+      CPU round losses within 1e-5, participants, drops, crashes and comm
+      totals equal, the global and the clients' adapters each within
+      ROUNDING_MARGIN times their spread on the CPU (the largest gap
+      between the kernels' plain order, the use_pallas=False order and f64);
+   b. the CLIs on the card: ``train --checkpoint-every 1 --crash-prob 0.3``,
+      ``train --resume``, ``serve --ckpt-root`` over the written server
+      checkpoint and ``serve --naive``, each exiting 0 with token parity;
+   c. full width, bf16, kernels on: the same runs at llava's training shape
+      (3 clients, batch 4 x (64 patches + 32 tokens), 2 steps, 2 Fisher
+      batches), counters reset just before and read just after them
+      (``resume_llava``): round losses, counts, comm and every adapter of
+      the resumed run within RESUME_TOL of the uninterrupted one; the
+      snapshots' size and save and load seconds;
+   d. the resumed run's global and client adapters written as bare ``.npz``
+      tenants and served, 16 requests with base traffic (``SERVE_KW``),
+      through ``ServingEngine`` with ``checkpoint_adapter_loader``
+      (``ckpt_serve_llava``) and through ``generate_naive``
+      (``naive_llava``), each with its counters reset around it: tokens/s of
+      both, the speedup, the share of equal tokens in bf16;
+   e. the weights upcast to f32 in place: the engine against the naive loop,
+      every token equal or each first difference a near tie of the
+      reference (top-2 logits within NEAR_TIE of ‖logits‖∞), and step c
+      again at RESUME_TOL;
+   f. the LoRA kernel timed at one row (1, 4096) and flash at the unpadded
+      prefill (1, 67, 32, 128). Phase 3 holds both shapes
+      (``harness.FULL_LORA_SHAPES``, ``FULL_FLASH_SHAPES``).
+
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
 """
@@ -1006,15 +1040,7 @@ def training_smoke(torch, tr, arch="llava-1.5-7b", strategy="fednano", adapter_t
     adp_err, own_err = eval_params_err(strat, gpu, cpu)
     witness = ""
     if f64_witness:
-        cfg64 = cfg.with_(dtype="float64",
-                          adapter=dataclasses.replace(cfg.adapter, dtype="float64"))
-        up = lambda tree: tree_map(lambda t: t.double() if t.is_floating_point() else t, tree)
-        server64 = dataclasses.replace(server_cpu, cfg=cfg64, backbone=up(server_cpu.backbone),
-                                       global_adapters=up(server_cpu.global_adapters))
-        train, evald, _ = tr["make_federated_data"](cfg64, device="cpu", **data_kw)
-        f64 = tr["run_federated"](0, cfg64, train, evald, strategy=upcast_clients(tr, strategy, cfg),
-                                  rounds=2, hp=hp, use_pallas=True,
-                                  server=fresh_server(server64))
+        f64 = f64_run(tr, cfg, server_cpu, data_kw, strategy, hp, rounds=2)
         w_glob, w_own = eval_params_err(strat, cpu, f64)
         witness = (f"; CPU f32 vs CPU f64 (plain, the same weights and clients): global "
                    f"{w_glob:.3e}, the clients' own {w_own:.3e}")
@@ -1036,6 +1062,20 @@ def training_smoke(torch, tr, arch="llava-1.5-7b", strategy="fednano", adapter_t
         f"losses {gl} vs {cl}, max rel err {loss_err:.3e}; first step loss {step_loss:.3e}, "
         f"grads {step_grad:.3e} (bound 1e-5); after 2 rounds global adapters {adp_err:.3e}, "
         f"the clients' own {own_err:.3e} (bound {adapter_tol:.3e}{witness}); comm totals equal")
+
+
+def f64_run(tr, cfg, server_cpu, data_kw, strategy, hp, **kw):
+    """``strategy`` on the CPU in f64 from ``server_cpu``'s weights and the
+    f32 clients upcast: the witness of f32's own rounding."""
+    from repro_torch.utils import tree_map
+
+    cfg64 = cfg.with_(dtype="float64", adapter=dataclasses.replace(cfg.adapter, dtype="float64"))
+    up = lambda tree: tree_map(lambda t: t.double() if t.is_floating_point() else t, tree)
+    server64 = dataclasses.replace(server_cpu, cfg=cfg64, backbone=up(server_cpu.backbone),
+                                   global_adapters=up(server_cpu.global_adapters))
+    train, evald, _ = tr["make_federated_data"](cfg64, device="cpu", **data_kw)
+    return tr["run_federated"](0, cfg64, train, evald, strategy=upcast_clients(tr, strategy, cfg),
+                               hp=hp, use_pallas=True, server=fresh_server(server64), **kw)
 
 
 def training_full(torch, tr, counters, arch="llava-1.5-7b", server=None):
@@ -2870,6 +2910,433 @@ def new_family_timings(torch, F, fa_ops, fa_ref, lora_ops, lora_ref, harness):
     return flash, lora, grouped
 
 
+# ---------------------------------------------------------------------------
+# phase 17: resume under failures, checkpoint-loaded tenants, the naive loop
+# ---------------------------------------------------------------------------
+
+# FedNano with 3 clients at llava's training shape for RESUME_ROUNDS rounds,
+# cut after RESUME_CUT and resumed. The failure seed was picked on the CPU
+# (the schedule is the same on every device) so that round 0 holds a drop and
+# a crash, rounds 1-2 another of each, and every round a survivor:
+# [[drop, run, crash], [run, drop, run], [run, crash, drop]] over cids 0-2.
+RESUME_ROUNDS, RESUME_CUT = 3, 1
+RESUME_DATA = dict(TRAIN_DATA, n_clients=3)
+FAILURE_KW = dict(dropout_prob=0.3, crash_prob=0.3, seed=2)
+# resumed against uninterrupted, relative (JAX tests/test_resume.py)
+RESUME_TOL = 1e-6
+# a token the engine and the naive loop choose apart in f32 passes only where
+# the reference's top-2 logits are closer than this share of ‖logits‖∞
+NEAR_TIE = 1e-4
+
+
+def failure_schedule(fm, n_clients, rounds):
+    """[[drop | crash | run per cid] per round] of a FailureModel."""
+    return [["drop" if fm.drops(c, r) else "crash" if fm.crashes(c, r) else "run"
+             for c in range(n_clients)] for r in range(rounds)]
+
+
+def tree_gap(got, want) -> float:
+    """max |got - want| / ‖want‖∞ over two trees' leaves, paired by path."""
+    from repro_torch.utils import tree_flatten_with_path
+
+    g, w = dict(tree_flatten_with_path(got)), dict(tree_flatten_with_path(want))
+    if sorted(g) != sorted(w):
+        raise AssertionError(f"trees differ in their leaves: {sorted(g)} vs {sorted(w)}")
+    return max(float((g[k].float().cpu() - w[k].float().cpu()).abs().max())
+               / max(float(w[k].float().abs().max()), 1e-30) for k in w)
+
+
+@contextlib.contextmanager
+def timed_snapshots():
+    """Time every RunState save and load of the round engine: -> {"save": [s],
+    "load": [s]}."""
+    from repro_torch.core import federated
+
+    spent = {"save": [], "load": []}
+    real = {"save": federated.save_run_state, "load": federated.load_run_state}
+
+    def timed(kind):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real[kind](*a, **kw)
+            spent[kind].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    federated.save_run_state, federated.load_run_state = timed("save"), timed("load")
+    try:
+        yield spent
+    finally:
+        federated.save_run_state, federated.load_run_state = real["save"], real["load"]
+
+
+def resume_runs(tr, cfg, server, train, evald, hp, failures, root):
+    """RESUME_ROUNDS rounds uninterrupted, RESUME_CUT rounds into ``root``/cut,
+    then a resume from there to RESUME_ROUNDS; every run snapshots each round.
+    -> (uninterrupted, resumed)."""
+    def run(**kw):
+        return tr["run_federated"](0, cfg, train, evald, strategy="fednano", hp=hp,
+                                   use_pallas=True, failures=failures, checkpoint_every=1,
+                                   server=fresh_server(server), final_eval=False, **kw)
+
+    full = run(rounds=RESUME_ROUNDS, checkpoint_dir=str(Path(root) / "full"))
+    run(rounds=RESUME_CUT, checkpoint_dir=str(Path(root) / "cut"))
+    resumed = run(rounds=RESUME_ROUNDS, checkpoint_dir=str(Path(root) / "cut"),
+                  resume=str(Path(root) / "cut"))
+    return full, resumed
+
+
+def hold_resume(full, resumed, what, tol=RESUME_TOL):
+    """Raise unless the resumed run equals the uninterrupted one: round
+    losses within ``tol`` relative, participants, drops, crashes and comm
+    totals equal, global and client adapters within ``tol`` of ‖ref‖∞.
+    -> the largest gap."""
+    fl = [m["mean_loss"] for m in full.round_metrics]
+    rl = [m["mean_loss"] for m in resumed.round_metrics]
+    counts = lambda res: [(m["participants"], m["dropped"], m["crashed"])
+                          for m in res.round_metrics]
+    gaps = [abs(a - b) / abs(a) for a, b in zip(fl, rl) if a is not None]
+    gaps.append(tree_gap(resumed.server.global_adapters, full.server.global_adapters))
+    gaps += [tree_gap(r.adapters, f.adapters) for f, r in zip(full.clients, resumed.clients)]
+    if (len(fl) != len(rl) or [a is None for a in fl] != [b is None for b in rl]
+            or counts(full) != counts(resumed) or full.comm_totals != resumed.comm_totals
+            or max(gaps) > tol or not all(math.isfinite(x) for x in fl if x is not None)):
+        raise AssertionError(f"{what}: resumed run differs from the uninterrupted one: losses "
+                             f"{rl} vs {fl}, counts {counts(resumed)} vs {counts(full)}, comm "
+                             f"{resumed.comm_totals} vs {full.comm_totals}, largest gap "
+                             f"{max(gaps):.3e} (bound {tol})")
+    return max(gaps)
+
+
+def resume_smoke(torch, tr):
+    """Smoke llava, 3 clients under the failure schedule, f32: resumed against
+    uninterrupted on the card and on the CPU, then card against CPU (losses
+    1e-5, counts and comm equal, the global and the clients' adapters each at
+    ROUNDING_MARGIN times their spread over two CPU f32 orders and f64)."""
+    import tempfile
+
+    from repro_torch.core import FailureModel
+    from repro_torch.utils import tree_map
+
+    cfg = tr["get_smoke_config"]("llava-1.5-7b").with_(use_pallas=True)
+    hp = tr["HyperParams"](**TRAIN_HP)
+    data_kw = dict(n_clients=3, examples_per_client=16, batch_size=4, seq_len=16, seed=0)
+    fm = FailureModel(**FAILURE_KW)
+    server_cpu = tr["init_server"](cfg, seed=3, device="cpu")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            server = server_cpu if dev == "cpu" else dataclasses.replace(
+                server_cpu, backbone=tree_map(lambda t: t.to(dev), server_cpu.backbone),
+                global_adapters=tree_map(lambda t: t.to(dev), server_cpu.global_adapters))
+            train, evald, _ = tr["make_federated_data"](cfg, device=dev, **data_kw)
+            runs[dev] = resume_runs(tr, cfg, server, train, evald, hp, fm, f"{tmp}/{dev}")
+            hold_resume(*runs[dev], f"smoke llava {dev}")
+    (_, gpu), (_, cpu) = runs["cuda"], runs["cpu"]
+    gl = [m["mean_loss"] for m in gpu.round_metrics]
+    cl = [m["mean_loss"] for m in cpu.round_metrics]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl) if b is not None)
+    counts = [[(m["participants"], m["dropped"], m["crashed"]) for m in r.round_metrics]
+              for r in (gpu, cpu)]
+    f64 = f64_run(tr, cfg, server_cpu, data_kw, "fednano", hp, rounds=RESUME_ROUNDS,
+                  failures=fm, final_eval=False)
+    cfg_p = cfg.with_(use_pallas=False)
+    train, evald, _ = tr["make_federated_data"](cfg_p, device="cpu", **data_kw)
+    other = tr["run_federated"](0, cfg_p, train, evald, strategy="fednano", hp=hp,
+                                rounds=RESUME_ROUNDS, use_pallas=False, failures=fm,
+                                server=fresh_server(server_cpu), final_eval=False)
+
+    def adapter_gaps(got, want):
+        return (tree_gap(got.server.global_adapters, want.server.global_adapters),
+                max(tree_gap(g.adapters, w.adapters) for g, w in zip(got.clients, want.clients)))
+
+    # Each tree is held at ROUNDING_MARGIN times its spread on the CPU: the
+    # largest gap between two of the kernels' plain order, the model's
+    # use_pallas=False order (both f32) and f64. AdamW's ill-conditioned
+    # steps part the two f32 orders by 3.8e-4 on a client's adapters, more
+    # than SMOKE_ADAPTER_TOL, so that bound is not applied here.
+    pairs = {"plain vs f64": adapter_gaps(cpu, f64), "use_pallas=False vs f64":
+             adapter_gaps(other, f64), "plain vs use_pallas=False": adapter_gaps(cpu, other)}
+    spread = [max(g[t] for g in pairs.values()) for t in (0, 1)]
+    bound = [max(1e-5, ROUNDING_MARGIN * w) for w in spread]
+    e_glob, e_own = adapter_gaps(gpu, cpu)
+    held = (f"global adapters {e_glob:.3e} (bound {bound[0]:.3e}), the clients' {e_own:.3e} "
+            f"(bound {bound[1]:.3e}); CPU spread (global, clients): "
+            + ", ".join(f"{k} ({g[0]:.3e}, {g[1]:.3e})" for k, g in pairs.items()))
+    if (loss_err > 1e-5 or counts[0] != counts[1] or gpu.comm_totals != cpu.comm_totals
+            or e_glob > bound[0] or e_own > bound[1]):
+        raise AssertionError(f"smoke resume, card vs CPU: losses {gl} vs {cl} ({loss_err:.3e}), "
+                             f"counts {counts}, comm {gpu.comm_totals} vs {cpu.comm_totals}, "
+                             f"{held}")
+    log(f"[resume-smoke] smoke llava fednano f32, 3 clients x {RESUME_ROUNDS} rounds, cut at "
+        f"{RESUME_CUT} and resumed, schedule {failure_schedule(fm, 3, RESUME_ROUNDS)}: card vs "
+        f"CPU round losses {gl} vs {cl} (max rel {loss_err:.3e}, bound 1e-5); (participants, "
+        f"dropped, crashed) {counts[0]} on both; comm totals equal; {held}")
+
+
+def cli_smoke():
+    """The CLIs on the card at smoke size: train under crashes with a snapshot
+    a round, resume it, serve its server checkpoint, then the naive check."""
+    import io
+    import tempfile
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, root = Path(tmp) / "run", Path(tmp) / "tenants"
+        common = ["--device", "cuda", "--use-pallas", "--clients", "3", "--local-steps", "1",
+                  "--examples-per-client", "8", "--batch-size", "4", "--seq-len", "16",
+                  "--checkpoint-every", "1", "--crash-prob", "0.3", "--failure-seed", "2",
+                  "--out", str(out)]
+        serve_args = ["--device", "cuda", "--pallas-grouped", "--naive", "--requests", "8",
+                      "--gen-tokens", "6"]
+        steps = (("train --rounds 2", train_cli.main, common + ["--rounds", "2"]),
+                 ("train --resume", train_cli.main,
+                  common + ["--rounds", "3", "--resume", str(out / "state")]),
+                 ("serve --ckpt-root --naive", serve_cli.main,
+                  serve_args + ["--ckpt-root", str(root)]),
+                 ("serve --naive", serve_cli.main, serve_args))
+        for label, main_fn, args in steps:
+            if label.startswith("serve --ckpt-root"):
+                root.mkdir()
+                (out / "ckpt").rename(root / "fednano")
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = main_fn(args)
+            lines = text.getvalue().splitlines()
+            if rc != 0 or (label.startswith("serve")
+                           and not any("token parity OK" in ln for ln in lines)):
+                raise AssertionError(f"{label}: exit {rc}, output {lines}")
+            if label == "train --resume" and not any("resumed at round 2" in ln for ln in lines):
+                raise AssertionError(f"{label} did not resume: {lines}")
+            shown = [ln.strip() for ln in lines if "round" in ln or "parity" in ln
+                     or "serving" in ln]
+            log(f"[resume-cli] {label}: exit 0; {' | '.join(shown)}")
+
+
+def resume_llava(torch, tr, counters, st, root):
+    """Full-width llava FedNano with 3 clients under the failure schedule,
+    uninterrupted against cut and resumed, kernels on, counters reset just
+    before the three runs and read just after. -> (launches, the resumed
+    run, the bf16 gap)."""
+    from repro_torch.core import FailureModel
+
+    cfg, server, hp = st["cfg"], st["server"], st["hp"]
+    fm = FailureModel(**FAILURE_KW)
+    schedule = failure_schedule(fm, RESUME_DATA["n_clients"], RESUME_ROUNDS)
+    cut, rest = sum(schedule[:RESUME_CUT], []), sum(schedule[RESUME_CUT:], [])
+    if not all(k in part for part in (cut, rest) for k in ("drop", "crash")):
+        raise AssertionError(f"failure schedule {schedule} lacks a drop or a crash on a side "
+                             f"of the cut at {RESUME_CUT}")
+    train, evald, _ = tr["make_federated_data"](cfg, device="cuda", **RESUME_DATA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with timed_snapshots() as spent:
+        full, resumed = resume_runs(tr, cfg, server, train, evald, hp, fm, f"{root}/bf16")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    gap = hold_resume(full, resumed, f"{cfg.name} bf16")
+    for name in TRAINING_KERNELS_BY_ARCH[cfg.name]:
+        if not launches[name]:
+            raise AssertionError(f"the {name} kernel never launched on the resume path: "
+                                 f"{launches}")
+    snap = Path(root) / "bf16" / "cut" / f"round_{RESUME_CUT:06d}"
+    snap_bytes = sum(f.stat().st_size for f in snap.iterdir())
+    log(f"[resume] {cfg.name} bf16 fednano, 3 clients x {RESUME_ROUNDS} rounds x "
+        f"({hp.local_steps} steps + {hp.fisher_batches} Fisher batches), batch 4 x (64 patches "
+        f"+ 32 tokens), failure schedule {schedule} (FailureModel {fm.to_dict()}): "
+        f"uninterrupted vs cut at {RESUME_CUT} + resume: round losses "
+        f"{[m['mean_loss'] for m in full.round_metrics]} vs "
+        f"{[m['mean_loss'] for m in resumed.round_metrics]}, (participants, dropped, crashed) "
+        f"{[(m['participants'], m['dropped'], m['crashed']) for m in full.round_metrics]}, comm "
+        f"{full.comm_totals} equal; largest gap {gap:.3e} (bound {RESUME_TOL}; zero: "
+        f"{gap == 0.0})")
+    log(f"[resume] {cfg.name} snapshots: {len(spent['save'])} saves of "
+        f"{snap_bytes / 1e6:.3f} MB each ({len(list(snap.iterdir()))} files), save "
+        f"{1e3 * min(spent['save']):.1f}-{1e3 * max(spent['save']):.1f} ms, load "
+        f"{', '.join(f'{1e3 * x:.1f}' for x in spent['load'])} ms; the three runs {wall:.3f} s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
+        f"{json.dumps(launches)}")
+    return launches, resumed
+
+
+def naive_llava(torch, tr, sv, counters, cfg, backbone, resumed, root):
+    """The resumed run's global and client adapters written as bare
+    ``<tenant>.npz`` files and served, 16 requests of the 4 tenants and base
+    traffic, through ``ServingEngine`` with ``checkpoint_adapter_loader`` and
+    through ``generate_naive`` with the same adapters, each with its counters
+    reset just before and read just after. -> (launches by path, requests,
+    adapters by tenant)."""
+    from repro_torch.checkpoint import save_pytree
+    from repro_torch.serving import checkpoint_adapter_loader, generate_naive
+    from repro_torch.utils import tree_map
+
+    adapters = {"global": resumed.server.global_adapters,
+                **{f"client{c.cid}": c.adapters for c in resumed.clients}}
+    for name, tree in adapters.items():
+        save_pytree(f"{root}/{name}.npz", tree)
+    loader = checkpoint_adapter_loader(cfg, root)
+    tenants = {name: tree_map(lambda t: t.to("cuda"), loader(name)) for name in adapters}
+    gap = max(tree_gap(tenants[n], adapters[n]) for n in adapters)
+    if gap != 0.0:
+        raise AssertionError(f"adapters read back from {root} differ from those written: {gap}")
+    names = sorted(adapters)
+    kw = dict(SERVE_KW[cfg.name], adapter_loader=loader)
+    reqs = sv["make_requests"](cfg, names, 16, kw["prefill_len"], kw["max_new_tokens"], 0)
+    # warm-up of both paths
+    sv["Engine"](cfg, backbone, use_pallas_grouped=True, **kw).run(
+        [dataclasses.replace(r, max_new_tokens=2) for r in reqs[:2]])
+    generate_naive(cfg, backbone, [dataclasses.replace(reqs[0], max_new_tokens=2)], tenants)
+    torch.cuda.synchronize()
+
+    def measured(fn):
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, {n: c.launches for n, c in counters.items()},
+                torch.cuda.max_memory_allocated())
+
+    eng = sv["Engine"](cfg, backbone, use_pallas_grouped=True, **kw)
+    done, wall_e, launches_e, peak_e = measured(lambda: eng.run(reqs))
+    ref, wall_n, launches_n, peak_n = measured(lambda: generate_naive(cfg, backbone, reqs,
+                                                                      tenants))
+    for got in (done, ref):
+        for r in reqs:
+            toks = got[r.rid].tokens
+            if len(toks) != r.max_new_tokens or not all(0 <= t < cfg.vocab_size for t in toks):
+                raise AssertionError(f"request {r.rid}: tokens {toks}")
+    if eng.cache.stats()["misses"] != len(names) or not all(
+            launches_e[n] for n in SERVING_KERNELS_BY_ARCH[cfg.name]):
+        raise AssertionError(f"engine over checkpoint tenants: cache {eng.cache.stats()}, "
+                             f"launches {launches_e}")
+    if not (launches_n["lora_residual"] and launches_n["flash_attention"]) \
+            or launches_n["grouped_lora_residual"]:
+        raise AssertionError(f"the naive loop's kernels: {launches_n}")
+    n_tok = sum(len(c.tokens) for c in done.values())
+    log(f"[naive] {cfg.name} {cfg.dtype}, 16 requests of tenants {names} and base traffic "
+        f"(adapters from {len(names)} .npz files), prefill_len {kw['prefill_len']}, "
+        f"{kw['max_new_tokens']} new tokens, {kw['max_slots']} pages, on {card_line()}: engine "
+        f"{n_tok} tokens in {wall_e:.3f} s ({n_tok / wall_e:.1f} tokens/s, peak "
+        f"{peak_e / 2**30:.2f} GiB) | naive loop {wall_n:.3f} s ({n_tok / wall_n:.1f} tokens/s, "
+        f"peak {peak_n / 2**30:.2f} GiB) | engine speedup {wall_n / wall_e:.2f}x | engine vs "
+        f"naive: {agreement(reqs, done, ref)} | launches engine {json.dumps(launches_e)}, naive "
+        f"{json.dumps(launches_n)}")
+    return {"ckpt_serve_llava": launches_e, "naive_llava": launches_n}, reqs, tenants
+
+
+def teacher_forced_gap(torch, cfg, backbone, req, adapters, tokens, k):
+    """Top-2 gap of the logits that choose token ``k`` of ``req`` given its
+    first ``k`` tokens (one full forward), relative to ‖logits‖∞."""
+    import numpy as np
+
+    from repro_torch.core import adapters as nano
+    from repro_torch.core.types import Batch
+    from repro_torch.models import model as model_lib
+
+    ids = np.concatenate([np.asarray(req.prompt, np.int64), np.asarray(tokens[:k], np.int64)])
+    t = torch.from_numpy(ids[None]).to("cuda")
+    patches = torch.as_tensor(np.asarray(req.patches, np.float32)[None], device="cuda")
+    batch = Batch(tokens=t, labels=torch.zeros_like(t),
+                  mask=torch.zeros(t.shape, dtype=torch.float32, device="cuda"), patches=patches)
+    with torch.no_grad():
+        embeds, positions, _, _, enc = nano.nanoedge_forward(cfg, backbone, adapters, batch)
+        hidden, _ = model_lib.forward(cfg, backbone, embeds, positions, enc)
+        lg = model_lib.logits(cfg, backbone, hidden[:, -1:])[0, 0].float()
+    top2 = torch.topk(lg, 2).values
+    return float(top2[0] - top2[1]) / float(lg.abs().max())
+
+
+def naive_f32(torch, sv, cfg, backbone, reqs, tenants):
+    """On the weights upcast to f32: the engine against ``generate_naive``,
+    every token equal, or each request's first difference a near tie of the
+    reference (top-2 gap under NEAR_TIE of ‖logits‖∞)."""
+    from repro_torch.serving import generate_naive
+
+    kw = dict(SERVE_KW[cfg.name], adapter_loader=tenants.__getitem__)
+    done = sv["Engine"](cfg, backbone, use_pallas_grouped=True, **kw).run(reqs)
+    ref = generate_naive(cfg, backbone, reqs, tenants)
+    identity = {m: {n: torch.zeros_like(t) for n, t in d.items()}
+                for m, d in next(iter(tenants.values())).items()}
+    ties = []
+    for r in reqs:
+        a, b = done[r.rid].tokens, ref[r.rid].tokens
+        if a == b:
+            continue
+        k = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap = teacher_forced_gap(torch, cfg, backbone, r, tenants.get(r.tenant, identity), b, k)
+        if gap >= NEAR_TIE:
+            raise AssertionError(f"f32 request {r.rid}: engine {a} vs naive {b} part at {k}, "
+                                 f"where the top-2 logits are {gap:.3e} of ‖logits‖∞ apart "
+                                 f"(a near tie needs < {NEAR_TIE})")
+        ties.append((r.rid, k, gap))
+    log(f"[naive] {cfg.name} f32 (weights upcast in place), engine vs naive loop: "
+        f"{agreement(reqs, done, ref)}; differing requests (rid, first position, top-2 gap): "
+        f"{ties or 'none'}")
+
+
+def naive_timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
+    """The naive loop's new kernel shapes: LoRA at one row of llava's width
+    (each decoded token's text adapter), flash at an unpadded prefill of 64
+    patches and 3 prompt tokens. -> (LoRA rows, flash rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf16 = torch.bfloat16
+    x = torch.randn((1, 4096), generator=gen, device="cuda").to(bf16)
+    A = torch.randn((4096, 64), generator=gen, device="cuda") * 0.05
+    Bm = torch.randn((64, 4096), generator=gen, device="cuda") * 0.05
+    lora = {"naive x (1, 4096)": lora_timing(torch, lora_ops, lora_ref, x, A, Bm,
+                                             " (the naive loop's decode token)")}
+    q, k, v = (torch.randn((1, 67, 32, 128), generator=gen, device="cuda").to(bf16)
+               for _ in range(3))
+    flash = {"naive prefill (1, 67)": flash_timing(torch, F, fa_ops, fa_ref, q, k, v,
+                                                   " (the naive loop's unpadded prefill)")}
+    return lora, flash
+
+
+def resume_naive_phase(torch, tr, sv, counters, st):
+    """Phase 17 on the llava server of phases 8-11: -> launches by path. The
+    backbone is upcast to f32 in place on the way; nothing uses it after."""
+    import tempfile
+
+    from repro_torch.core import FailureModel
+
+    t0 = time.perf_counter()
+    resume_smoke(torch, tr)
+    cli_smoke()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, resumed = resume_llava(torch, tr, counters, st, tmp)
+        launches = {"resume_llava": launches}
+        root = Path(tmp) / "tenants"
+        root.mkdir()
+        cfg, server = st["cfg"], st["server"]
+        more, reqs, tenants = naive_llava(torch, tr, sv, counters, cfg, server.backbone,
+                                                resumed, str(root))
+        launches.update(more)
+        del resumed
+        torch.cuda.empty_cache()
+        upcast_in_place(torch, server.backbone, cfg.n_layers)
+        cfg32 = cfg.with_(dtype="float32")
+        server32 = dataclasses.replace(server, cfg=cfg32)
+        naive_f32(torch, sv, cfg32, server.backbone, reqs, tenants)
+        train, evald, _ = tr["make_federated_data"](cfg32, device="cuda", **RESUME_DATA)
+        full, resumed = resume_runs(tr, cfg32, server32, train, evald, st["hp"],
+                                    FailureModel(**FAILURE_KW), f"{tmp}/f32")
+        gap = hold_resume(full, resumed, f"{cfg.name} f32")
+        log(f"[resume] {cfg.name} f32 (weights upcast in place), the same runs: round losses "
+            f"{[m['mean_loss'] for m in full.round_metrics]}; largest gap {gap:.3e} (bound "
+            f"{RESUME_TOL}; zero: {gap == 0.0})")
+    log(f"[phase17] resume, checkpoint tenants and the naive loop: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 SOURCES = {
     "lora_residual": ("src/repro_torch/csrc/lora.cu", "src/repro/kernels/lora/lora.py:49"),
     "grouped_lora_residual": ("src/repro_torch/csrc/lora.cu",
@@ -2968,6 +3435,13 @@ def main() -> int:
     breakdown(torch, get_config, init_backbone, synth_tenant_adapters, make_requests,
               ServingEngine)
     step_profile(torch, tr, st)
+    # phase 17 on the same llava server: resume under failures, checkpoint
+    # tenants, the naive loop; then the server's weights are f32
+    sv = dict(synth=synth_tenant_adapters, make_requests=make_requests, Engine=ServingEngine)
+    launches.update(resume_naive_phase(torch, tr, sv, counters, st))
+    lora_times, flash_times = naive_timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref)
+    times["lora_residual"]["shapes"].update(lora_times)
+    times["flash_attention"]["shapes"].update(flash_times)
     del st
     torch.cuda.empty_cache()
 
@@ -3004,7 +3478,6 @@ def main() -> int:
               ServingEngine, arch=MAMBA)
 
     # the dense family: h2o-danube-1.8b, glm4-9b, qwen1.5-4b, internlm2-20b
-    sv = dict(synth=synth_tenant_adapters, make_requests=make_requests, Engine=ServingEngine)
     for arch in DENSE_ARCHS:
         launches.update(dense_arch(torch, tr, sv, counters, arch))
     times["flash_attention"]["shapes"].update(dense_timings(torch, F, fa_ops, fa_ref))

@@ -10,8 +10,9 @@ hooks (``wrap_local_loss``, ``wants_fisher``, ``downloads_global``,
 ``local_warmup``). ``local_update`` is the sequential engine's path:
 download the global adapters, train the personal adapter in its warmup
 rounds, run T AdamW steps, then estimate the diagonal FIM (a dedicated pass,
-or the squared gradients of the T steps). The cohort engines
-(``local_update_many``, vmap and sharded) are ROADMAP queue 5.
+or the squared gradients of the T steps). ``client_ref_like`` gives the
+structures a checkpointed client restores into. The cohort engines
+(``local_update_many``, vmap and sharded) are ROADMAP queue 5c.
 """
 from __future__ import annotations
 
@@ -65,6 +66,23 @@ def to_device(state: ClientState, device) -> ClientState:
     return dataclasses.replace(state, adapters=move(state.adapters),
                                local_adapters=move(state.local_adapters),
                                opt_state=move(state.opt_state))
+
+
+def client_ref_like(state: ClientState) -> ClientState:
+    """Reference structures for restoring a checkpointed ``ClientState``
+    (``repro.core.client.client_ref_like``): a fresh client holds ``None``
+    where a checkpointed one may hold tensors, so the Fisher slot gets an f32
+    adapter-shaped template (both FIM estimators accumulate in f32) and,
+    with personal adapters, the personal optimizer a fresh ``adamw_init``.
+    Only structure, shapes, dtypes and devices matter."""
+    fisher = state.fisher
+    if fisher is None:
+        fisher = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device),
+                          state.adapters)
+    local_opt_state = state.local_opt_state
+    if local_opt_state is None and state.local_adapters is not None:
+        local_opt_state = adamw_init(state.local_adapters)
+    return dataclasses.replace(state, fisher=fisher, local_opt_state=local_opt_state)
 
 
 def value_and_grad(loss_fn, adapters, allow_unused: bool = False):

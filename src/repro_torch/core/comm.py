@@ -25,7 +25,17 @@ class RoundTraffic:
     param_up_wire: int = 0   # bytes on the wire after upload transforms
 
     def to_dict(self) -> Dict[str, int]:
+        """JSON-safe form (checkpoints keep the whole per-round log, so a
+        resumed run's totals equal the uninterrupted run's byte for byte)."""
         return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, int]) -> "RoundTraffic":
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"RoundTraffic checkpoint entry carries unknown fields "
+                             f"{sorted(unknown)}; the comm-log format has diverged")
+        return cls(**d)
 
 
 @dataclass
@@ -42,3 +52,10 @@ class CommLog:
             for k in out:
                 out[k] += getattr(r, k)
         return out
+
+    def state_dict(self) -> List[Dict[str, int]]:
+        return [r.to_dict() for r in self.rounds]
+
+    @classmethod
+    def from_state_dict(cls, rounds: List[Dict[str, int]]) -> "CommLog":
+        return cls(rounds=[RoundTraffic.from_dict(d) for d in rounds])

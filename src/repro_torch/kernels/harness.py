@@ -150,7 +150,8 @@ FLASH_GRAD_SHAPES = [FLASH_SHAPES[i] for i in (2, 3, 4, 5, 6, 7)] + [
 
 # Full-width llava-1.5-7b serving (prefill_len 128, 64 image patches, 8 slots,
 # 8 adapter slots, rank 64), and the one head dim the grids above miss.
-FULL_LORA_SHAPES = [(128, 4096, 64, 0), (64, 4096, 64, 0)]      # text, image adapters
+# text, image adapters; one row: the naive loop's per-token text adapter
+FULL_LORA_SHAPES = [(128, 4096, 64, 0), (64, 4096, 64, 0), (1, 4096, 64, 0)]
 FULL_GROUPED_SHAPES = [(8, 4096, 64, 8, 0)]                      # decode step
 # Full-width mamba2-130m (d_model 768): the text adapter at prefill_len 512,
 # the grouped bank at 8 decode slots, training's 4 x 1024 text rows, and the
@@ -197,6 +198,8 @@ FISHER_TREE_EDGES = [(512, (20003,)), (520, (1000, 1001, 1002, 1003)), (2, (33,)
 FULL_FLASH_SHAPES = [
     ("llava-prefill", 1, 192, 192, 32, 32, 128, True, None, 0.0, 0, 0),
     ("hd256-gqa-window", 1, 70, 70, 4, 2, 256, True, 24, 0.0, 0, 0),
+    # the naive loop's unpadded prefill: 64 patches + a 3-token prompt, off the tiles
+    ("llava-naive-prefill", 1, 67, 67, 32, 32, 128, True, None, 0.0, 0, 0),
 ]
 
 

@@ -3,16 +3,19 @@
 The same CLI as ``repro.launch.serve``: one frozen smoke-size backbone
 serves many tenants, each a federated client whose NanoAdapters sit in the
 engine's adapter bank, with continuous batching over a fixed page pool.
-Tenant adapters are synthesized from ``--seed``. ``--device`` (default
-``cuda``) picks the card; on the CPU the kernels' plain versions run.
-
-``--ckpt-root`` (federated checkpoints) and ``--naive`` (the one-request-at-
-a-time baseline) wait for the checkpoint and ``generate_naive`` ports
-(ROADMAP queue 4).
+Adapters come from ``--ckpt-root``, a directory of per-tenant federated
+checkpoints (``<root>/<tenant>`` a ``save_server_checkpoint`` directory or
+a bare ``<tenant>.npz``; the tenants are its entries, sorted, the first
+``--tenants`` of them), or without it are synthesized from ``--seed``.
+``--naive`` also runs the one-request-at-a-time loop (``generate_naive``)
+on the same requests, exits on a token mismatch and prints the engine's
+speedup. ``--device`` (default ``cuda``) picks the card; on the CPU the
+kernels' plain versions run.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -22,7 +25,9 @@ from repro_torch.configs import get_smoke_config, list_archs
 from repro_torch.models import model as backbone_lib
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.vision_stub import num_patches
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.utils import tree_map
+from repro_torch.serving import (Request, ServingEngine, checkpoint_adapter_loader,
+                                 generate_naive)
 
 
 def synth_tenant_adapters(seed: int, cfg, tenants, device):
@@ -71,6 +76,12 @@ def main(argv=None):
                     help="concurrent decode slots (page pool size)")
     ap.add_argument("--adapter-slots", type=int, default=8,
                     help="adapter bank size (LRU over tenants)")
+    ap.add_argument("--ckpt-root", default=None,
+                    help="directory of per-tenant federated checkpoints; tenant names are "
+                         "the entries inside")
+    ap.add_argument("--naive", action="store_true",
+                    help="also run the one-request-at-a-time loop, check token parity, and "
+                         "report the speedup")
     ap.add_argument("--pallas-grouped", action="store_true",
                     help="run the grouped-LoRA kernel in the decode step "
                          "instead of its plain version")
@@ -80,9 +91,19 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch)
     backbone = backbone_lib.init_backbone(cfg, seed=args.seed, device=args.device)
-    tenant_names = [f"tenant{i}" for i in range(args.tenants)]
-    adapters_by_tenant = synth_tenant_adapters(args.seed, cfg, tenant_names, args.device)
-    print(f"serving {len(tenant_names)} synthetic tenants on {args.device}")
+    if args.ckpt_root:
+        tenant_names = sorted(os.path.splitext(e)[0] for e in os.listdir(args.ckpt_root))
+        if not tenant_names:
+            raise SystemExit(f"--ckpt-root {args.ckpt_root!r} is empty")
+        tenant_names = tenant_names[: args.tenants]
+        loader = checkpoint_adapter_loader(cfg, args.ckpt_root)
+        adapters_by_tenant = {t: tree_map(lambda x: x.to(args.device), loader(t))
+                              for t in tenant_names}
+        print(f"serving {len(tenant_names)} tenants from {args.ckpt_root} on {args.device}")
+    else:
+        tenant_names = [f"tenant{i}" for i in range(args.tenants)]
+        adapters_by_tenant = synth_tenant_adapters(args.seed, cfg, tenant_names, args.device)
+        print(f"serving {len(tenant_names)} synthetic tenants on {args.device}")
 
     reqs = make_requests(cfg, tenant_names, args.requests, args.prefill_len,
                          args.gen_tokens, args.seed)
@@ -103,6 +124,16 @@ def main(argv=None):
     for rid in sorted(done)[:4]:
         c = done[rid]
         print(f"  req {rid} [{c.tenant or 'base'}]: {c.tokens}")
+
+    if args.naive:
+        t0 = time.perf_counter()
+        ref = generate_naive(cfg, backbone, reqs, adapters_by_tenant)
+        dt_naive = time.perf_counter() - t0
+        mismatch = [r.rid for r in reqs if done[r.rid].tokens != ref[r.rid].tokens]
+        if mismatch:
+            raise SystemExit(f"TOKEN MISMATCH vs naive loop: rids {mismatch}")
+        print(f"naive loop: {n_tok} tokens in {dt_naive:.2f}s ({n_tok / dt_naive:.1f} tok/s) "
+              f"— token parity OK, engine speedup {dt_naive / dt:.2f}x")
     return 0
 
 

@@ -8,9 +8,15 @@ versions run). ``--server-opt`` applies a FedOpt step to the merged result,
 ``--client-frac`` samples that fraction of the clients each round.
 ``--use-pallas`` routes the adapters and attention (``cfg.use_pallas``) and
 the server's Fisher merge (``use_pallas``) through the hand-written kernels,
-as the JAX CLI sets both. Writes the same JSON summary under ``--out``.
-Checkpoint saving, the other engines and failure injection wait for
-ROADMAP queue 5.
+as the JAX CLI sets both. ``--dropout-prob``/``--crash-prob`` (with
+``--failure-seed``) inject seeded client churn. The run snapshots its whole
+round state under ``<out>/state`` every ``--checkpoint-every`` rounds and
+at the end; ``--resume DIR`` continues from a snapshot (run with the same
+flags). Writes the same JSON summary under ``--out`` and the final server
+checkpoint under ``<out>/ckpt``, which ``launch.serve --ckpt-root`` serves.
+``--engine``, ``--buffer-size`` and ``--straggler-prob`` (read only by the
+buffered engine), ``--devices`` and ``--no-overlap`` wait for ROADMAP
+queues 5c and 6.
 """
 from __future__ import annotations
 
@@ -20,8 +26,9 @@ import json
 import os
 import time
 
+from repro_torch.checkpoint import save_server_checkpoint
 from repro_torch.configs import get_smoke_config, list_archs
-from repro_torch.core import HyperParams, run_centralized, run_federated
+from repro_torch.core import FailureModel, HyperParams, run_centralized, run_federated
 from repro_torch.data import make_federated_data
 from repro_torch.strategies import FedAdamOpt, FedAvgMOpt, UniformSampler, available_strategies
 
@@ -52,6 +59,19 @@ def main(argv=None):
     ap.add_argument("--use-pallas", action="store_true",
                     help="run the adapters, attention and merge on the hand-written kernels")
     ap.add_argument("--out", default="runs/train")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="snapshot the full round state every N rounds under <out>/state "
+                         "(0 = only the final snapshot)")
+    ap.add_argument("--resume", default=None, metavar="DIR",
+                    help="resume from a RunState snapshot directory (the snapshot or its "
+                         "parent; LATEST is followed), with the original run's flags")
+    ap.add_argument("--dropout-prob", type=float, default=0.0,
+                    help="per-round probability a sampled client never starts")
+    ap.add_argument("--crash-prob", type=float, default=0.0,
+                    help="per-round probability a client dies mid-update (download "
+                         "charged, progress lost)")
+    ap.add_argument("--failure-seed", type=int, default=0,
+                    help="seed of the failure schedule (independent of --seed)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -81,10 +101,17 @@ def main(argv=None):
             server_opt = cls(lr=args.server_lr) if args.server_lr is not None else cls()
         sampler = (UniformSampler(frac=args.client_frac, seed=args.seed)
                    if args.client_frac < 1.0 else None)
+        failures = None
+        if args.dropout_prob or args.crash_prob:
+            failures = FailureModel(dropout_prob=args.dropout_prob, crash_prob=args.crash_prob,
+                                    seed=args.failure_seed)
         res = run_federated(args.seed, cfg, train, evald, strategy=args.strategy,
                             rounds=args.rounds, hp=hp, verbose=True,
                             use_pallas=args.use_pallas, server_opt=server_opt,
-                            sampler=sampler, agg_chunk=args.agg_chunk, device=args.device)
+                            sampler=sampler, agg_chunk=args.agg_chunk, failures=failures,
+                            checkpoint_dir=os.path.join(args.out, "state"),
+                            checkpoint_every=args.checkpoint_every, resume=args.resume,
+                            device=args.device)
     dt = time.time() - t0
 
     os.makedirs(args.out, exist_ok=True)
@@ -99,6 +126,10 @@ def main(argv=None):
     }
     with open(os.path.join(args.out, f"{args.arch}_{args.strategy}.json"), "w") as f:
         json.dump(summary, f, indent=1)
+    if res.server is not None:
+        save_server_checkpoint(os.path.join(args.out, "ckpt"), res.server,
+                               round_idx=args.rounds, server_opt_state=res.server_opt_state,
+                               seed=args.seed)
     print(f"== done in {dt:.1f}s: avg client accuracy {res.avg_accuracy:.4f}")
     print(f"   per-client: { {k: round(v, 4) for k, v in res.client_accuracy.items()} }")
     if res.comm_totals:

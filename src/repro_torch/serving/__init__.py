@@ -3,10 +3,12 @@ from repro_torch.serving.adapter_bank import (
     AdapterBank,
     AdapterCache,
     AdapterCacheMiss,
+    checkpoint_adapter_loader,
     grouped_adapter_apply,
 )
-from repro_torch.serving.engine import Completion, Request, ServingEngine
+from repro_torch.serving.engine import Completion, Request, ServingEngine, generate_naive
 from repro_torch.serving.kv_cache import KVSlotManager
 
 __all__ = ["AdapterBank", "AdapterCache", "AdapterCacheMiss", "Completion",
-           "KVSlotManager", "Request", "ServingEngine", "grouped_adapter_apply"]
+           "KVSlotManager", "Request", "ServingEngine", "checkpoint_adapter_loader",
+           "generate_naive", "grouped_adapter_apply"]

@@ -7,8 +7,8 @@ indexes per row. Tenants map to bank slots through an LRU
 :class:`AdapterCache`; a swap overwrites the evicted slot in place. Slot
 index -1 is the implicit identity adapter (no tenant).
 
-``checkpoint_adapter_loader`` arrives with the checkpoint port
-(ROADMAP queue 4); a loader is any callable ``tenant -> adapter dict``.
+A loader is any callable ``tenant -> adapter dict``;
+``checkpoint_adapter_loader`` reads a directory of federated checkpoints.
 """
 from __future__ import annotations
 
@@ -105,6 +105,13 @@ class AdapterCache:
     def __contains__(self, tenant: Optional[str]) -> bool:
         return tenant in self._lru
 
+    def put(self, tenant: str, adapters: Dict) -> int:
+        """Install a tenant's adapters directly (no loader round trip); a
+        resident tenant keeps its slot, overwritten."""
+        slot = self._slot_for(tenant)
+        self.bank.set_slot(slot, adapters)
+        return slot
+
     def acquire(self, tenant: Optional[str]) -> int:
         """Pin ``tenant`` into the bank; returns its slot (-1 = identity)."""
         if tenant is None:
@@ -132,7 +139,10 @@ class AdapterCache:
             self._pins[tenant] = n - 1
 
     def _slot_for(self, tenant: str) -> int:
-        """Slot for a tenant not in the bank, evicting the LRU unpinned one if needed."""
+        """Slot for a (new or resident) tenant, evicting the LRU unpinned one if needed."""
+        if tenant in self._lru:
+            self._lru.move_to_end(tenant)
+            return self._lru[tenant]
         if self._free:
             slot = self._free.pop(0)
         else:
@@ -149,3 +159,25 @@ class AdapterCache:
     def stats(self) -> Dict[str, int]:
         return {"hits": self.hits, "misses": self.misses,
                 "evictions": self.evictions, "resident": len(self._lru)}
+
+
+def checkpoint_adapter_loader(cfg, root: str) -> Callable[[str], Dict]:
+    """Tenant loader over a directory of federated checkpoints: ``root/<tenant>``
+    is a ``save_server_checkpoint`` directory (its ``global_adapters.npz``)
+    or a bare ``<tenant>.npz`` written by ``save_pytree``; either restores
+    strictly against ``init_nanoedge``'s structure for ``cfg`` (on the CPU;
+    the bank copies it to its device)."""
+    import os
+
+    from repro_torch.checkpoint import load_adapters
+    from repro_torch.core import adapters as nano
+
+    reference = nano.init_nanoedge(torch.Generator().manual_seed(0), cfg)
+
+    def load(tenant: str) -> Dict:
+        path = os.path.join(root, tenant)
+        if not os.path.exists(path) and os.path.exists(path + ".npz"):
+            path = path + ".npz"
+        return load_adapters(path, reference)
+
+    return load

@@ -26,8 +26,8 @@ JAX engine, and a decode step routes each page alone (``moe_group=1``), as
 the JAX engine's ``vmap`` over pages does (``engine.py:175-187``): a page's
 tokens never depend on the other pages.
 
-``generate_naive`` (the one-request-at-a-time baseline) waits for a later
-slice (ROADMAP queue 4).
+``generate_naive`` is the one-request-at-a-time baseline the engine must
+match token for token.
 """
 from __future__ import annotations
 
@@ -239,3 +239,63 @@ class ServingEngine:
     def mean_occupancy(self) -> float:
         s = self.stats
         return s["occupancy_sum"] / max(1, s["decode_steps"])
+
+
+# ---------------------------------------------------------------------------
+# the one-request-at-a-time loop: the pre-engine serving path, the baseline
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def generate_naive(cfg, backbone, requests: List[Request],
+                   adapters_by_tenant: Optional[Dict[str, Dict]] = None, *,
+                   stop_token: Optional[int] = None) -> Dict[int, Completion]:
+    """Serve requests one at a time, one adapter set resident at a time
+    (``repro.serving.engine.generate_naive``): unpadded prompts, a cache of
+    ``capacity = L + max_new_tokens + 1``, prefill, then one row's
+    ``decode_step`` per token with the text adapter applied to each new
+    token's embedding in host Python between steps. Tenant ``None`` (or one
+    without adapters) takes the identity set, zeros. It runs every family
+    the engine runs: the audio family's frames go to ``enc_embeds``, and an
+    MoE layer routes the one row as one group, the same for ``moe_group``
+    None and 1.
+
+    One deliberate difference: the JAX package applies the per-token text
+    adapter on its jnp path (no ``use_pallas``, ``engine.py:334``); the port
+    passes ``use_pallas=cfg.use_pallas``, so that on the card that step runs
+    the LoRA kernel and no plain version sits on the path. On the CPU both
+    take the plain version.
+    """
+    adapters_by_tenant = adapters_by_tenant or {}
+    device = backbone["embed"]["table"].device
+    identity = {mod: {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                      for k, v in a.items()}
+                for mod, a in nano.init_nanoedge(torch.Generator().manual_seed(0), cfg).items()}
+    kw = dict(rank=cfg.adapter.rank, alpha=cfg.adapter.alpha, use_pallas=cfg.use_pallas)
+    done: Dict[int, Completion] = {}
+    for r in requests:
+        adapters = adapters_by_tenant.get(r.tenant, identity)
+        prompt = torch.from_numpy(np.asarray(r.prompt, np.int64)[None]).to(device)
+        patches = None
+        if r.patches is not None:
+            patches = torch.as_tensor(np.asarray(r.patches, np.float32)[None], device=device)
+        batch = Batch(tokens=prompt, labels=torch.zeros_like(prompt),
+                      mask=torch.zeros(prompt.shape, dtype=torch.float32, device=device),
+                      patches=patches)
+        embeds, positions, _, _, enc = nano.nanoedge_forward(cfg, backbone, adapters, batch)
+        n = embeds.shape[1]
+        state, hidden = model_lib.prefill(cfg, backbone, embeds, positions,
+                                          n + r.max_new_tokens + 1, enc_embeds=enc)
+        tok = int(torch.argmax(model_lib.logits(cfg, backbone, hidden[:, -1:])[0, 0]))
+        comp = Completion(rid=r.rid, tenant=r.tenant, tokens=[tok])
+        for step in range(r.max_new_tokens - 1):
+            if comp.tokens[-1] == stop_token:
+                break
+            emb = model_lib.embed_tokens(cfg, backbone,
+                                         torch.tensor([[tok]], dtype=torch.long, device=device))
+            if "text" in adapters:
+                emb = nano.nano_adapter_apply(adapters["text"], emb, **kw)
+            lg, state = model_lib.decode_step(cfg, backbone, emb, state, n + step)
+            tok = int(torch.argmax(lg[0, 0]))
+            comp.tokens.append(tok)
+        done[r.rid] = comp
+    return done

@@ -18,7 +18,7 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.models import model as model_lib
-from repro_torch.utils import tree_leaves
+from repro_torch.utils import tree_bytes, tree_leaves
 
 
 class KVSlotManager:
@@ -58,3 +58,10 @@ class KVSlotManager:
             pool_t[:, slot].copy_(page_t[:, 0])
         self.pos[slot] = start_pos
 
+
+    def page_bytes(self) -> int:
+        """Bytes of one page: what admitting a request costs."""
+        return tree_bytes(self.state) // self.n_slots
+
+    def pool_bytes(self) -> int:
+        return tree_bytes(self.state)

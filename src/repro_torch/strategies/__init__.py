@@ -1,7 +1,7 @@
 """Federated strategies of the port (``repro.strategies``): a method is a
 ``Strategy`` (client objective, merge, evaluation choice), a chain of
 ``UpdateTransform``s on the upload wire, an optional ``ServerOpt`` and a
-``ClientSampler``. FedBuff's server step is ROADMAP queue 5."""
+``ClientSampler``. FedBuff's server step is ROADMAP queue 5c."""
 from repro_torch.strategies.base import (Strategy, available_strategies, get_strategy,
                                          register)
 from repro_torch.strategies.builtin import (FedAdam, FedAvg, FedAvgM, FedDPAF, FedNano,

@@ -13,9 +13,9 @@ plus the scheduling predicates ``downloads_global`` and ``local_warmup``,
 the flags ``dual_adapters`` and ``aggregates``, and an optional
 ``server_opt`` factory. Strategies are frozen dataclasses, registered by
 name with ``@register`` and resolved with ``get_strategy``, which passes
-instances through. The stacked fold of the sharded engine
-(``agg_stream_fold_stacked``) and checkpoint identity (``checkpoint_meta``)
-are ROADMAP queue 5.
+instances through. ``checkpoint_meta`` is the identity a RunState records
+and a resume checks. The stacked fold of the sharded engine
+(``agg_stream_fold_stacked``) is ROADMAP queue 6.
 """
 from __future__ import annotations
 
@@ -133,6 +133,17 @@ class Strategy:
     def server_opt(self):
         """Optional ServerOpt applied to the merged result (None = identity)."""
         return None
+
+    # -- checkpointing ------------------------------------------------------
+    # A strategy is a frozen dataclass with no state of its own: the streaming
+    # accumulators live within one round, and what it carries across rounds
+    # sits in ClientState or a transform's state, both of which a RunState
+    # keeps. So a snapshot records only this identity.
+    def checkpoint_meta(self) -> Dict[str, Any]:
+        """Identity written into RunState meta and checked on resume, so a
+        checkpoint of one method never resumes as another."""
+        return {"name": self.name, "wants_fisher": self.wants_fisher,
+                "dual_adapters": self.dual_adapters, "aggregates": self.aggregates}
 
     # -- evaluation ---------------------------------------------------------
     def eval_params(self, global_adapters, client) -> Tuple[Any, Optional[Any]]:

@@ -9,7 +9,7 @@ gradient estimate and lets a ``ServerOpt`` take the step (Reddi et al. 2021):
 ``None`` is the identity (θ_global ← merged), the paper's Alg. 1. A
 ``ServerOpt`` is a stateless frozen dataclass; its moments are a tree
 threaded through ``apply``. FedBuff's damped step waits for the buffered
-engine (ROADMAP queue 5).
+engine (ROADMAP queue 5c).
 """
 from __future__ import annotations
 

@@ -12,11 +12,12 @@ logs as ``param_up_wire``:
 self-describing :class:`WireMessage` stamped with (codec, version) and its
 exact byte count; ``decode_wire`` dispatches on the stamp and refuses
 unknown codecs and versions. ``apply`` is encode then decode, so the wire
-bytes are by construction the size of the message that crossed. The
-checkpoint templates of the carried state (``state_template``) come with
-checkpoints, ROADMAP queue 5. The payloads are the JAX package's, bit for bit on equal inputs; only the DP
-noise comes from a ``torch.Generator`` (seeded per (1234 + cid, round)),
-since ``jax.random`` draws cannot be reproduced.
+bytes are by construction the size of the message that crossed.
+``state_template`` gives the structure of the carried state a checkpoint
+restores into (None: stateless). The payloads are the JAX package's, bit
+for bit on equal inputs; only the DP noise comes from a ``torch.Generator``
+(seeded per (1234 + cid, round)), since ``jax.random`` draws cannot be
+reproduced.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.utils import tree_add, tree_bytes, tree_map, tree_sub
+from repro_torch.utils import tree_add, tree_bytes, tree_map, tree_sub, tree_zeros_like
 
 # Version of every codec's on-the-wire encoding; decode_wire rejects others.
 WIRE_FORMAT_VERSION = 1
@@ -122,6 +123,11 @@ class UpdateTransform:
         return WireMessage(codec="identity", version=WIRE_FORMAT_VERSION, payload=theta,
                            nbytes=tree_bytes(theta)), state
 
+    def state_template(self, global_ref):
+        """Structure of this transform's carried per-client state (None:
+        stateless, a checkpoint has nothing to restore)."""
+        return None
+
     def apply(self, ctx: TransformCtx, theta, global_ref, state):
         msg, state = self.encode(ctx, theta, global_ref, state)
         return decode_wire(msg, global_ref), state, (None if self.wire_transparent
@@ -173,6 +179,11 @@ class Int8EFQuant(UpdateTransform):
                            payload={"q": q.payload, "scales": q.scales},
                            nbytes=q.wire_bytes), err
 
+    def state_template(self, global_ref):
+        from repro_torch.core.compression import init_error_feedback
+
+        return init_error_feedback(global_ref)
+
 
 @dataclass(frozen=True)
 class TopKSparsify(UpdateTransform):
@@ -206,6 +217,9 @@ class TopKSparsify(UpdateTransform):
                           nbytes=wire)
         # error feedback: exactly what the sparse reconstruction drops
         return msg, tree_sub(delta, _map_packed(_scatter_topk, delta, packed))
+
+    def state_template(self, global_ref):
+        return tree_zeros_like(global_ref)
 
 
 def default_transforms(hp) -> Tuple[UpdateTransform, ...]:

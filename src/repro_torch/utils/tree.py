@@ -34,6 +34,45 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_flatten_with_path(tree, prefix: str = ""):
+    """[(path, leaf)] with the JAX package's checkpoint keys
+    (``repro/checkpoint/io.py::_path_str``): a dict key, a sequence index or
+    a NamedTuple field name, joined by ``/`` under ``prefix``; dicts in
+    sorted key order, as ``jax.tree_util`` flattens them. A bare leaf maps to
+    ``prefix`` itself; ``None`` has no leaves. So ``AdamWState(mu, nu,
+    step)`` under ``opt`` gives ``opt/mu/text/down`` ... ``opt/step``."""
+    join = (lambda k: f"{prefix}/{k}") if prefix else str
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [kv for k, v in items for kv in tree_flatten_with_path(v, join(k))]
+
+
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over every leaf, the paths those of
+    :func:`tree_flatten_with_path`; the structure kept."""
+    join = (lambda k: f"{prefix}/{k}") if prefix else str
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, join(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        named = hasattr(tree, "_fields")
+        out = [tree_map_with_path(fn, v, join(k))
+               for k, v in zip(tree._fields if named else range(len(tree)), tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if named else tuple(out)
+    return fn(prefix, tree)
+
+
 def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` holding ``leaves`` in ``tree_leaves`` order."""
     it = iter(leaves)

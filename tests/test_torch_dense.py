@@ -34,6 +34,7 @@ from repro.models import attention as jattn
 from repro.models import model as jmodel
 from repro.models import rotary as jrotary
 from repro.serving import ServingEngine as JaxServingEngine
+from repro.serving import generate_naive as jax_generate_naive
 from repro_torch import interop
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import HyperParams, ServerState, run_federated
@@ -43,7 +44,7 @@ from repro_torch.launch import serve, train
 from repro_torch.models import attention as attn
 from repro_torch.models import model as model_lib
 from repro_torch.models import rotary
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import ServingEngine, generate_naive
 from test_torch_training import assert_tree_close, one_torch_thread, rel_err  # noqa: F401
 
 H2O, GLM, QWEN, INTERN = "h2o-danube-1.8b", "glm4-9b", "qwen1.5-4b", "internlm2-20b"
@@ -245,6 +246,26 @@ def test_engine_tokens_match_jax_engine(arch):
         ring = eng.slots.state["layers"].k.shape[2]
         assert ring == cfg.sliding_window < eng.capacity
         assert max(len(r.prompt) + kw["max_new_tokens"] for r in reqs) > ring  # decode wraps
+
+
+def test_naive_loop_matches_jax_naive_loop_across_the_ring():
+    """h2o's one-request-at-a-time loop, decoding past its 64-slot ring: the
+    JAX loop's tokens, and the port engine's."""
+    kw, n = TRAFFIC[H2O]
+    jcfg, tree, cfg, backbone = _backbone(H2O)
+    jtenants = jax_serve.synth_tenant_adapters(jax.random.PRNGKey(0), jcfg, TENANTS)
+    want = jax_generate_naive(jcfg, jax.tree.map(jnp.asarray, tree),
+                              jax_serve.make_requests(jcfg, TENANTS, n, kw["prefill_len"],
+                                                      kw["max_new_tokens"], 0), jtenants)
+    tenants = {t: interop.adapters_from_numpy(jax.tree.map(np.asarray, a), "cpu")
+               for t, a in jtenants.items()}
+    reqs = serve.make_requests(cfg, TENANTS, n, kw["prefill_len"], kw["max_new_tokens"], 0)
+    got = generate_naive(cfg, backbone, reqs, tenants)
+    eng = ServingEngine(cfg.with_(use_pallas=True), backbone, adapter_loader=tenants.__getitem__,
+                        use_pallas_grouped=True, **kw).run(reqs)
+    assert max(len(r.prompt) + kw["max_new_tokens"] for r in reqs) > cfg.sliding_window
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens == eng[rid].tokens, rid
 
 
 def test_window_guard_rejects_pad_overflow():

@@ -35,6 +35,7 @@ from repro.models import encdec as jencdec
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro.serving import ServingEngine as JaxServingEngine
+from repro.serving import generate_naive as jax_generate_naive
 from repro_torch import interop
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import HyperParams, ServerState, run_federated
@@ -47,7 +48,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import encdec, layers
 from repro_torch.models import model as model_lib
 from repro_torch.models.vision_stub import num_patches
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import ServingEngine, generate_naive
 from test_torch_training import assert_tree_close, one_torch_thread, rel_err  # noqa: F401
 
 ARCH = "whisper-base"
@@ -322,6 +323,26 @@ def test_engine_tokens_match_jax_engine():
     assert sorted(got) == sorted(want) == list(range(n))
     for rid in want:
         assert got[rid].tokens == want[rid].tokens, rid
+
+
+def test_naive_loop_matches_jax_naive_loop():
+    """whisper's one-request-at-a-time loop, each request's 64 frames through
+    ``enc_embeds``: the JAX loop's tokens, and the port engine's."""
+    jcfg, jparams, cfg, backbone = _backbone()
+    jcfg, cfg = jcfg.with_(use_pallas=True), cfg.with_(use_pallas=True)
+    n = 5
+    jtenants = jax_serve.synth_tenant_adapters(jax.random.PRNGKey(0), jcfg, TENANTS)
+    want = jax_generate_naive(jcfg, jparams, jax_serve.make_requests(
+        jcfg, TENANTS, n, TRAFFIC["prefill_len"], TRAFFIC["max_new_tokens"], 0), jtenants)
+    tenants = {t: interop.adapters_from_numpy(jax.tree.map(np.asarray, a), "cpu")
+               for t, a in jtenants.items()}
+    reqs = serve.make_requests(cfg, TENANTS, n, TRAFFIC["prefill_len"],
+                               TRAFFIC["max_new_tokens"], 0)
+    got = generate_naive(cfg, backbone, reqs, tenants)
+    eng = ServingEngine(cfg, backbone, adapter_loader=tenants.__getitem__,
+                        use_pallas_grouped=True, **TRAFFIC).run(reqs)
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens == eng[rid].tokens, rid
 
 
 # ---------------------------------------------------------------------------

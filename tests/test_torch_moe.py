@@ -45,6 +45,7 @@ from repro.models import model as jmodel
 from repro.models import moe as jmoe
 from repro.models import rotary as jrotary
 from repro.serving import ServingEngine as JaxServingEngine
+from repro.serving import generate_naive as jax_generate_naive
 from repro_torch import interop
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import HyperParams, ServerState, run_federated
@@ -55,7 +56,7 @@ from repro_torch.models import layers
 from repro_torch.models import model as model_lib
 from repro_torch.models import moe
 from repro_torch.models import rotary
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import ServingEngine, generate_naive
 from test_torch_training import assert_tree_close, one_torch_thread, rel_err  # noqa: F401
 
 LLAMA4, GROK = "llama4-scout-17b-a16e", "grok-1-314b"
@@ -474,6 +475,27 @@ def test_engine_tokens_match_jax_engine(arch):
     assert sorted(got) == sorted(want) == list(range(n))
     for rid in want:
         assert got[rid].tokens == want[rid].tokens, rid
+
+
+def test_naive_loop_matches_jax_naive_loop():
+    """llama4's one-request-at-a-time loop (one row routes as one group,
+    capacity drops in prefill): the JAX loop's tokens, and the port
+    engine's."""
+    jcfg, tree, cfg, backbone = _backbone(LLAMA4)
+    jcfg, cfg = jcfg.with_(use_pallas=True), cfg.with_(use_pallas=True)
+    kw, n = TRAFFIC, 6
+    jtenants = jax_serve.synth_tenant_adapters(jax.random.PRNGKey(0), jcfg, TENANTS)
+    want = jax_generate_naive(jcfg, jax.tree.map(jnp.asarray, tree),
+                              jax_serve.make_requests(jcfg, TENANTS, n, kw["prefill_len"],
+                                                      kw["max_new_tokens"], 0), jtenants)
+    tenants = {t: interop.adapters_from_numpy(jax.tree.map(np.asarray, a), "cpu")
+               for t, a in jtenants.items()}
+    reqs = serve.make_requests(cfg, TENANTS, n, kw["prefill_len"], kw["max_new_tokens"], 0)
+    got = generate_naive(cfg, backbone, reqs, tenants)
+    eng = ServingEngine(cfg, backbone, adapter_loader=tenants.__getitem__,
+                        use_pallas_grouped=True, **kw).run(reqs)
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens == eng[rid].tokens, rid
 
 
 # ---------------------------------------------------------------------------

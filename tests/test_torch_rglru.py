@@ -40,6 +40,7 @@ from repro.models import model as jmodel
 from repro.models import rglru as jrglru
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JaxServingEngine
+from repro.serving import generate_naive as jax_generate_naive
 from repro_torch import interop
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import HyperParams, ServerState, run_federated
@@ -51,7 +52,7 @@ from repro_torch.launch import serve, train
 from repro_torch.models import layers
 from repro_torch.models import model as model_lib
 from repro_torch.models import rglru, transformer
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import Request, ServingEngine, generate_naive
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 from test_torch_training import assert_tree_close, one_torch_thread, rel_err  # noqa: F401
 
@@ -363,6 +364,25 @@ def test_engine_tokens_match_jax_engine():
     for rid in want:
         assert got[rid].tokens == want[rid].tokens, rid
     assert eng.slots.state["triples"]["attn"].k.shape[2] == 64 < eng.capacity
+
+
+def test_naive_loop_matches_jax_naive_loop():
+    """recurrentgemma at 5 layers, prompts of 1 to 12 tokens (unpadded, some
+    shorter than the conv window) decoding past the 64-slot ring: the JAX
+    loop's tokens, and the port engine's."""
+    jcfg, tree, cfg, backbone = _backbone(5)
+    jcfg, cfg = jcfg.with_(use_pallas=True), cfg.with_(use_pallas=True)
+    jtenants = jax_serve.synth_tenant_adapters(jax.random.PRNGKey(0), jcfg, TENANTS)
+    want = jax_generate_naive(jcfg, jax.tree.map(jnp.asarray, tree),
+                              _requests(JRequest, cfg.vocab_size), jtenants)
+    tenants = {t: interop.adapters_from_numpy(jax.tree.map(np.asarray, a), "cpu")
+               for t, a in jtenants.items()}
+    reqs = _requests(Request, cfg.vocab_size)
+    got = generate_naive(cfg, backbone, reqs, tenants)
+    eng = ServingEngine(cfg, backbone, adapter_loader=tenants.__getitem__,
+                        use_pallas_grouped=True, **TRAFFIC).run(reqs)
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens == eng[rid].tokens, rid
 
 
 def test_window_guard_reads_the_local_window():

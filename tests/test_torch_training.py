@@ -284,15 +284,14 @@ def test_streaming_and_batch_merge_agree(arch):
                           ADAPTER_TOL, f"use_pallas={use_pallas}")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(engine="vmap"), dict(failures=object()), dict(checkpoint_dir="unused"),
-    dict(resume="unused"),
-], ids=lambda kw: next(iter(kw)) + ("" if not isinstance(next(iter(kw.values())), str)
-                                   else "=" + next(iter(kw.values()))))
-def test_unported_options_raise(kw):
+@pytest.mark.parametrize("engine", ["vmap", "sharded", "buffered"])
+def test_unported_options_raise(engine):
+    """The engines beyond ``sequential`` name their queue (5c, or 6 for the
+    sharded one); failures, checkpoints and resume run (test_torch_resume.py)."""
     _, _, cfg, (train_b, eval_b, _) = _data(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        run_federated(0, cfg, train_b, eval_b, rounds=1, device="cpu", **kw)
+    queue = "6" if engine == "sharded" else "5c"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {queue}"):
+        run_federated(0, cfg, train_b, eval_b, rounds=1, device="cpu", engine=engine)
 
 
 def test_strategy_names_cover_the_reference():
