@@ -266,6 +266,46 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       prefill (1, 67, 32, 128). Phase 3 holds both shapes
       (``harness.FULL_LORA_SHAPES``, ``FULL_FLASH_SHAPES``).
 
+18. The vmap and buffered round engines, on phase 8's llava-1.5-7b server.
+   Phase 3 holds the vmap engine's batched LoRA kernel (``lora_residual_many``,
+   one call over K clients, each with its own adapter) against its plain
+   version at ``harness.MANY_LORA_SHAPES``, ``FULL_MANY_LORA_SHAPES`` (llava's
+   cohort of 4 clients' text and image rows, and K = 1, 3, 8) and
+   ``MANY_LORA_EDGE_SHAPES``, f32 and bf16, bf16 against its rounding model,
+   f32 rows bit-identical to the one-adapter kernel's, its gradients at
+   ``MANY_LORA_GRAD_SHAPES``; phase 10 times it (``[time]
+   lora_residual_many``) beside K one-adapter launches and torch.baddbmm.
+   Run right after phase 11, before phase 17, in bf16:
+   a. smoke llava in f32, 4 clients, card (kernels) against CPU (plain
+      versions): the vmap engine for fednano, fedprox and feddpa_f (which
+      reaches the batched kernel's dx launch), 2 rounds; the buffered
+      engine at one buffer of all 4 (then also against the sequential
+      engine's streaming merge: staleness 0, the same arithmetic) and with
+      client 0 at 3 ticks, FedBuffOpt(0.5) and a FailureModel that drops,
+      crashes and straggles, 4 merges; losses within 1e-5, counts and comm
+      equal, adapters as phase 17a holds them;
+   b. full width, bf16: FedNano with 4 clients (COHORT_DATA), 2 rounds of 2
+      steps and 2 Fisher batches, ``engine="vmap"`` against
+      ``engine="sequential"`` on the same server and data, counters reset
+      around each run (the batched LoRA 8 launches a round against the
+      sequential 32 one-adapter launches, flash 32 a cohort step against
+      128), round 0 within RUN_LOSS_TOL_BF16 (round 1 reported), comm equal;
+      a vmap run with ``agg_chunk=2`` folds two cohorts by fisher_fold,
+      held against fisher_merge of the same uploads at 1e-6; a cohort step
+      against a sequential client step (host ms, trained tokens/s, busy
+      share under the profiler), round wall and peak memory of each engine;
+   c. full width, bf16: the buffered engine, 4 clients, client 0 at 3
+      ticks, buffer 2, FedBuffOpt(0.5), FailureModel(straggler_prob 0.3),
+      4 merges: every merge of 2, staleness above 0 in one at least; the
+      run snapshots after every merge, and a run resumed from merge 2 must
+      equal it (RESUME_TOL; zero printed); the snapshot's MB, save and load
+      ms.
+   After phase 17 (which upcasts the weights in place), 18b in f32: round 0
+   within 1e-4, the first cohort step's per-client loss and adapter
+   gradients against each client's own step within 1e-4, and the adapters
+   after both rounds within ROUNDING_MARGIN times the gap between two f32
+   orders of the sequential engine (kernels, and use_pallas=False).
+
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
 """
@@ -278,6 +318,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -793,6 +834,7 @@ def plain_versions():
 
     # (module, wrapper attribute, plain version)
     swaps = [(lora_ops, "lora_residual", lora_ref.lora_residual),
+             (lora_ops, "lora_residual_many", lora_ref.lora_residual_many),
              (lora_ops, "grouped_lora_residual", lora_ref.grouped_lora_residual),
              (fa_ops, "flash_attention", fa_ref.attention),
              (fm_ops, "fisher_merge", fm_ref.fisher_merge),
@@ -3013,8 +3055,6 @@ def resume_smoke(torch, tr):
     uninterrupted on the card and on the CPU, then card against CPU (losses
     1e-5, counts and comm equal, the global and the clients' adapters each at
     ROUNDING_MARGIN times their spread over two CPU f32 orders and f64)."""
-    import tempfile
-
     from repro_torch.core import FailureModel
     from repro_torch.utils import tree_map
 
@@ -3046,10 +3086,6 @@ def resume_smoke(torch, tr):
                                 rounds=RESUME_ROUNDS, use_pallas=False, failures=fm,
                                 server=fresh_server(server_cpu), final_eval=False)
 
-    def adapter_gaps(got, want):
-        return (tree_gap(got.server.global_adapters, want.server.global_adapters),
-                max(tree_gap(g.adapters, w.adapters) for g, w in zip(got.clients, want.clients)))
-
     # Each tree is held at ROUNDING_MARGIN times its spread on the CPU: the
     # largest gap between two of the kernels' plain order, the model's
     # use_pallas=False order (both f32) and f64. AdamW's ill-conditioned
@@ -3078,7 +3114,6 @@ def cli_smoke():
     """The CLIs on the card at smoke size: train under crashes with a snapshot
     a round, resume it, serve its server checkpoint, then the naive check."""
     import io
-    import tempfile
 
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
@@ -3303,8 +3338,6 @@ def naive_timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
 def resume_naive_phase(torch, tr, sv, counters, st):
     """Phase 17 on the llava server of phases 8-11: -> launches by path. The
     backbone is upcast to f32 in place on the way; nothing uses it after."""
-    import tempfile
-
     from repro_torch.core import FailureModel
 
     t0 = time.perf_counter()
@@ -3337,8 +3370,532 @@ def resume_naive_phase(torch, tr, sv, counters, st):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the vmap and buffered round engines
+# ---------------------------------------------------------------------------
+
+# Full width: 4 clients of phase 8's data (llava-1.5-7b, batch 4 x (64
+# patches + 32 tokens)), whose first two batches are whole for every client,
+# as the vmap engine's stacked steps need.
+COHORT_DATA = dict(TRAIN_DATA, n_clients=4)
+COHORT_SMOKE_DATA = dict(n_clients=4, examples_per_client=16, batch_size=4, seq_len=16, seed=0)
+COHORT_SMOKE_STRATEGIES = ("fednano", "fedprox", "feddpa_f")
+# 18c: buffer of 2 completions, 4 merges, a straggling draw of 0.3 a dispatch
+BUFFERED_RUN = dict(buffer_size=2, rounds=4)
+BUFFERED_FAILURES = dict(straggler_prob=0.3, seed=2)
+SMOKE_FAILURES = dict(dropout_prob=0.2, crash_prob=0.2, straggler_prob=0.3, seed=2)
+COHORT_KERNELS = ("lora_residual_many", "flash_attention", "fisher_merge")
+# Adapters after two rounds, card against CPU: phase 17a's bound (ROUNDING_MARGIN
+# times the CPU's spread) on all but a few elements. AdamW's first steps move
+# an element by lr·m/(√v + eps), and where m/√v sits on a cancellation any f32
+# order moves it apart: under FedDPA-F, element 61 of text/up parts the card's
+# vmap run from the CPU's by 3.19e-4 of ‖ref‖∞ in every client, 5.7e-5 for the
+# card's sequential engine, 8.0e-5 for the CPU's f32 against f64, while the
+# other 1,023 elements of the leaf stay within 1e-5 (H100 80GB HBM3, 700 W).
+# So at most ADAPTER_OUTLIER_SHARE of the elements may pass that bound, and
+# none ADAPTER_GROSS_TOL or ROUNDING_MARGIN times the bound, whichever is
+# larger (at full width in f32 two f32 orders of the sequential engine part
+# by 5.8e-2 after two rounds, and the vmap engine's largest gap, 0.158, is in
+# 10 of 5,242,880 elements); a fault moves many elements, and by about lr.
+ADAPTER_OUTLIER_SHARE = 1e-3
+ADAPTER_GROSS_TOL = 1e-3
+
+
+def slow_client0(cid, version):
+    """The buffered engine's latency: client 0 takes 3 ticks, the others 1."""
+    return 3 if cid == 0 else 1
+
+
+def many_parity(torch, harness, lora_ops, lora_ref):
+    """lora_residual_many (one call over K clients) against its plain version
+    at the harness's cohort grids, f32 and bf16; bf16 against the split-TF32
+    model; f32 rows bit-identical to the one-adapter kernel's; gradients
+    (dx by the batched kernel, dA and dB by bmm) against autograd through
+    the plain version. -> {kernel: max |err| at llava's text cohort, bf16}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def inputs(k, t, d, r, dtype):
+        return ((torch.randn((k, t, d), generator=gen, device=dev)).to(dtype),
+                torch.randn((k, d, r), generator=gen, device=dev) * 0.05,
+                torch.randn((k, r, d), generator=gen, device=dev) * 0.05)
+
+    main_err, n_cases, model_gap = {}, 0, [0.0, 0.0]
+    shapes = (harness.MANY_LORA_SHAPES + harness.FULL_MANY_LORA_SHAPES
+              + harness.MANY_LORA_EDGE_SHAPES)
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for k, t, d, r in shapes:
+            x, down, up = inputs(k, t, d, r, dtype)
+            before = lora_ops.lora_residual_many.launches
+            got = lora_ops.lora_residual_many(x, down, up, scale=SCALE)
+            if lora_ops.lora_residual_many.launches != before + 1:
+                raise AssertionError("lora_residual_many: one call must count one launch")
+            what = f"lora_many k{k}t{t}d{d}r{r}"
+            err = harness.check_close(
+                got, lora_ref.lora_residual_many(x, down, up, scale=SCALE), dtype_name, what)
+            if dtype_name == "float32":
+                one = torch.stack([lora_ops.lora_residual(x[i], down[i], up[i], scale=SCALE)
+                                   for i in range(k)])
+                if not torch.equal(got, one):
+                    raise AssertionError(f"{what}: f32 rows differ from the one-adapter kernel")
+            else:
+                model = lora_ref.lora_residual_split_tf32(x, down, up, scale=SCALE)
+                harness.check_close(got, model, dtype_name, f"{what} vs model",
+                                    harness.BF16_MODEL_TOLERANCES)
+                harness.check_share(got, model, harness.LORA_MODEL_MAX_SHARE, f"{what} vs model")
+                model_gap = [max(a, b) for a, b in zip(model_gap, rel_gap(got, model))]
+            if (k, t, d, r) == harness.FULL_MANY_LORA_SHAPES[0] and dtype_name == "bfloat16":
+                main_err["lora_residual_many"] = err
+            n_cases += 1
+        for k, t, d, r in harness.MANY_LORA_GRAD_SHAPES:
+            x, down, up = inputs(k, t, d, r, dtype)
+            before = lora_ops.lora_residual_many.dx_launches
+            got = sq_loss_grads(lambda a, b, c: lora_ops.lora_residual_many(a, b, c, scale=SCALE),
+                                x, down, up)
+            if lora_ops.lora_residual_many.dx_launches != before + 1:
+                raise AssertionError("lora_residual_many: the backward's dx is one launch")
+            want = sq_loss_grads(lambda a, b, c: lora_ref.lora_residual_many(a, b, c,
+                                                                             scale=SCALE),
+                                 x, down, up)
+            for name, g, w in zip(("dx", "dA", "dB"), got, want):
+                err = harness.check_close(g, w, dtype_name, f"lora_many grad {name} k{k}t{t}")
+                if (k, t, d, r) in harness.FULL_MANY_LORA_SHAPES:
+                    key = f"lora_residual_many {name} {dtype_name}"
+                    main_err[key] = max(main_err.get(key, 0.0), err)
+            n_cases += 1
+    torch.cuda.synchronize()
+    log(f"[parity] lora_residual_many: {n_cases} kernel-vs-plain cases passed (cohorts "
+        f"{[s[:2] for s in harness.FULL_MANY_LORA_SHAPES]} at d 4096 and the tile edges, f32 "
+        f"rows bit-identical to the one-adapter kernel, gradients at "
+        f"{harness.MANY_LORA_GRAD_SHAPES}); bf16 vs its rounding model max |err| / "
+        f"max(1, ‖ref‖∞) {model_gap[0]:.3e}, elements that differ {model_gap[1]:.3e}; "
+        f"max |err| {json.dumps(main_err)}")
+    return main_err
+
+
+def many_timing(torch, lora_ops, lora_ref, x, A, B, what=""):
+    """lora_residual_many at x (K, T, D) bf16 beside its plain version,
+    torch.baddbmm(x, torch.bmm(x, A), B) with the adapters in bf16 (the
+    library call), K launches of the one-adapter kernel, and its bound: x
+    read and y written once, the K adapters read once, 10·K·T·D·r split-TF32
+    operations at the TF32 rate (row 1's count). -> a kernel-table row."""
+    K, T, D = x.shape
+    r = A.shape[-1]
+    y = lora_ops.lora_residual_many(x, A, B, scale=SCALE)
+    A16, B16 = A.to(torch.bfloat16), B.to(torch.bfloat16)
+    k_ms, k_is = time_ms(torch, lambda: lora_ops.lora_residual_many(x, A, B, scale=SCALE))
+    p_ms, _ = time_ms(torch, lambda: lora_ref.lora_residual_many(x, A, B, scale=SCALE))
+    l_ms, _ = time_ms(torch, lambda: torch.baddbmm(x, torch.bmm(x, A16), B16, alpha=SCALE))
+    s_ms, s_is = time_ms(torch, lambda: [lora_ops.lora_residual(x[i], A[i], B[i], scale=SCALE)
+                                         for i in range(K)])
+    n_bytes = nbytes(x, A, B, y)
+    c_ms = time_ms_cold(torch, lambda *a: lora_ops.lora_residual_many(*a, scale=SCALE),
+                        (x, A, B), n_bytes)
+    b_ms, b_by = bound(n_bytes, 10 * K * T * D * r, "tf32")
+    log(f"[time] lora_residual_many at x ({K}, {T}, {D}) bf16, r {r}{what}, device ms per "
+        f"call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}), cold {c_ms:.5f} | "
+        f"{K} launches of the one-adapter kernel {s_ms:.5f} ({s_is:.5f}) | plain {p_ms:.5f} | "
+        f"library torch.baddbmm(x, torch.bmm(x, A), B), bf16 adapters {l_ms:.5f} | bound "
+        f"{b_ms:.5f} ({b_by}; {n_bytes / 1e6:.2f} MB) | bound / time: warm {b_ms / k_ms:.3f}, "
+        f"cold {b_ms / c_ms:.3f}")
+    return dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by, single_launches_ms=s_ms, shape=[K, T, D, r])
+
+
+def many_timings(torch, lora_ops, lora_ref):
+    """The batched LoRA kernel at llava's cohort rows: K = 4 clients of batch
+    4, the text (4 x 32) and image (4 x 64) rows of each."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = {}
+    for label, t in (("text", 128), ("image", 256)):
+        x = torch.randn((4, t, 4096), generator=gen, device=dev).to(torch.bfloat16)
+        A = torch.randn((4, 4096, 64), generator=gen, device=dev) * 0.05
+        B = torch.randn((4, 64, 4096), generator=gen, device=dev) * 0.05
+        rows[f"x (4, {t}, 4096) {label}"] = many_timing(torch, lora_ops, lora_ref, x, A, B,
+                                                        f" ({label})")
+    return dict(rows["x (4, 128, 4096) text"], shapes=rows)
+
+
+def adapter_gaps(got, want):
+    """(global adapters, the clients' own: adapters and personal adapters) of
+    run ``got`` against run ``want``, paired by path, relative to ‖want‖∞."""
+    own = [tree_gap(g.adapters, w.adapters) for g, w in zip(got.clients, want.clients)]
+    own += [tree_gap(g.local_adapters, w.local_adapters)
+            for g, w in zip(got.clients, want.clients) if w.local_adapters is not None]
+    return tree_gap(got.server.global_adapters, want.server.global_adapters), max(own)
+
+
+def adapter_outliers(got, want, bound):
+    """-> (largest relative gap, elements beyond ``bound``, elements) over the
+    global adapters and every client's own (adapters and personal adapters)
+    of run ``got`` against run ``want``, each leaf relative to its ‖want‖∞."""
+    from repro_torch.utils import tree_flatten_with_path
+
+    pairs = [(got.server.global_adapters, want.server.global_adapters)]
+    pairs += [(g.adapters, w.adapters) for g, w in zip(got.clients, want.clients)]
+    pairs += [(g.local_adapters, w.local_adapters) for g, w in zip(got.clients, want.clients)
+              if w.local_adapters is not None]
+    top, over, total = 0.0, 0, 0
+    for gt, wt in pairs:
+        g, w = dict(tree_flatten_with_path(gt)), dict(tree_flatten_with_path(wt))
+        for k in w:
+            wk = w[k].float().cpu()
+            rel = (g[k].float().cpu() - wk).abs() / max(float(wk.abs().max()), 1e-30)
+            top, over, total = max(top, float(rel.max())), over + int((rel > bound).sum()), \
+                total + rel.numel()
+    return top, over, total
+
+
+def hold_adapters(got, want, bound, what):
+    """Raise unless the adapters of run ``got`` are within ``bound`` of run
+    ``want``'s but for at most ADAPTER_OUTLIER_SHARE of their elements, and
+    every element within the larger of ADAPTER_GROSS_TOL and ROUNDING_MARGIN
+    times ``bound``. -> a description of the hold."""
+    top, over, total = adapter_outliers(got, want, bound)
+    gross = max(ADAPTER_GROSS_TOL, ROUNDING_MARGIN * bound)
+    if over > ADAPTER_OUTLIER_SHARE * total or top > gross:
+        raise AssertionError(f"{what}: adapters' largest gap {top:.3e}, {over} of {total} "
+                             f"elements beyond {bound:.3e} (at most {ADAPTER_OUTLIER_SHARE} of "
+                             f"them, and none beyond {gross:.3e})")
+    return (f"adapters largest gap {top:.3e}, {over} of {total} elements beyond {bound:.3e} "
+            f"(share bound {ADAPTER_OUTLIER_SHARE}, gross bound {gross:.3e})")
+
+
+def run_metrics(res):
+    """A run's round metrics without the losses (counts, staleness)."""
+    return [{k: v for k, v in m.items() if k != "mean_loss"} for m in res.round_metrics]
+
+
+def cohort_smoke(torch, tr, counters):
+    """Phase 18a: smoke llava in f32, 4 clients, card (kernels) against CPU
+    (plain versions), each round engine case: losses 1e-5, counts and comm
+    equal, adapters at ROUNDING_MARGIN times their CPU spread (two f32
+    orders and f64), as phase 17a holds them; and the buffered engine at
+    one buffer of all four clients against the sequential engine's
+    streaming merge, on the card."""
+    from repro_torch.core import FailureModel
+    from repro_torch.strategies import FedBuffOpt
+    from repro_torch.utils import tree_map
+
+    cfg = tr["get_smoke_config"]("llava-1.5-7b").with_(use_pallas=True)
+    hp = tr["HyperParams"](**TRAIN_HP)
+    server_cpu = tr["init_server"](cfg, seed=3, device="cpu")
+    server_gpu = dataclasses.replace(
+        server_cpu, backbone=tree_map(lambda t: t.cuda(), server_cpu.backbone),
+        global_adapters=tree_map(lambda t: t.cuda(), server_cpu.global_adapters))
+    data = {dev: tr["make_federated_data"](cfg, device=dev, **COHORT_SMOKE_DATA)
+            for dev in ("cuda", "cpu")}
+    cases = [(f"vmap {s}", dict(strategy=s, engine="vmap", rounds=2))
+             for s in COHORT_SMOKE_STRATEGIES]
+    cases += [("buffered uniform, buffer 4", dict(strategy="fednano", engine="buffered",
+                                                  buffer_size=4, rounds=2)),
+              ("buffered stragglers", dict(
+                  strategy="fednano", engine="buffered", buffer_size=2, latency_fn=slow_client0,
+                  server_opt=FedBuffOpt(lr=0.5), failures=FailureModel(**SMOKE_FAILURES),
+                  rounds=4))]
+    many = counters["lora_residual_many"]
+    for label, kw in cases:
+        runs = {}
+        for dev, server in (("cuda", server_gpu), ("cpu", server_cpu)):
+            train, evald, _ = data[dev]
+            many.launches = many.dx_launches = 0
+            runs[dev] = tr["run_federated"](0, cfg, train, evald, hp=hp, use_pallas=True,
+                                            server=fresh_server(server), final_eval=False, **kw)
+            if dev == "cuda":
+                launched = (many.launches, many.dx_launches)
+        if kw["engine"] == "vmap" and (launched[0] == 0
+                                       or (kw["strategy"] == "feddpa_f") != (launched[1] > 0)):
+            raise AssertionError(f"{label}: lora_residual_many launches {launched} (dx only "
+                                 f"under FedDPA-F)")
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        gl = [m["mean_loss"] for m in gpu.round_metrics]
+        cl = [m["mean_loss"] for m in cpu.round_metrics]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+        f64 = f64_run(tr, cfg, server_cpu, COHORT_SMOKE_DATA, kw["strategy"], hp,
+                      final_eval=False, **{k: v for k, v in kw.items() if k != "strategy"})
+        cfg_p = cfg.with_(use_pallas=False)
+        train, evald, _ = tr["make_federated_data"](cfg_p, device="cpu", **COHORT_SMOKE_DATA)
+        other = tr["run_federated"](0, cfg_p, train, evald, hp=hp, use_pallas=False,
+                                    server=fresh_server(server_cpu), final_eval=False, **kw)
+        pairs = {"plain vs f64": adapter_gaps(cpu, f64), "use_pallas=False vs f64":
+                 adapter_gaps(other, f64), "plain vs use_pallas=False": adapter_gaps(cpu, other)}
+        bound = max(1e-5, ROUNDING_MARGIN * max(max(g) for g in pairs.values()))
+        e_glob, e_own = adapter_gaps(gpu, cpu)
+        held = (f"global adapters {e_glob:.3e}, the clients' own {e_own:.3e}; "
+                f"{hold_adapters(gpu, cpu, bound, f'phase 18a {label}')}; CPU spread (global, "
+                "clients): " + ", ".join(f"{k} ({g[0]:.3e}, {g[1]:.3e})"
+                                         for k, g in pairs.items()))
+        if (loss_err > 1e-5 or run_metrics(gpu) != run_metrics(cpu)
+                or gpu.comm_totals != cpu.comm_totals):
+            raise AssertionError(f"phase 18a {label}, card vs CPU: losses {gl} vs {cl} "
+                                 f"({loss_err:.3e}), metrics {run_metrics(gpu)} vs "
+                                 f"{run_metrics(cpu)}, comm {gpu.comm_totals} vs "
+                                 f"{cpu.comm_totals}, {held}")
+        log(f"[cohort-smoke] smoke llava {label} f32, 4 clients x {kw['rounds']} rounds: card vs "
+            f"CPU round "
+            f"losses {gl} vs {cl} (max rel {loss_err:.3e}, bound 1e-5); metrics "
+            f"{run_metrics(gpu)} equal; comm equal; {held}; card lora_residual_many launches "
+            f"{launched[0]} (dx {launched[1]})")
+        if label.startswith("buffered uniform"):
+            train, evald, _ = data["cuda"]
+            seq = tr["run_federated"](0, cfg, train, evald, rounds=2, hp=hp, use_pallas=True,
+                                      server=fresh_server(server_gpu), final_eval=False,
+                                      strategy="fednano", agg_chunk=4)
+            sl = [m["mean_loss"] for m in seq.round_metrics]
+            s_err = max(abs(a - b) / abs(b) for a, b in zip(gl, sl))
+            s_glob = tree_gap(gpu.server.global_adapters, seq.server.global_adapters)
+            if (s_err > 1e-5 or s_glob > 1e-5 or seq.comm_totals != gpu.comm_totals
+                    or any(m["mean_staleness"] for m in gpu.round_metrics)):
+                raise AssertionError(f"buffered (buffer 4, uniform) vs sequential: losses {gl} "
+                                     f"vs {sl}, adapters {s_glob:.3e}, comm "
+                                     f"{gpu.comm_totals} vs {seq.comm_totals}")
+            log(f"[cohort-smoke] smoke llava buffered (buffer of all 4, uniform latency: "
+                f"staleness 0) vs the sequential engine's streaming merge (agg_chunk 4), card "
+                f"f32: losses {gl} vs {sl} (rel {s_err:.3e}), global adapters {s_glob:.3e} "
+                f"(bounds 1e-5), comm equal")
+
+
+def cohort_runs(torch, tr, counters, cfg, server, train, evald, hp, engines, **kw):
+    """FedNano on ``server`` by each engine of ``engines``, counters and peak
+    memory reset just before each run and read just after. -> {engine:
+    (result, wall s, launches, peak bytes)}."""
+    out = {}
+    for engine in engines:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = tr["run_federated"](0, cfg, train, evald, strategy="fednano", hp=hp,
+                                  use_pallas=True, server=fresh_server(server),
+                                  final_eval=False, engine=engine, **kw)
+        torch.cuda.synchronize()
+        out[engine] = (res, time.perf_counter() - t0, {n: fn.launches for n, fn in
+                                                       counters.items()},
+                       torch.cuda.max_memory_allocated())
+    return out
+
+
+def cohort_full(torch, tr, counters, st):
+    """Phase 18b in bf16 on phase 8's llava server: the vmap engine against
+    the sequential one (4 clients, 2 rounds), a vmap run folded by
+    fisher_fold (agg_chunk 2), launches, step and round times, busy share,
+    peak memory. -> launches by path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.utils import tree_stack
+
+    cfg, server, hp = st["cfg"], st["server"], st["hp"]
+    client, strat = tr["client"], tr["get_strategy"]("fednano")
+    train, evald, _ = tr["make_federated_data"](cfg, device="cuda", **COHORT_DATA)
+    k = len(train)
+    b0 = train[0][0]
+    tokens_per_step = b0.tokens.shape[0] * (b0.tokens.shape[1] + b0.patches.shape[1])
+    runs = cohort_runs(torch, tr, counters, cfg, server, train, evald, hp,
+                       ("sequential", "vmap"), rounds=2)
+    (seq, seq_wall, seq_l, seq_peak), (vm, vm_wall, vm_l, vm_peak) = (runs["sequential"],
+                                                                      runs["vmap"])
+    sl = [m["mean_loss"] for m in seq.round_metrics]
+    vl = [m["mean_loss"] for m in vm.round_metrics]
+    errs = [abs(a - b) / abs(b) for a, b in zip(vl, sl)]
+    steps = hp.local_steps + hp.fisher_batches
+    want_many, want_flash = 2 * steps * 2, cfg.n_layers * steps * 2
+    if (not all(math.isfinite(x) for x in vl) or errs[0] > RUN_LOSS_TOL_BF16
+            or [m["participants"] for m in vm.round_metrics] != [k, k]
+            or vm.comm_totals != seq.comm_totals):
+        raise AssertionError(f"18b bf16 vmap vs sequential: losses {vl} vs {sl}, metrics "
+                             f"{vm.round_metrics}, comm {vm.comm_totals} vs {seq.comm_totals}")
+    if (vm_l["lora_residual_many"] != want_many or vm_l["lora_residual"] != 0
+            or vm_l["flash_attention"] != want_flash or vm_l["fisher_merge"] != 2
+            or seq_l["lora_residual"] != k * want_many or seq_l["lora_residual_many"] != 0):
+        raise AssertionError(f"18b launches: vmap {vm_l}, sequential {seq_l} (want the batched "
+                             f"LoRA {want_many} and flash {want_flash} a run of 2 rounds)")
+    log(f"[cohort] {cfg.name} bf16 fednano, 4 clients x 2 rounds x ({hp.local_steps} steps + "
+        f"{hp.fisher_batches} Fisher batches), batch 4 x (64 patches + 32 tokens), kernels on: "
+        f"vmap round losses {vl} vs sequential {sl} (rel {[f'{e:.3e}' for e in errs]}; round 0 "
+        f"held at {RUN_LOSS_TOL_BF16}, round 1 reported); comm equal {vm.comm_totals}")
+    log(f"[cohort] launches, 2 rounds (counters reset around each run): vmap "
+        f"{json.dumps(vm_l)} | sequential {json.dumps(seq_l)}; per round: batched LoRA "
+        f"{vm_l['lora_residual_many'] // 2} vs one-adapter LoRA {seq_l['lora_residual'] // 2}, "
+        f"flash {vm_l['flash_attention'] // 2} vs {seq_l['flash_attention'] // 2} "
+        f"({vm_l['flash_attention'] // (2 * steps)} vs {seq_l['flash_attention'] // (2 * steps)} "
+        f"a cohort step)")
+    # agg_chunk 2: two cohorts of 2 clients, each upload folded by fisher_fold
+    fold = cohort_runs(torch, tr, counters, cfg, server, train, evald, hp, ("vmap",),
+                       rounds=1, agg_chunk=2)["vmap"]
+    res_f, _, fold_l, _ = fold
+    uploads = [(cl.adapters, cl.fisher, cl.n_examples) for cl in res_f.clients]
+    batch_merge = strat.aggregate(*(list(u) for u in zip(*uploads)), use_pallas=True)
+    fold_err = tree_gap(res_f.server.global_adapters, batch_merge)
+    if fold_err > 1e-6 or fold_l["fisher_fold"] != k or fold_l["fisher_merge"] != 0:
+        raise AssertionError(f"18b agg_chunk=2: streamed merge vs fisher_merge {fold_err:.3e} "
+                             f"(bound 1e-6); launches {fold_l}")
+    log(f"[cohort] vmap agg_chunk=2 (two cohorts of 2), round 0: loss "
+        f"{res_f.round_metrics[0]['mean_loss']}; streamed merge by fisher_fold ({k} launches) "
+        f"vs fisher_merge of the same uploads {fold_err:.3e} of ‖ref‖∞ (bound 1e-6) | launches "
+        f"{json.dumps(fold_l)}")
+
+    # step times: one cohort step of the 4 clients' first batches against one
+    # sequential client step, each ending in its losses on the host
+    adp = server.global_adapters
+    stacked = tree_stack([adp] * k)
+    opt = tree_stack([tr["adamw_init"](adp)] * k)
+    batch = tree_stack([train[c][0] for c in sorted(train)])
+    opt1 = tr["adamw_init"](adp)
+
+    def cohort_step():
+        return client.cohort_train_step(cfg, strat, hp, server.backbone, stacked, opt, batch,
+                                        adp, k)[2].cpu()
+
+    def client_step():
+        return float(client.train_step(cfg, strat, hp, server.backbone, adp, opt1, b0, adp)[2])
+
+    cohort_ms, step_ms = time_host(torch, cohort_step), time_host(torch, client_step)
+    for what, fn in (("one full-width cohort step (4 clients)", cohort_step),
+                     ("one full-width sequential client step", client_step)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        profile_summary(torch, prof, wall, what)
+    log(f"[cohort-time] {cfg.name} bf16: cohort step (4 clients, forward, backward, AdamW, "
+        f"losses to the host) {cohort_ms:.2f} ms = {cohort_ms / k:.2f} ms a client step, "
+        f"{k * tokens_per_step / cohort_ms * 1e3:.1f} trained tokens/s | sequential client "
+        f"step {step_ms:.2f} ms, {tokens_per_step / step_ms * 1e3:.1f} trained tokens/s | "
+        f"speedup a client step {step_ms * k / cohort_ms:.2f}x | round wall (4 clients, no "
+        f"eval): vmap {vm_wall / 2:.3f} s, sequential {seq_wall / 2:.3f} s | peak memory: vmap "
+        f"{vm_peak / 2**30:.2f} GiB, sequential {seq_peak / 2**30:.2f} GiB")
+    launches = {"cohort_vmap": {n: vm_l[n] + fold_l[n] for n in vm_l},
+                "cohort_sequential": seq_l}
+    for name in COHORT_KERNELS:
+        if not launches["cohort_vmap"][name]:
+            raise AssertionError(f"the {name} kernel never launched on the vmap path")
+    return launches
+
+
+def buffered_full(torch, tr, counters, st, root):
+    """Phase 18c in bf16 on phase 8's llava server: the buffered engine with
+    client 0 straggling by latency and every dispatch by the FailureModel,
+    FedBuffOpt(0.5), merges of 2; the uninterrupted run snapshots after each
+    merge, and a run resumed from the snapshot at merge 2 must equal it.
+    -> launches by path."""
+    from repro_torch.core import FailureModel
+    from repro_torch.strategies import FedBuffOpt
+
+    cfg, server, hp = st["cfg"], st["server"], st["hp"]
+    train, evald, _ = tr["make_federated_data"](cfg, device="cuda", **COHORT_DATA)
+    fm = FailureModel(**BUFFERED_FAILURES)
+    kw = dict(strategy="fednano", hp=hp, use_pallas=True, engine="buffered",
+              latency_fn=slow_client0, server_opt=FedBuffOpt(lr=0.5), failures=fm,
+              final_eval=False, **BUFFERED_RUN)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with timed_snapshots() as spent:
+        full = tr["run_federated"](0, cfg, train, evald, server=fresh_server(server),
+                                   checkpoint_dir=f"{root}/full", checkpoint_every=1, **kw)
+        mids = sorted(p.name for p in Path(f"{root}/full").glob("round_*")
+                      if 0 < int(p.name.split("_")[1]) < BUFFERED_RUN["rounds"])
+        if not mids:
+            raise AssertionError("18c: no snapshot between merges")
+        cut = "round_000002" if "round_000002" in mids else mids[-1]
+        resumed = tr["run_federated"](0, cfg, train, evald, server=fresh_server(server),
+                                      resume=f"{root}/full/{cut}", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    stale = [m["mean_staleness"] for m in full.round_metrics]
+    if (any(m["participants"] != BUFFERED_RUN["buffer_size"] for m in full.round_metrics)
+            or max(stale) <= 0.0 or len(full.round_metrics) != BUFFERED_RUN["rounds"]):
+        raise AssertionError(f"18c merges: {full.round_metrics}")
+    gap = hold_resume(full, resumed, f"{cfg.name} buffered")
+    if [m["straggled"] for m in full.round_metrics] != \
+            [m["straggled"] for m in resumed.round_metrics]:
+        raise AssertionError("18c: the resumed run straggled otherwise")
+    snap = Path(root) / "full" / cut
+    snap_bytes = sum(f.stat().st_size for f in snap.iterdir())
+    if not launches["lora_residual"] or not launches["flash_attention"]:
+        raise AssertionError(f"18c launches {launches}")
+    log(f"[buffered] {cfg.name} bf16 fednano buffered, 4 clients (client 0 at 3 ticks), "
+        f"buffer 2, FedBuffOpt(0.5), FailureModel {fm.to_dict()}, 4 merges: losses "
+        f"{[m['mean_loss'] for m in full.round_metrics]}, (participants, staleness, "
+        f"straggled) {[(m['participants'], m['mean_staleness'], m['straggled']) for m in full.round_metrics]}; "
+        f"resumed from {cut}: largest gap {gap:.3e} (bound {RESUME_TOL}; zero: {gap == 0.0}); "
+        f"comm {full.comm_totals} equal")
+    log(f"[buffered] snapshots: {len(spent['save'])} saves of {snap_bytes / 1e6:.3f} MB at "
+        f"{cut}, save {1e3 * min(spent['save']):.1f}-{1e3 * max(spent['save']):.1f} ms, load "
+        f"{', '.join(f'{1e3 * x:.1f}' for x in spent['load'])} ms; both runs {wall:.3f} s | "
+        f"launches {json.dumps(launches)}")
+    return {"buffered": launches}
+
+
+def cohort_full_f32(torch, tr, counters, st):
+    """Phase 18b in f32 on the weights phase 17 upcast in place: round 0 of
+    the vmap engine against the sequential one and the first cohort step's
+    per-client loss and adapter gradients at 1e-4, the adapters after both
+    rounds at ROUNDING_MARGIN times the gap between two f32 orders of the
+    sequential engine (kernels, and the model's use_pallas=False path)."""
+    from repro_torch.utils import tree_stack, tree_unstack
+
+    cfg = st["cfg"].with_(dtype="float32")
+    server = dataclasses.replace(st["server"], cfg=cfg)
+    hp = st["hp"]
+    client = tr["client"]
+    train, evald, _ = tr["make_federated_data"](cfg, device="cuda", **COHORT_DATA)
+    k = len(train)
+    runs = cohort_runs(torch, tr, counters, cfg, server, train, evald, hp,
+                       ("sequential", "vmap"), rounds=2)
+    seq, vm = runs["sequential"][0], runs["vmap"][0]
+    cfg_p = cfg.with_(use_pallas=False)
+    other = tr["run_federated"](0, cfg_p, train, evald, strategy="fednano", hp=hp, rounds=2,
+                                use_pallas=False, server=fresh_server(server), final_eval=False)
+    sl = [m["mean_loss"] for m in seq.round_metrics]
+    vl = [m["mean_loss"] for m in vm.round_metrics]
+    errs = [abs(a - b) / abs(b) for a, b in zip(vl, sl)]
+    witness = adapter_gaps(other, seq)
+    bound = max(1e-5, ROUNDING_MARGIN * max(witness))
+    e_glob, e_own = adapter_gaps(vm, seq)
+    held = hold_adapters(vm, seq, bound, "18b f32 vmap vs sequential")
+    # the first cohort step: per-client loss and adapter gradients
+    adp = server.global_adapters
+    batch = tree_stack([train[c][0] for c in sorted(train)])
+
+    def total(a):
+        per_client = client.cohort_loss(cfg, server.backbone, a, None, batch, k)[0]
+        return per_client.sum(), per_client.detach()
+
+    _, losses, grads = client.value_and_grad(total, tree_stack([adp] * k))
+    step_err = grad_err = 0.0
+    for i, (c, g) in enumerate(zip(sorted(train), tree_unstack(grads, k))):
+        loss, _, want = client.value_and_grad(
+            lambda a: tr["fednano_loss"](cfg, server.backbone, a, train[c][0]), adp)
+        step_err = max(step_err, abs(float(losses[i]) - float(loss)) / abs(float(loss)))
+        grad_err = max(grad_err, tree_gap(g, want))
+    torch.cuda.empty_cache()
+    if (errs[0] > LOSS_TOL["float32"] or step_err > LOSS_TOL["float32"]
+            or grad_err > GRAD_TOL["float32"] or vm.comm_totals != seq.comm_totals):
+        raise AssertionError(f"18b f32 vmap vs sequential: round losses {vl} vs {sl}, first "
+                             f"step loss {step_err:.3e} grads {grad_err:.3e}, adapters "
+                             f"({e_glob:.3e}, {e_own:.3e}); {held}")
+    log(f"[cohort] {cfg.name} f32 (weights upcast in place), fednano 4 clients x 2 rounds: "
+        f"vmap round losses {vl} vs sequential {sl} (rel {[f'{e:.3e}' for e in errs]}; round 0 "
+        f"bound {LOSS_TOL['float32']}); first cohort step vs each client's own step: loss "
+        f"{step_err:.3e}, adapter grads {grad_err:.3e} (bounds 1e-4); after 2 rounds global "
+        f"adapters {e_glob:.3e}, the clients' {e_own:.3e}: {held}, the witness: the "
+        f"sequential engine's use_pallas=False order vs its kernels' ({witness[0]:.3e}, "
+        f"{witness[1]:.3e}); peak memory: vmap "
+        f"{runs['vmap'][3] / 2**30:.2f} GiB, sequential {runs['sequential'][3] / 2**30:.2f} GiB")
+    return {"cohort_vmap_f32": runs["vmap"][2]}
+
+
 SOURCES = {
     "lora_residual": ("src/repro_torch/csrc/lora.cu", "src/repro/kernels/lora/lora.py:49"),
+    # jax.vmap of lora_residual_2d's pallas_call: the vmap engine's batched call
+    "lora_residual_many": ("src/repro_torch/csrc/lora.cu", "src/repro/kernels/lora/lora.py:49"),
     "grouped_lora_residual": ("src/repro_torch/csrc/lora.cu",
                               "src/repro/kernels/lora/lora.py:115"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -3404,9 +3961,11 @@ def main() -> int:
         log(f"[ptxas] {ln}")
 
     main_err = parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref)
+    main_err.update(many_parity(torch, harness, lora_ops, lora_ref))
     serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
                   make_requests, ServingEngine)
     counters = {"lora_residual": lora_ops.lora_residual,
+                "lora_residual_many": lora_ops.lora_residual_many,
                 "grouped_lora_residual": lora_ops.grouped_lora_residual,
                 "flash_attention": fa_ops.flash_attention,
                 "fisher_merge": fm_ops.fisher_merge,
@@ -3430,11 +3989,19 @@ def main() -> int:
     training_check(torch, tr, st)
 
     times = timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref)
+    times["lora_residual_many"] = many_timings(torch, lora_ops, lora_ref)
     times.update(training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref,
                                   fa_ops, fa_ref))
     breakdown(torch, get_config, init_backbone, synth_tenant_adapters, make_requests,
               ServingEngine)
     step_profile(torch, tr, st)
+    # phase 18 in bf16 on the same llava server: the vmap and buffered engines
+    t18 = time.perf_counter()
+    cohort_smoke(torch, tr, counters)
+    launches.update(cohort_full(torch, tr, counters, st))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(buffered_full(torch, tr, counters, st, tmp))
+    t18 = time.perf_counter() - t18
     # phase 17 on the same llava server: resume under failures, checkpoint
     # tenants, the naive loop; then the server's weights are f32
     sv = dict(synth=synth_tenant_adapters, make_requests=make_requests, Engine=ServingEngine)
@@ -3442,6 +4009,10 @@ def main() -> int:
     lora_times, flash_times = naive_timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref)
     times["lora_residual"]["shapes"].update(lora_times)
     times["flash_attention"]["shapes"].update(flash_times)
+    # phase 18b's f32 half, on the weights phase 17 upcast
+    t0 = time.perf_counter()
+    launches.update(cohort_full_f32(torch, tr, counters, st))
+    log(f"[phase18] the vmap and buffered engines: {t18 + time.perf_counter() - t0:.1f} s")
     del st
     torch.cuda.empty_cache()
 

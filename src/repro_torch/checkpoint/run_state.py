@@ -27,8 +27,7 @@ On-disk layout (one directory a snapshot), the JAX package's:
 ``meta.json`` is written last and carries the nonce of the npz: a save cut
 short leaves no meta (unreadable) or a nonce mismatch (refused), never a
 half-restored run. ``BufferedState`` and the ``bsnap``/``bbuf`` entries are
-the buffered engine's (ROADMAP queue 5c): their layout is ported, and no
-engine of the port writes them yet.
+the buffered engine's.
 
 A JAX-written snapshot loads (``load_run_state`` reads its ``rng_key`` and
 checks nothing of it, as the JAX package does); resuming one is refused,

@@ -11,14 +11,30 @@ hooks (``wrap_local_loss``, ``wants_fisher``, ``downloads_global``,
 download the global adapters, train the personal adapter in its warmup
 rounds, run T AdamW steps, then estimate the diagonal FIM (a dedicated pass,
 or the squared gradients of the T steps). ``client_ref_like`` gives the
-structures a checkpointed client restores into. The cohort engines
-(``local_update_many``, vmap and sharded) are ROADMAP queue 5c.
+structures a checkpointed client restores into.
+
+``local_update_many`` is the vmap engine's path, the same round for a
+cohort of K clients with the same schedule flags. Where the JAX package
+``vmap``s the client over a ``lax.scan`` of steps, the port folds the
+clients into the batch: their states are stacked (K, ...) on the device,
+and each step sends the K·B rows through the frozen backbone once, every
+client's rows through its own adapters (``lora_residual_many``), with the
+launches of one sequential step. Only the loss mean, the MoE routing
+groups and AdamW's clip and bias correction could mix clients, and each is
+taken per client. The step differentiates Σₖ of each client's wrapped loss;
+the adapter rows are disjoint, so one backward gives every client its own
+gradient. It runs in three parts, ``prepare_cohort`` (checks, stacking),
+``launch_cohort`` (the update) and ``collect_cohort`` (the losses to the
+host once, the rows back into ``ClientState``s). The sharded engine's
+parts (a mesh, ``pad_to``, ``opt0_override``, ``batches_override``,
+``with_opt=False``, ``collect_cohort_deferred``, ``loss_metrics_deferred``)
+are ROADMAP queue 6.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,8 +43,8 @@ from repro_torch.core.fisher import FisherAccumulator, fisher_pass
 from repro_torch.core.types import Batch
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import token_accuracy
-from repro_torch.optim import adamw_init, adamw_update
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.optim import adamw_init, adamw_update, adamw_update_many
+from repro_torch.utils import tree_leaves, tree_map, tree_stack, tree_unstack
 
 
 @dataclass(frozen=True)
@@ -111,15 +127,17 @@ def combined_loss(cfg, backbone, adapters, local_adapters, batch: Batch):
     return model_lib.loss_fn(cfg, backbone, embeds, positions, labels, mask, enc)
 
 
-def _apply_personal(cfg, local_adapters, embeds, enc, use_pallas: bool):
+def _apply_personal(cfg, local_adapters, embeds, enc, use_pallas: bool, clients=None):
     """The personal text adapter on the whole embedding sequence (the image
     prefix included), the personal image adapter on the audio family's
-    encoder stream only."""
-    kw = dict(rank=cfg.adapter.rank, alpha=cfg.adapter.alpha, use_pallas=use_pallas)
+    encoder stream only. ``clients=K``: K stacked personal adapters on the
+    folded rows (K·B, ...), client-major."""
+    kw = dict(rank=cfg.adapter.rank, alpha=cfg.adapter.alpha, use_pallas=use_pallas,
+              clients=clients)
     if "text" in local_adapters:
-        embeds = adapters_lib.nano_adapter_apply(local_adapters["text"], embeds, **kw)
+        embeds = adapters_lib.adapt(local_adapters["text"], embeds, **kw)
     if enc is not None and "image" in local_adapters:
-        enc = adapters_lib.nano_adapter_apply(local_adapters["image"], enc, **kw)
+        enc = adapters_lib.adapt(local_adapters["image"], enc, **kw)
     return embeds, enc
 
 
@@ -211,6 +229,263 @@ def local_update(cfg, backbone, state: ClientState, batches: List[Batch], hp: Hy
     else:  # hp.local_steps == 0: a no-op round must stay NaN-free
         metrics = {"loss_first": 0.0, "loss_last": 0.0, "loss_mean": 0.0}
     return new_state, metrics
+
+
+# ---------------------------------------------------------------------------
+# the cohort path (engine="vmap"): K clients folded into the batch
+# ---------------------------------------------------------------------------
+
+def cohort_loss(cfg, backbone, adapters, local_adapters, batch: Batch, k: int):
+    """``combined_loss`` of K stacked clients in one folded pass -> (losses
+    (K,), aux (K,)): adapters (and personal adapters) (K, ...), the batch's
+    leaves (K, B, ...)."""
+    embeds, positions, labels, mask, enc = adapters_lib.nanoedge_forward(
+        cfg, backbone, adapters, batch, clients=k)
+    if local_adapters is not None:
+        embeds, enc = _apply_personal(cfg, local_adapters, embeds, enc, cfg.use_pallas,
+                                      clients=k)
+    return model_lib.loss_fn(cfg, backbone, embeds, positions, labels, mask, enc, clients=k)
+
+
+def cohort_train_step(cfg, strategy, hp: HyperParams, backbone, adapters, opt_state,
+                      batch: Batch, global_ref, k: int, local_adapters=None):
+    """One AdamW step of K stacked clients -> (adapters, opt_state, losses
+    (K,), grads). Client k's wrapped loss gets a base loss that returns its
+    term of the folded pass, and its own row of the stacked adapters (so
+    FedProx's proximal term reads that row); the step differentiates their
+    sum and reports each wrapped loss, as ``train_step`` does."""
+
+    def total(adp):
+        losses, aux = cohort_loss(cfg, backbone, adp, local_adapters, batch, k)
+        wrapped = [strategy.wrap_local_loss(lambda _, i=i: (losses[i], aux[i]), hp,
+                                            global_ref)(row)[0]
+                   for i, row in enumerate(tree_unstack(adp, k))]
+        wrapped = torch.stack(wrapped)
+        return wrapped.sum(), wrapped.detach()
+
+    _, losses, grads = value_and_grad(total, adapters)
+    new_adapters, new_opt = adamw_update_many(grads, opt_state, adapters, lr=hp.lr,
+                                              weight_decay=hp.weight_decay,
+                                              grad_clip=hp.grad_clip)
+    return new_adapters, new_opt, losses, grads
+
+
+def cohort_local_adapter_step(cfg, hp: HyperParams, backbone, adapters, local_adapters,
+                              opt_state, batch: Batch, k: int):
+    """FedDPA-F's warmup step for K stacked clients: their personal adapters
+    train, the shared ones frozen; a personal leaf the loss does not read
+    gets a zero gradient. -> (local_adapters, opt_state)."""
+    _, _, grads = value_and_grad(
+        lambda ladp: (cohort_loss(cfg, backbone, adapters, ladp, batch, k)[0].sum(), None),
+        local_adapters, allow_unused=True)
+    return adamw_update_many(grads, opt_state, local_adapters, lr=hp.lr,
+                             grad_clip=hp.grad_clip)
+
+
+def cohort_fisher_grad(cfg, backbone, adapters, batch: Batch, k: int):
+    """K clients' gradients of the plain task loss, stacked (the dedicated
+    FIM pass)."""
+    return value_and_grad(
+        lambda adp: (cohort_loss(cfg, backbone, adp, None, batch, k)[0].sum(), None),
+        adapters)[2]
+
+
+def make_many_update(cfg, strategy, hp: HyperParams, *, downloads: bool,
+                     warmup: bool) -> Callable:
+    """The whole round of a stacked cohort, run eagerly (the body the JAX
+    package compiles as ``vmap`` over clients of ``lax.scan`` over steps):
+    ``update(backbone, global_adapters, adapters0, opt0, local0, lopt0,
+    train_xs, warm_xs, fish_xs) -> (adapters, opt, local, lopt, fisher,
+    losses (K, T))``, every output stacked on the device. ``*_xs`` are lists
+    of batches with (K, B, ...) leaves, one a step (None: no steps);
+    ``adapters0`` is None when the cohort downloads the global adapters."""
+
+    def update(backbone, global_adapters, adapters, opt_state, local, lopt, train_xs, warm_xs,
+               fish_xs):
+        k = opt_state.step.shape[0]
+        if downloads:
+            adapters = tree_map(lambda g: g.expand(k, *g.shape).clone(), global_adapters)
+        if warmup:
+            for batch in warm_xs or []:
+                local, lopt = cohort_local_adapter_step(cfg, hp, backbone, adapters, local,
+                                                        lopt, batch, k)
+        acc = FisherAccumulator.init(adapters) if strategy.wants_fisher == "streaming" else None
+        losses = []
+        for batch in train_xs or []:
+            adapters, opt_state, loss, grads = cohort_train_step(
+                cfg, strategy, hp, backbone, adapters, opt_state, batch, global_adapters, k,
+                local_adapters=local)
+            losses.append(loss)
+            if acc is not None:
+                acc = acc.update(grads)
+        fisher = None
+        if strategy.wants_fisher == "dedicated":
+            # over zero Fisher batches, fisher_pass gives the eps floor (1e-8)
+            fisher = fisher_pass(lambda adp, b: cohort_fisher_grad(cfg, backbone, adp, b, k),
+                                 adapters, fish_xs or [])
+        elif strategy.wants_fisher == "streaming":
+            fisher = acc.finalize()
+        losses = (torch.stack(losses, dim=1) if losses
+                  else torch.zeros((k, 0), dtype=torch.float32, device=opt_state.step.device))
+        return adapters, opt_state, local, lopt, fisher, losses
+
+    return update
+
+
+def _stack_batch_rows(batch_lists: Sequence[List[Batch]], picks, *, shared: bool, k: int):
+    """Per-step cohort batches: a list over steps of batches with (K, B, ...)
+    leaves, ``picks(batches)`` giving the batches one client steps through.
+    ``shared`` (every client trains on the same list object): each step's
+    one batch ``expand``ed to K rows, a view, no copy. None when a client
+    has no batches."""
+    if shared:
+        row = list(picks(batch_lists[0]))
+        return [tree_map(lambda x: x.expand(k, *x.shape), b) for b in row] if row else None
+    rows = [list(picks(bl)) for bl in batch_lists]
+    if any(not row for row in rows):
+        return None
+    return [tree_stack(step) for step in zip(*rows)]
+
+
+@dataclass
+class PreparedCohort:
+    """What :func:`prepare_cohort` hands to :func:`launch_cohort`: the
+    cohort's states, its update and its stacked inputs."""
+
+    states: List[ClientState]
+    k: int
+    fn: Callable
+    args: tuple                  # (adapters0, opt0, local0, lopt0, train_xs, warm_xs, fish_xs)
+    has_local: bool
+    warmup: bool
+    wants_fisher: Optional[str]
+
+
+@dataclass
+class LaunchedCohort:
+    """A cohort's update, run: its outputs stacked on the device (CUDA work
+    may still be in flight)."""
+
+    prepared: PreparedCohort
+    outs: tuple
+
+
+def prepare_cohort(cfg, states: List[ClientState], batch_lists: Sequence[List[Batch]],
+                   hp: HyperParams, strategy) -> PreparedCohort:
+    """Check and stack a cohort (``repro.core.client.prepare_cohort``): every
+    client must have the same download and warmup flags this round (the
+    engine groups them so), the same batch shapes, and as many warmup and
+    Fisher batches; else ``ValueError`` (use ``engine="sequential"``)."""
+    from repro_torch.strategies.base import get_strategy
+
+    strategy = get_strategy(strategy)
+    k = len(states)
+    assert k > 0
+
+    participated = [s.rounds_participated for s in states]
+    downloads = strategy.downloads_global(participated[0])
+    has_local = states[0].local_adapters is not None
+    warmup = has_local and strategy.local_warmup(participated[0], hp)
+    for s, p in zip(states[1:], participated[1:]):
+        if (strategy.downloads_global(p) != downloads
+                or (s.local_adapters is not None) != has_local
+                or ((s.local_adapters is not None)
+                    and strategy.local_warmup(p, hp)) != warmup):
+            raise ValueError(
+                "local_update_many needs a cohort with uniform download/"
+                "warmup schedules; group clients by these flags first")
+
+    warm_ts = {min(len(bl), hp.local_steps) for bl in batch_lists} if warmup else {0}
+    fish_ts = ({min(len(bl), hp.fisher_batches) for bl in batch_lists}
+               if strategy.wants_fisher == "dedicated" else {0})
+    if len(warm_ts) > 1 or len(fish_ts) > 1:
+        raise ValueError(
+            "local_update_many needs uniform per-client batch counts for the "
+            "warmup/Fisher passes; use engine='sequential' for ragged shards")
+    warm_t, fish_t = warm_ts.pop(), fish_ts.pop()
+    train_t = hp.local_steps
+
+    shared = all(bl is batch_lists[0] for bl in batch_lists)
+    try:
+        train_xs = _stack_batch_rows(
+            batch_lists, lambda bl: (bl[t % len(bl)] for t in range(train_t)),
+            shared=shared, k=k)
+        warm_xs = _stack_batch_rows(batch_lists, lambda bl: bl[:warm_t], shared=shared,
+                                    k=k) if warmup else None
+        fish_xs = _stack_batch_rows(batch_lists, lambda bl: bl[:fish_t], shared=shared,
+                                    k=k) if fish_t else None
+    except RuntimeError as e:  # torch.stack: shapes differ
+        raise ValueError(
+            "local_update_many needs identical batch shapes across the "
+            f"cohort ({e}); use engine='sequential' for ragged shards") from e
+    if train_t > 0 and train_xs is None:
+        raise ValueError("clients with no training batches cannot run local steps")
+
+    adapters0 = None if downloads else tree_stack([s.adapters for s in states])
+    opt0 = tree_stack([s.opt_state for s in states])
+    local0 = tree_stack([s.local_adapters for s in states]) if has_local else None
+    lopt0 = None
+    if warmup:
+        lopt0 = tree_stack([s.local_opt_state if s.local_opt_state is not None
+                            else adamw_init(s.local_adapters) for s in states])
+
+    fn = make_many_update(cfg, strategy, hp, downloads=downloads, warmup=warmup)
+    return PreparedCohort(states=list(states), k=k, fn=fn,
+                          args=(adapters0, opt0, local0, lopt0, train_xs, warm_xs, fish_xs),
+                          has_local=has_local, warmup=warmup,
+                          wants_fisher=strategy.wants_fisher)
+
+
+def launch_cohort(prepared: PreparedCohort, backbone, global_adapters) -> LaunchedCohort:
+    """Run a prepared cohort's update. The host queues the whole round's CUDA
+    work; nothing here waits for the card."""
+    return LaunchedCohort(prepared=prepared,
+                          outs=prepared.fn(backbone, global_adapters, *prepared.args))
+
+
+def collect_cohort(launched: LaunchedCohort) -> Tuple[List[ClientState], List[Dict]]:
+    """The cohort's (K, T) losses to the host in one copy, and each client's
+    rows back into its ``ClientState`` (views of the stacked outputs)."""
+    p = launched.prepared
+    k = p.k
+    new_adp, new_opt, new_local, new_lopt, fishers, losses = launched.outs
+
+    adp_list = tree_unstack(new_adp, k)
+    opt_list = tree_unstack(new_opt, k)
+    local_list = tree_unstack(new_local, k) if p.has_local else [None] * k
+    lopt_list = tree_unstack(new_lopt, k) if p.warmup else [None] * k
+    fisher_list = tree_unstack(fishers, k) if p.wants_fisher is not None else [None] * k
+    losses_np = losses.cpu().numpy()
+
+    new_states = [dataclasses.replace(
+        s, adapters=adp_list[i], opt_state=opt_list[i], local_adapters=local_list[i],
+        local_opt_state=lopt_list[i] if p.warmup else s.local_opt_state,
+        fisher=fisher_list[i], rounds_participated=s.rounds_participated + 1)
+        for i, s in enumerate(p.states)]
+    return new_states, _loss_metrics(losses_np)
+
+
+def _loss_metrics(losses_np) -> List[Dict]:
+    """Per-client loss metrics from a (k, T) host array, the sequential
+    path's arithmetic: Python floats summed in step order."""
+    metrics = []
+    for row in losses_np:
+        ls = [float(x) for x in row]
+        if ls:
+            metrics.append({"loss_first": ls[0], "loss_last": ls[-1],
+                            "loss_mean": sum(ls) / len(ls)})
+        else:
+            metrics.append({"loss_first": 0.0, "loss_last": 0.0, "loss_mean": 0.0})
+    return metrics
+
+
+def local_update_many(cfg, backbone, states: List[ClientState],
+                      batch_lists: Sequence[List[Batch]], hp: HyperParams, strategy,
+                      global_adapters) -> Tuple[List[ClientState], List[Dict]]:
+    """``local_update`` over a cohort of clients with the same schedule flags:
+    prepare, launch, collect."""
+    prepared = prepare_cohort(cfg, states, batch_lists, hp, strategy)
+    return collect_cohort(launch_cohort(prepared, backbone, global_adapters))
 
 
 @torch.no_grad()

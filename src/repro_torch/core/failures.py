@@ -10,10 +10,9 @@ finish late. ``FailureModel`` injects all three into the round engine:
   * **crash (mid-update)**: the client downloads θ_global (charged), then
     dies. Its local progress is lost, its ``ClientState`` stays as it was
     (``rounds_participated`` does not advance), nothing is uploaded.
-  * **straggler**: the buffered engine's (ROADMAP queue 5c). Its fields
-    are kept, so that ``to_dict`` and the checks are the JAX package's;
-    its draw (``straggles``) comes with that engine, the one that reads
-    it. The sequential engine ignores straggling, as in the JAX package.
+  * **straggler**: the client finishes, ``straggler_ticks`` late, so its
+    upload lands staler. Only the buffered engine reads it; the
+    synchronized engines ignore straggling, as in the JAX package.
 
 Every draw is a pure function of ``(seed, round, cid, kind)`` with no
 carried state, the kinds independent, so a schedule is independent
@@ -31,15 +30,16 @@ from dataclasses import dataclass
 
 import numpy as np
 
-# the draw streams of a (round, cid); kind 2 is the buffered engine's straggle
+# the draw streams of a (round, cid)
 _KIND_DROP = 0
 _KIND_CRASH = 1
+_KIND_STRAGGLE = 2
 
 
 @dataclass(frozen=True)
 class FailureModel:
     """Seeded, stateless client churn for the round engine; ``round_idx`` is
-    the synchronized round."""
+    the synchronized round, or the buffered engine's dispatch tick."""
 
     dropout_prob: float = 0.0     # P(client never starts the round)
     crash_prob: float = 0.0       # P(client dies mid-update after download)
@@ -69,6 +69,10 @@ class FailureModel:
 
     def crashes(self, cid: int, round_idx: int) -> bool:
         return self.crash_prob > 0.0 and self._draw(_KIND_CRASH, cid, round_idx) < self.crash_prob
+
+    def straggles(self, cid: int, round_idx: int) -> bool:
+        return (self.straggler_prob > 0.0
+                and self._draw(_KIND_STRAGGLE, cid, round_idx) < self.straggler_prob)
 
     def to_dict(self) -> dict:
         """JSON-safe form, recorded in RunState meta."""

@@ -14,33 +14,54 @@
     server_opt.apply           -> an optional FedOpt step on the merged result
     strategy.eval_params       -> which params each client evaluates at the end
 
-The port runs the ``sequential`` engine; the vmap, sharded and buffered
-engines raise ``NotImplementedError`` naming ROADMAP queues 5c and 6.
+Three engines share those hooks (the sharded one raises
+``NotImplementedError`` naming ROADMAP queue 6):
+
+  * ``sequential``: one client at a time.
+  * ``vmap``: each round's cohort grouped by its schedule flags (download,
+    warmup), each group cut into chunks of ``agg_chunk`` clients (else
+    whole) and run by ``client.local_update_many``: the chunk's clients
+    folded into one batch through the frozen backbone, a step for all of
+    them at once. Uploads are offered client by client in plan order, so
+    the merge and the streaming folds see what the sequential engine's
+    would; round metrics keep cohort order.
+  * ``buffered``: FedBuff-style asynchronous merging. Clients train against
+    the global version they last downloaded; a completion-ordered event
+    loop over integer ticks fills a server buffer, and every
+    ``buffer_size`` completions merge with weights n/(1+τ)^p, τ the merges
+    since the client started. ``latency_fn(cid, version)`` gives a run's
+    ticks; a straggler (``FailureModel.straggles``) adds
+    ``straggler_ticks``; ``rounds`` counts merges.
 
 Fault tolerance rides on the same loop: ``checkpoint_dir`` snapshots the
 whole round state (``repro_torch.checkpoint.RunState``: θ_global, the
 ServerOpt moments, every client's AdamW and warmup state, transform
-residuals, the comm log, the seed) every ``checkpoint_every`` rounds and
-at the end; ``resume=`` restores a snapshot and replays: a resumed run's
+residuals, the comm log, the seed, and the buffered engine's event heap,
+version snapshots and merge buffer) every ``checkpoint_every`` rounds
+(merges) and at the end; ``resume=`` restores a snapshot and replays: a resumed run's
 numbers equal the uninterrupted run's on the same device, since nothing
 random is carried (client init draws from ``seed + 2``, DP noise from
 (cid, round), samplers and failures from (seed, round)). ``failures=
-FailureModel(...)`` injects seeded dropout and mid-update crashes.
+FailureModel(...)`` injects seeded dropout, mid-update crashes and (in the
+buffered engine) stragglers.
 ``run_centralized`` is the upper bound: one client holding the union of
 the data.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import os
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import (CheckpointError, RunState, load_run_state, read_run_meta,
-                                    resolve_run_state_dir, save_run_state, seed_key)
+from repro_torch.checkpoint import (BufferedState, CheckpointError, RunState, load_run_state,
+                                    read_run_meta, resolve_run_state_dir, save_run_state,
+                                    seed_key)
 from repro_torch.core import client as client_lib
 from repro_torch.core import server as server_lib
 from repro_torch.core.client import ClientState, HyperParams
@@ -52,7 +73,12 @@ from repro_torch.strategies.sampling import ClientSampler
 from repro_torch.strategies.transforms import TransformCtx, default_transforms
 from repro_torch.utils import tree_bytes, tree_leaves
 
-ENGINES = ("sequential",)
+ENGINES = ("sequential", "vmap", "sharded", "buffered")
+
+# buffered-engine event kinds: RUN completes a local update; RETRY is a
+# failed attempt (dropout or crash) coming back to be dispatched again
+_EV_RUN = 0
+_EV_RETRY = 1
 
 
 @dataclass
@@ -66,6 +92,7 @@ class FederatedResult:
     clients: Optional[List[ClientState]] = None
     engine: str = "sequential"
     server_opt_state: Optional[object] = None  # final ServerOpt moments
+    setup_s: float = 0.0          # wall seconds spent initializing the clients
 
 
 def _not_ported(what: str, queue: str):
@@ -94,21 +121,25 @@ class _Checkpointer:
             "failure_model": failures.to_dict() if failures is not None else None,
         }
 
+    def would_save(self, n: int) -> bool:
+        return self.every > 0 and n > self._last and n % self.every == 0
+
     def maybe_save(self, n: int, **kw) -> None:
-        if self.every > 0 and n > self._last and n % self.every == 0:
+        if self.would_save(n):
             self.save(n, **kw)
 
     def final_save(self, n: int, **kw) -> None:
         if n > self._last:
             self.save(n, **kw)
 
-    def save(self, n: int, *, server, clients, tstates, opt_state, metrics) -> None:
+    def save(self, n: int, *, server, clients, tstates, opt_state, metrics,
+             buffered: Optional[BufferedState] = None) -> None:
         rs = RunState(engine=self.engine, strategy=self.strat.name, round_idx=n,
                       server_round_idx=server.round_idx, rng_key=self._key,
                       global_adapters=server.global_adapters, server_opt_state=opt_state,
                       clients=list(clients), tstates=[list(tstates[c]) for c in self.cids],
                       round_metrics=list(metrics), comm_rounds=server.comm.state_dict(),
-                      meta_extra=self._meta_extra)
+                      buffered=buffered, meta_extra=self._meta_extra)
         sub = f"round_{n:06d}"
         save_run_state(os.path.join(self.dirpath, sub), rs)
         with open(os.path.join(self.dirpath, "LATEST"), "w") as f:
@@ -171,6 +202,8 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
                   agg_chunk: Optional[int] = None, final_eval: bool = True,
                   failures: Optional[FailureModel] = None, checkpoint_dir: Optional[str] = None,
                   checkpoint_every: int = 0, resume: Optional[str] = None,
+                  buffer_size: Optional[int] = None, staleness_power: float = 0.5,
+                  latency_fn: Optional[Callable[[int, int], int]] = None,
                   device=None) -> FederatedResult:
     """Run R rounds of federated NanoAdapter tuning.
 
@@ -186,7 +219,11 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
     through theirs. ``transforms`` defaults to the ``hp``-driven chain (DP, then
     int8 + EF), ``server_opt`` to the strategy's own, ``sampler`` to full
     participation. ``agg_chunk`` folds the uploads into a streaming merge
-    every ``agg_chunk`` clients.
+    every ``agg_chunk`` clients (and, under ``engine="vmap"``, runs the
+    cohort in chunks of that many). ``engine`` picks the execution path
+    (module docstring); ``buffer_size`` (default half the clients),
+    ``staleness_power`` and ``latency_fn(cid, version) -> ticks`` (default
+    1) set up the buffered engine, whose ``rounds`` are merges.
 
     Fault tolerance: ``failures`` injects seeded client churn
     (:class:`repro_torch.core.failures.FailureModel`); ``checkpoint_dir``
@@ -198,7 +235,9 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
     adapters equal the uninterrupted run's.
     """
     if engine not in ENGINES:
-        _not_ported(f"engine={engine!r}", "6" if engine == "sharded" else "5c")
+        raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
+    if engine == "sharded":
+        _not_ported(f"engine={engine!r}", "6")
     strat = get_strategy(strategy)
     if transforms is None:
         transforms = default_transforms(hp)
@@ -214,8 +253,10 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
     cids = sorted(train_data)
     index_of = {cid: i for i, cid in enumerate(cids)}
     gen = torch.Generator().manual_seed(seed + 2)
+    t0 = time.perf_counter()
     clients = [client_lib.to_device(strat.init_client(gen, cfg, cid, len(train_data[cid])),
                                     device) for cid in cids]
+    setup_s = time.perf_counter() - t0
     tstates = {cid: [None] * len(transforms) for cid in cids}
 
     resume_state = None
@@ -230,7 +271,9 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
         for i, cid in enumerate(cids):
             tstates[cid] = list(resume_state.tstates[i])
         if verbose:
-            print(f"  [{strat.name}] resumed at round {resume_state.round_idx} from {resume}")
+            print(f"  [{strat.name}] resumed at "
+                  f"{'merge' if engine == 'buffered' else 'round'} "
+                  f"{resume_state.round_idx} from {resume}")
 
     ckpt = None
     if checkpoint_dir:
@@ -239,10 +282,19 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
                              failures=failures,
                              start=resume_state.round_idx if resume_state is not None else 0)
 
-    result, server = _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp,
-                               transforms, tstates, server_opt, sampler, rounds=rounds,
-                               agg_chunk=agg_chunk, use_pallas=use_pallas, verbose=verbose,
-                               failures=failures, ckpt=ckpt, resume_state=resume_state)
+    if engine == "buffered":
+        result, server = _run_buffered(
+            cfg, server, strat, clients, cids, index_of, train_data, hp, transforms, tstates,
+            server_opt, rounds=rounds, buffer_size=buffer_size,
+            staleness_power=staleness_power, latency_fn=latency_fn, use_pallas=use_pallas,
+            verbose=verbose, failures=failures, ckpt=ckpt, resume_state=resume_state)
+    else:
+        result, server = _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp,
+                                   transforms, tstates, server_opt, sampler, rounds=rounds,
+                                   engine=engine, agg_chunk=agg_chunk, use_pallas=use_pallas,
+                                   verbose=verbose, failures=failures, ckpt=ckpt,
+                                   resume_state=resume_state)
+    result.setup_s = setup_s
     if final_eval:
         for cid in cids:
             adp, ladp = strat.eval_params(server.global_adapters, clients[index_of[cid]])
@@ -255,13 +307,18 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
     return result
 
 
+def _chunks(seq: List, width: int):
+    for i in range(0, len(seq), width):
+        yield seq[i: i + width]
+
+
 def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, transforms, tstates,
-              server_opt, sampler, *, rounds, agg_chunk, use_pallas, verbose, failures=None,
-              ckpt=None, resume_state=None):
-    """Synchronized rounds, one client at a time (the JAX ``sequential`` engine)."""
+              server_opt, sampler, *, rounds, engine, agg_chunk, use_pallas, verbose,
+              failures=None, ckpt=None, resume_state=None):
+    """Synchronized rounds: ``engine`` is "sequential" or "vmap"."""
     streaming = bool(agg_chunk) and strat.aggregates
     opt_state = server_opt.init(server.global_adapters) if server_opt is not None else None
-    result = FederatedResult(strategy=strat.name)
+    result = FederatedResult(strategy=strat.name, engine=engine)
     start_round = 0
     if resume_state is not None:
         start_round = resume_state.round_idx
@@ -286,8 +343,8 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
                     n_crashed += 1
                 else:
                     cohort.append(cid)
-        losses: List[float] = []           # cohort order
-        updates: List[tuple] = []          # (theta, fisher, size), cohort order
+        losses: Dict[int, float] = {}      # cid -> loss_mean
+        updates: List[tuple] = []          # (theta, fisher, size), offer order
         stream_acc = strat.agg_stream_init() if streaming else None
         stream_buf: List[tuple] = []
         stream_bytes = {"param_up": 0, "fisher_up": 0}
@@ -316,24 +373,48 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
             folded_any = True
             stream_buf.clear()
 
-        for cid in cohort:
-            i = index_of[cid]
-            if strat.downloads_global(clients[i].rounds_participated):
-                down_bytes += gbytes
-            clients[i], metrics = client_lib.local_update(
-                cfg, server.backbone, clients[i], train_data[cid], hp, strat,
-                server.global_adapters, round_idx=r)
+        def offer(cid: int, state: ClientState, loss_mean: float):
+            nonlocal wire_up
             theta, wbytes = apply_transforms(
-                cid, strat.post_local_update(clients[i], server.global_adapters, r))
+                cid, strat.post_local_update(state, server.global_adapters, r))
             wire_up += wbytes
-            losses.append(metrics["loss_mean"])
-            upload = (theta, clients[i].fisher, clients[i].n_examples)
+            losses[cid] = loss_mean
+            upload = (theta, state.fisher, state.n_examples)
             if streaming:
                 stream_buf.append(upload)
                 if len(stream_buf) >= agg_chunk:
                     fold_stream()
             else:
                 updates.append(upload)
+
+        if engine == "sequential":
+            for cid in cohort:
+                i = index_of[cid]
+                if strat.downloads_global(clients[i].rounds_participated):
+                    down_bytes += gbytes
+                clients[i], metrics = client_lib.local_update(
+                    cfg, server.backbone, clients[i], train_data[cid], hp, strat,
+                    server.global_adapters, round_idx=r)
+                offer(cid, clients[i], metrics["loss_mean"])
+        else:  # vmap: group the cohort by its schedule flags, then run chunks
+            groups: Dict[tuple, List[int]] = {}
+            for cid in cohort:
+                st = clients[index_of[cid]]
+                p = st.rounds_participated
+                flags = (strat.downloads_global(p),
+                         st.local_adapters is not None and strat.local_warmup(p, hp))
+                groups.setdefault(flags, []).append(cid)
+            plan = [(downloads, chunk) for (downloads, _), gcids in groups.items()
+                    for chunk in _chunks(gcids, agg_chunk or len(gcids))]
+            for downloads, chunk in plan:
+                if downloads:
+                    down_bytes += gbytes * len(chunk)
+                new_states, mets = client_lib.local_update_many(
+                    cfg, server.backbone, [clients[index_of[c]] for c in chunk],
+                    [train_data[c] for c in chunk], hp, strat, server.global_adapters)
+                for c, ns, m in zip(chunk, new_states, mets):
+                    clients[index_of[c]] = ns
+                    offer(c, ns, m["loss_mean"])
 
         if strat.aggregates and (updates or stream_buf or folded_any):
             prev_global = server.global_adapters
@@ -358,9 +439,11 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
             # global still crossed the wire
             server_lib.log_downloads(server, r, down_bytes)
 
-        n = len(losses)
+        # round metrics in cohort order, whatever order the engine ran them
+        round_losses = [losses[c] for c in cohort if c in losses]
+        n = len(round_losses)
         # an empty cohort is not a perfect round: mean_loss None, never 0.0
-        rm = {"round": r, "mean_loss": sum(losses) / n if n else None, "participants": n}
+        rm = {"round": r, "mean_loss": sum(round_losses) / n if n else None, "participants": n}
         if failures is not None:
             rm["dropped"] = n_dropped
             rm["crashed"] = n_crashed
@@ -375,6 +458,182 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
     if ckpt is not None:
         ckpt.final_save(rounds, server=server, clients=clients, tstates=tstates,
                         opt_state=opt_state, metrics=result.round_metrics)
+    result.server_opt_state = opt_state
+    return result, server
+
+
+def _run_buffered(cfg, server, strat, clients, cids, index_of, train_data, hp, transforms,
+                  tstates, server_opt, *, rounds, buffer_size, staleness_power, latency_fn,
+                  use_pallas, verbose, failures=None, ckpt=None, resume_state=None):
+    """FedBuff-style asynchronous engine: merge every ``buffer_size``
+    completions (``repro.core.federated._run_buffered``).
+
+    Simulated time runs in integer ticks; ``latency_fn(cid, version)`` says
+    how many a client's local run takes (default 1: uniform clients give
+    synchronized rounds). A client trains against the global version it
+    last downloaded, and its upload merges with weight n_k/(1+τ)^p, τ the
+    merges made while it ran. ``rounds`` counts merges.
+
+    Failures act on each dispatch attempt, drawn at its tick: a dropped
+    client never downloads and tries again next tick; a crashed one
+    downloads (charged), runs its latency, then its upload is lost and it
+    is dispatched again; a straggler's completion comes ``straggler_ticks``
+    later, so it lands staler.
+
+    Snapshots are taken at tick boundaries once ``checkpoint_every`` merges
+    have passed, with the event heap, the live version snapshots and their
+    refcounts and the part-filled buffer, so a resumed run pops the
+    completions in the order the uninterrupted one would.
+    """
+    if not strat.aggregates:
+        raise ValueError(f"engine='buffered' needs an aggregating strategy; {strat.name!r} "
+                         "never merges (local-only)")
+    bsize = min(buffer_size if buffer_size else max(1, len(cids) // 2), len(cids))
+    if latency_fn is None:
+        latency_fn = lambda cid, version: 1  # noqa: E731
+    opt_state = server_opt.init(server.global_adapters) if server_opt is not None else None
+    result = FederatedResult(strategy=strat.name, engine="buffered")
+    gbytes = tree_bytes(server.global_adapters)
+
+    def fresh_acc():
+        # per-merge traffic and failure counters, carried in snapshots so a
+        # resumed run reports what the uninterrupted one does
+        return {"param_up": 0, "fisher_up": 0, "wire_up": 0, "down": 0, "dropped": 0,
+                "crashed": 0, "straggled": 0}
+
+    # version -> [global snapshot, in-flight refcount]: clients in flight pin
+    # the version they downloaded
+    version = 0
+    snapshots: Dict[int, list] = {version: [server.global_adapters, 0]}
+    events: List[tuple] = []  # (finish tick, cid, version started, kind)
+    merges = 0
+    acc_up = fresh_acc()
+    buffer: List[tuple] = []  # (theta, fisher, size, loss_mean, staleness)
+
+    def dispatch(cid: int, now: int):
+        if failures is not None and failures.drops(cid, now):
+            # offline this tick: no download, no pin, nothing to upload; retry next tick
+            acc_up["dropped"] += 1
+            heapq.heappush(events, (now + 1, cid, version, _EV_RETRY))
+            return
+        if strat.downloads_global(clients[index_of[cid]].rounds_participated):
+            acc_up["down"] += gbytes
+        lat = max(1, int(latency_fn(cid, version)))
+        if failures is not None and failures.straggles(cid, now):
+            acc_up["straggled"] += 1
+            lat += failures.straggler_ticks
+        if failures is not None and failures.crashes(cid, now):
+            # downloaded, then died: nothing comes back, no version stays pinned
+            acc_up["crashed"] += 1
+            heapq.heappush(events, (now + lat, cid, version, _EV_RETRY))
+            return
+        snapshots[version][1] += 1
+        heapq.heappush(events, (now + lat, cid, version, _EV_RUN))
+
+    def state():
+        return BufferedState(version=version, events=list(events), snapshots=snapshots,
+                             buffer=buffer, acc_up=acc_up)
+
+    if resume_state is not None:
+        b = resume_state.buffered
+        if b is None:
+            raise CheckpointError("checkpoint has no buffered-engine state; it was written by "
+                                  "a synchronized engine")
+        version = b.version
+        snapshots = dict(b.snapshots)
+        # the current version's snapshot is the restored global
+        snapshots.setdefault(version, [server.global_adapters, 0])
+        events = list(b.events)  # a valid heap, restored as it was
+        buffer = list(b.buffer)
+        acc_up = dict(b.acc_up)
+        merges = resume_state.round_idx
+        if resume_state.server_opt_state is not None:
+            opt_state = resume_state.server_opt_state
+        result.round_metrics = list(resume_state.round_metrics)
+    else:
+        for cid in cids:
+            dispatch(cid, 0)
+
+    while merges < rounds:
+        if ckpt is not None:
+            ckpt.maybe_save(merges, server=server, clients=clients, tstates=tstates,
+                            opt_state=opt_state, metrics=result.round_metrics,
+                            buffered=state())
+        # drain every completion of this tick before dispatching any of them
+        # again: a client downloads again only after its upload is acked, by
+        # when the server has merged what this tick brought
+        now = events[0][0]
+        done_this_tick: List[int] = []
+        while events and events[0][0] == now and merges < rounds:
+            _, cid, v_start, kind = heapq.heappop(events)
+            done_this_tick.append(cid)
+            if kind != _EV_RUN:
+                continue  # a failed attempt, back to be dispatched again
+            snap_global = snapshots[v_start][0]
+            i = index_of[cid]
+            clients[i], metrics = client_lib.local_update(
+                cfg, server.backbone, clients[i], train_data[cid], hp, strat, snap_global,
+                round_idx=merges)
+            theta = strat.post_local_update(clients[i], snap_global, merges)
+            ctx = TransformCtx(cid=cid, round_idx=merges)
+            theta_wire = None
+            for j, t in enumerate(transforms):
+                theta, tstates[cid][j], w = t.apply(ctx, theta, snap_global, tstates[cid][j])
+                if w is not None:
+                    theta_wire = w
+            acc_up["wire_up"] += theta_wire if theta_wire is not None else tree_bytes(theta)
+            acc_up["param_up"] += tree_bytes(theta)
+            if clients[i].fisher is not None:
+                acc_up["fisher_up"] += tree_bytes(clients[i].fisher)
+            buffer.append((theta, clients[i].fisher, clients[i].n_examples,
+                           metrics["loss_mean"], version - v_start))
+            snapshots[v_start][1] -= 1
+            if snapshots[v_start][1] == 0 and v_start != version:
+                del snapshots[v_start]
+
+            if len(buffer) >= bsize:
+                weights = [n / (1.0 + tau) ** staleness_power for _, _, n, _, tau in buffer]
+                sacc = strat.agg_stream_fold(strat.agg_stream_init(), [b[0] for b in buffer],
+                                             [b[1] for b in buffer], weights,
+                                             use_pallas=use_pallas)
+                merged = strat.agg_stream_finalize(sacc, use_pallas=use_pallas)
+                prev_global = server.global_adapters
+                server = server_lib.server_commit(
+                    server, merged, param_up=acc_up["param_up"], fisher_up=acc_up["fisher_up"],
+                    param_down=acc_up["down"], wire_up=acc_up["wire_up"])
+                if server_opt is not None:
+                    new_global, opt_state = server_opt.apply(opt_state, prev_global,
+                                                             server.global_adapters)
+                    server = dataclasses.replace(server, global_adapters=new_global)
+                blosses = [b[3] for b in buffer]
+                bstale = [b[4] for b in buffer]
+                rm = {"round": merges, "mean_loss": sum(blosses) / len(blosses),
+                      "participants": len(buffer), "mean_staleness": sum(bstale) / len(bstale)}
+                if failures is not None:
+                    # failed and slow dispatch attempts since the last merge
+                    rm["dropped"] = acc_up["dropped"]
+                    rm["crashed"] = acc_up["crashed"]
+                    rm["straggled"] = acc_up["straggled"]
+                result.round_metrics.append(rm)
+                if verbose:
+                    print(f"  [{strat.name}] merge {merges}: mean loss {rm['mean_loss']:.4f} "
+                          f"staleness {rm['mean_staleness']:.2f}")
+                merges += 1
+                version += 1
+                snapshots[version] = [server.global_adapters, 0]
+                buffer.clear()
+                acc_up = fresh_acc()
+
+        for cid in done_this_tick:
+            dispatch(cid, now)
+
+    if ckpt is not None:
+        # the exit snapshot lets a later run add merges (resume with more
+        # ``rounds``); stopping at ``rounds`` leaves this tick's other
+        # completions undrained, so that run continues this schedule rather
+        # than replaying a longer one: the mid-run snapshots are the replays
+        ckpt.final_save(merges, server=server, clients=clients, tstates=tstates,
+                        opt_state=opt_state, metrics=result.round_metrics, buffered=state())
     result.server_opt_state = opt_state
     return result, server
 

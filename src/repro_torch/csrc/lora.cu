@@ -4,6 +4,8 @@
 // Replaces the Pallas TPU kernels
 //   src/repro/kernels/lora/lora.py::lora_residual_2d          (_kernel, line 29)
 //   src/repro/kernels/lora/lora.py::grouped_lora_residual_2d  (_grouped_kernel, line 78)
+// and what jax.vmap makes of the first over a cohort of K clients, each with its
+// own adapter (the vmap round engine's batched pallas_call): repro_lora_residual_many.
 //
 // What bounds it on an H100: the work is 4*T*D*r fp32 operations over
 // 2*T*D*sizeof(x) + 2*D*r*4 bytes. At the prefill shape (T = 128, D = 4096,
@@ -96,6 +98,16 @@
 //           B columns and its x tile (the residual) with cp.async, then
 //           writes bf16 rows with 16-byte stores.
 //   ref.py's lora_residual_split_tf32 models the arithmetic.
+//
+// * K clients at once (repro_lora_residual_many, the cohort engine's call): the
+//   same kernels and launches as one adapter, with the client in the grid:
+//   blockIdx.z in namespace cc (f32), folded into the row tiles of blockIdx.x
+//   in namespace tc (bf16). A block offsets x, out, its client's A and B and
+//   the scratch by its client's rows, so a client's rows meet only its own
+//   adapter and a pass is one launch over all K clients, not K launches. The
+//   bytes to move are K times one adapter's: at the cohort's text rows (K = 4,
+//   T = 128, D = 4096, r = 64, bf16 x) 12.6 MB, 3.8 us at 3.35 TB/s. PERF.md
+//   times it beside K launches of the one-adapter kernel.
 
 #include <algorithm>
 
@@ -325,6 +337,13 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) unsigned char xs_raw[sizeof(T) * kStages * kRows * kSubD];
   T* xs = reinterpret_cast<T*>(xs_raw);  // [kStages][kRows][kSubD]
 
+  // a batched call's client (blockIdx.z, 0 in the other calls): its rows,
+  // its adapter and its scratch
+  const int64_t kc = blockIdx.z;
+  x += kc * T_rows * D;
+  out += kc * T_rows * D;
+  A += kc * D * r;
+  partial += kc * T_rows * kSplit * r;
   const int s = blockIdx.x / groups, j0 = (blockIdx.x % groups) * kRJ;
   if (idx != nullptr && blockIdx.y == gridDim.y - 1) {  // the identity rows
     const int w = (D + gridDim.x - 1) / gridDim.x, c0 = blockIdx.x * w;
@@ -411,6 +430,11 @@ __global__ void __launch_bounds__(kThreads)
   float* hs = bs + r * kCols;                            // [kRows][r]
   T* xs = reinterpret_cast<T*>(hs + kRows * r);          // [kRows][kCols]
 
+  const int64_t kc = blockIdx.z;  // a batched call's client, as in down_kernel
+  x += kc * T_rows * D;
+  out += kc * T_rows * D;
+  B += kc * r * D;
+  partial += kc * T_rows * kSplit * r;
   if (!plan_unit(idx, T_rows, N, blockIdx.y, idx_s, u)) return;
   const int c0 = blockIdx.x * kCols;
   // B and x do not depend on pass 1: copy them while it runs
@@ -466,51 +490,69 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Both passes over rows [0, T) in pieces of kPlanRows. idx == nullptr: one
-// adapter (N = 1).
+// Both passes over t rows (of each of K clients: grid z), one launch each.
+// idx == nullptr: one adapter a client (N = 1).
 template <typename T>
-cudaError_t launch(const T* x, const float* A, const float* B, const int* idx, float* scratch,
-                   T* out, int T_rows, int D, int r, int N, float scale, cudaStream_t stream) {
-  const size_t smem2 = up_smem<T>(r);
-  cudaError_t err = repro::allow_smem<up_kernel<T>>((int)up_smem<T>(kMaxRank));
-  if (err != cudaSuccess) return err;
+cudaError_t launch_pass(const T* x, const float* A, const float* B, const int* idx,
+                        float* partial, T* out, int t, int D, int r, int N, int K, float scale,
+                        cudaStream_t stream) {
   constexpr int E = 16 / sizeof(T);
   const int chunk = ((D + kSplit - 1) / kSplit + 7) / 8 * 8;
   const int n_chunks = (D + chunk - 1) / chunk;
   const int groups = (r + kRJ - 1) / kRJ;
   const bool vec_a = r % 4 == 0 && repro::aligned16(A);
   const bool vec_b = D % 4 == 0 && repro::aligned16(B);
+  const bool vec_x = D % E == 0 && repro::aligned16(x);
+  // units: at most min(adapters, rows) tiles' first rows plus the rest in
+  // whole tiles
+  const int units = idx == nullptr ? (t + kRows - 1) / kRows
+                                   : std::min(t, std::min(N, t) + (t - 1) / kRows);
+  const dim3 g1(n_chunks * groups, units + (idx != nullptr ? 1 : 0), K);
+  down_kernel<T><<<g1, kThreads, 0, stream>>>(x, A, idx, partial, out, t, D, r, N, chunk, groups,
+                                              vec_x, vec_a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + kCols - 1) / kCols, units, K);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = up_smem<T>(r);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, up_kernel<T>, x, B, idx, (const float*)partial, out, t, D, r,
+                            N, n_chunks, scale, vec_x, vec_b);
+}
+
+// Rows [0, T) in pieces of kPlanRows. idx == nullptr: one adapter (N = 1).
+template <typename T>
+cudaError_t launch(const T* x, const float* A, const float* B, const int* idx, float* scratch,
+                   T* out, int T_rows, int D, int r, int N, float scale, cudaStream_t stream) {
+  cudaError_t err = repro::allow_smem<up_kernel<T>>((int)up_smem<T>(kMaxRank));
+  if (err != cudaSuccess) return err;
   for (int off = 0; off < T_rows; off += kPlanRows) {
     const int t = std::min(kPlanRows, T_rows - off);
-    const T* xo = x + (int64_t)off * D;
-    T* oo = out + (int64_t)off * D;
-    const int* io = idx == nullptr ? nullptr : idx + off;
-    float* po = scratch + (int64_t)off * kSplit * r;
-    const bool vec_x = D % E == 0 && repro::aligned16(xo);
-    // units: at most min(adapters, rows) tiles' first rows plus the rest in
-    // whole tiles
-    const int units = idx == nullptr ? (t + kRows - 1) / kRows
-                                     : std::min(t, std::min(N, t) + (t - 1) / kRows);
-    const dim3 g1(n_chunks * groups, units + (idx != nullptr ? 1 : 0));
-    down_kernel<T><<<g1, kThreads, 0, stream>>>(xo, A, io, po, oo, t, D, r, N, chunk, groups,
-                                                vec_x, vec_a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((D + kCols - 1) / kCols, units);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem2;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, up_kernel<T>, xo, B, io, (const float*)po, oo, t, D, r, N,
-                             n_chunks, scale, vec_x, vec_b);
+    err = launch_pass<T>(x + (int64_t)off * D, A, B, idx == nullptr ? nullptr : idx + off,
+                         scratch + (int64_t)off * kSplit * r, out + (int64_t)off * D, t, D, r, N,
+                         1, scale, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
+}
+
+// K clients of T_rows rows each, client k's rows through adapter k: one
+// launch a pass (units need no plan without idx, so no pieces).
+template <typename T>
+cudaError_t launch_many(const T* x, const float* A, const float* B, float* scratch, T* out,
+                        int K, int T_rows, int D, int r, float scale, cudaStream_t stream) {
+  cudaError_t err = repro::allow_smem<up_kernel<T>>((int)up_smem<T>(kMaxRank));
+  if (err == cudaSuccess) {
+    err = launch_pass<T>(x, A, B, nullptr, scratch, out, T_rows, D, r, 1, K, scale, stream);
+  }
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace cc
@@ -586,7 +628,13 @@ __global__ void __launch_bounds__(kDownThreads)
   float* as = reinterpret_cast<float*>(xs + kStages * X_STAGE);  // [kStages][kSubD][LDA], then hi
   float* alo = as + kStages * A_STAGE;                           // [kSubD][LDA]
 
-  const int row0 = blockIdx.x * kRows, s = blockIdx.y, j0 = blockIdx.z * kNB;
+  // blockIdx.x: a batched call's client (0 in the other calls) and its row tile
+  const int tiles = (T + kRows - 1) / kRows;
+  const int64_t kc = blockIdx.x / tiles;
+  x += kc * T * D;
+  A += kc * D * r;
+  partial += kc * T * kSplit * r;
+  const int row0 = (blockIdx.x % tiles) * kRows, s = blockIdx.y, j0 = blockIdx.z * kNB;
   const int d0 = s * chunk, d1 = min(D, d0 + chunk);
   const int n_sub = (d1 - d0 + kSubD - 1) / kSubD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
@@ -668,7 +716,13 @@ __global__ void __launch_bounds__(kThreads)
   float* blo = bs + RP * LDB;                          // [RP][LDB]
   bf16* xs = reinterpret_cast<bf16*>(blo + RP * LDB);  // [kRows][LDX]
 
-  const int row0 = blockIdx.x * kRows, c0 = blockIdx.y * COLS;
+  const int tiles = (T + kRows - 1) / kRows;  // the client and row tile, as in down_kernel
+  const int64_t kc = blockIdx.x / tiles;
+  x += kc * T * D;
+  B += kc * r * D;
+  h_in += kc * T * kSplit * r;
+  out += kc * T * D;
+  const int row0 = (blockIdx.x % tiles) * kRows, c0 = blockIdx.y * COLS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   const int wr = (warp % 4) * 16, wc = (warp / 4) * (COLS / 2);
 
@@ -730,9 +784,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K clients of T rows each (K = 1: one adapter), client k's rows through
+// adapter k.
 template <int RP>
-int launch(const bf16* x, const float* A, const float* B, float* scratch, bf16* out, int T,
-           int D, int r, float scale, cudaStream_t stream) {
+int launch(const bf16* x, const float* A, const float* B, float* scratch, bf16* out, int K,
+           int T, int D, int r, float scale, cudaStream_t stream) {
   cudaError_t err = repro::allow_smem<down_kernel>((int)kDownSmem);
   if (err == cudaSuccess) err = repro::allow_smem<up_kernel<RP>>((int)up_smem<RP>());
   // About four pass-1 blocks per SM: split D into up to kSplit chunks,
@@ -740,7 +796,7 @@ int launch(const bf16* x, const float* A, const float* B, float* scratch, bf16* 
   int sms = 0;
   if (err == cudaSuccess) err = repro::device_sms(&sms);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (T + kRows - 1) / kRows, groups = (r + kNB - 1) / kNB;
+  const int tiles = K * ((T + kRows - 1) / kRows), groups = (r + kNB - 1) / kNB;
   const int want = std::max(1, std::min(kSplit, (4 * sms + tiles * groups - 1) / (tiles * groups)));
   const int chunk = ((D + want - 1) / want + kSubD - 1) / kSubD * kSubD;
   const int splits = (D + chunk - 1) / chunk;
@@ -750,30 +806,31 @@ int launch(const bf16* x, const float* A, const float* B, float* scratch, bf16* 
   const bool vec_h = r % 4 == 0 && repro::aligned16(scratch);
   down_kernel<<<dim3(tiles, splits, groups), kDownThreads, kDownSmem, stream>>>(
       x, A, scratch, T, D, r, chunk, vec_x, vec_a);
-  if (splits > 1) {
-    const int64_t n = (int64_t)T * r;
-    sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(scratch, T, r, splits);
+  if (splits > 1) {  // the scratch rows of all K clients are contiguous: one launch
+    const int64_t n = (int64_t)K * T * r;
+    sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(scratch, K * T, r,
+                                                                       splits);
   }
   up_kernel<RP><<<dim3(tiles, (D + kCols - 1) / kCols), kThreads, up_smem<RP>(), stream>>>(
       x, B, scratch, out, T, D, r, scale, vec_x, vec_b, vec_h);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* x, const float* A, const float* B, float* scratch, void* out, int T,
-             int D, int r, float scale, cudaStream_t stream) {
+int dispatch(const void* x, const float* A, const float* B, float* scratch, void* out, int K,
+             int T, int D, int r, float scale, cudaStream_t stream) {
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* ob = static_cast<bf16*>(out);
-  if (r <= 16) return launch<16>(xb, A, B, scratch, ob, T, D, r, scale, stream);
-  if (r <= 32) return launch<32>(xb, A, B, scratch, ob, T, D, r, scale, stream);
-  if (r <= 64) return launch<64>(xb, A, B, scratch, ob, T, D, r, scale, stream);
-  if (r <= 128) return launch<128>(xb, A, B, scratch, ob, T, D, r, scale, stream);
-  return launch<256>(xb, A, B, scratch, ob, T, D, r, scale, stream);
+  if (r <= 16) return launch<16>(xb, A, B, scratch, ob, K, T, D, r, scale, stream);
+  if (r <= 32) return launch<32>(xb, A, B, scratch, ob, K, T, D, r, scale, stream);
+  if (r <= 64) return launch<64>(xb, A, B, scratch, ob, K, T, D, r, scale, stream);
+  if (r <= 128) return launch<128>(xb, A, B, scratch, ob, K, T, D, r, scale, stream);
+  return launch<256>(xb, A, B, scratch, ob, K, T, D, r, scale, stream);
 }
 
 }  // namespace tc
 
-bool bad_shape(int n_rows, int D, int r, int64_t scratch_floats) {
-  return r < 1 || r > kMaxRank || D < 1 || (int64_t)n_rows * kSplit * r > scratch_floats;
+bool bad_shape(int64_t n_rows, int D, int r, int64_t scratch_floats) {
+  return r < 1 || r > kMaxRank || D < 1 || n_rows < 0 || n_rows * kSplit * r > scratch_floats;
 }
 
 }  // namespace
@@ -790,7 +847,27 @@ extern "C" int repro_lora_residual(const void* x, const float* A, const float* B
     return (int)cc::launch<float>(static_cast<const float*>(x), A, B, nullptr, scratch,
                                   static_cast<float*>(out), n_rows, D, r, 1, scale, s);
   }
-  if (dtype == repro::kBF16) return tc::dispatch(x, A, B, scratch, out, n_rows, D, r, scale, s);
+  if (dtype == repro::kBF16) return tc::dispatch(x, A, B, scratch, out, 1, n_rows, D, r, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K clients of n_rows rows each, contiguous in x and out; A (K, D, r) and B
+// (K, r, D) client-major; scratch at least K * n_rows * kSplit * r floats.
+extern "C" int repro_lora_residual_many(const void* x, const float* A, const float* B,
+                                        float* scratch, long long scratch_floats, void* out,
+                                        int K, int n_rows, int D, int r, float scale, int dtype,
+                                        void* stream) {
+  if (K < 1 || K > 65535 || bad_shape((int64_t)K * n_rows, D, r, scratch_floats)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_rows == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kF32) {
+    if ((n_rows + cc::kRows - 1) / cc::kRows > 65535) return (int)cudaErrorInvalidValue;
+    return (int)cc::launch_many<float>(static_cast<const float*>(x), A, B, scratch,
+                                       static_cast<float*>(out), K, n_rows, D, r, scale, s);
+  }
+  if (dtype == repro::kBF16) return tc::dispatch(x, A, B, scratch, out, K, n_rows, D, r, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -37,6 +37,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     # x, A, B, scratch, scratch_floats, out, T, D, r, scale, dtype, stream
     "repro_lora_residual": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _F, _I, _P],
+    # x, A, B, scratch, scratch_floats, out, K, T, D, r, scale, dtype, stream
+    "repro_lora_residual_many": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, A, B, idx, scratch, scratch_floats, out, T, D, r, N, scale, dtype, stream
     "repro_grouped_lora_residual": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, causal, window, softcap, scale, dtype, stream

@@ -185,6 +185,18 @@ SSD_EDGE_SHAPES = [
 # (4 x 64) apart; (384, 4096) is the whole step's rows in one call.
 FULL_LORA_GRAD_SHAPES = [(4 * 32, 4096, 64, 0), (4 * 64, 4096, 64, 0), (4 * 96, 4096, 64, 0)]
 FULL_FLASH_GRAD_SHAPES = [("llava-train", 4, 96, 96, 32, 32, 128, True, None, 0.0, 0, 0)]
+# The vmap engine's batched LoRA (lora_residual_many), (k, t, d, rank): small
+# cohorts for the CPU tests; llava's cohort of K = 4 clients at batch 4 (the
+# text rows 4 x 32 and the image rows 4 x 64 of each), and K = 1, 3 and 8 at
+# the text rows; then the tile edges: t off the f32 kernel's 8-row units and
+# the bf16 kernel's 64-row tiles (1, 7, 17, 63, 65, 129 rows), d off the
+# 64-column blocks and off multiples of 8 (33, 40, 130), ranks 1, 24 and 72.
+MANY_LORA_SHAPES = [(3, 37, 48, 8), (2, 16, 32, 4), (1, 33, 32, 8), (5, 1, 48, 8)]
+FULL_MANY_LORA_SHAPES = [(4, 128, 4096, 64), (4, 256, 4096, 64), (1, 128, 4096, 64),
+                         (3, 128, 4096, 64), (8, 128, 4096, 64)]
+MANY_LORA_EDGE_SHAPES = [(3, 65, 96, 16), (2, 63, 33, 1), (4, 17, 130, 24), (2, 129, 64, 72),
+                         (6, 7, 40, 8)]
+MANY_LORA_GRAD_SHAPES = [(3, 37, 48, 8), (4, 128, 4096, 64), (4, 256, 4096, 64)]
 FULL_FISHER_SHAPES = [(2, 4096 * 64, 0)]
 # ... and whole adapter trees: llava-1.5-7b's four (4096, 64) and (64, 4096)
 # leaves (text and image, down and up), mamba2-130m's two (768, 64) and

@@ -20,6 +20,13 @@ FedNano's x (token embeddings, connector output) is frozen, so on its path
 the backward launches no kernel. Under FedDPA-F the shared adapters' output
 is the personal adapter's x, so their gradient takes the dx launch
 (``lora_residual.dx_launches`` counts those among ``launches``).
+
+``lora_residual_many`` is the cohort engine's: K clients' rows x (K, T, D),
+each through its own adapter (K, D, r) / (K, r, D), in one kernel call (what
+``jax.vmap`` makes of the Pallas call). ``LoraResidualMany`` is the same VJP
+per client: dx the batched kernel on the transposed stacks (counted in
+``lora_residual_many.dx_launches``), dA and dB each client's f32 products,
+as ``LoraResidual`` takes them.
 """
 from __future__ import annotations
 
@@ -114,6 +121,79 @@ def _residual(x, down, up, scale: float, dx: bool = False):
     build.check(err, "lora_residual")
     lora_residual.launches += 1
     lora_residual.dx_launches += dx
+    return out
+
+
+def lora_residual_many(x, down, up, *, scale: float):
+    """y_k = x_k + scale·(x_k·down_k)·up_k for x (K, T, D); down (K, D, r);
+    up (K, r, D) in f32: one kernel call over the K clients.
+
+    Differentiable in (x, down, up); gradients come back in the input dtypes.
+    """
+    return LoraResidualMany.apply(x, down, up, float(scale))
+
+
+lora_residual_many.launches = 0
+lora_residual_many.dx_launches = 0
+
+
+class LoraResidualMany(torch.autograd.Function):
+    """``LoraResidual`` for K clients at once, each with its own adapter."""
+
+    @staticmethod
+    def forward(ctx, x, down, up, scale):
+        ctx.save_for_backward(x, down, up)
+        ctx.scale = scale
+        return _residual_many(x, down, up, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, down, up = ctx.saved_tensors
+        s = ctx.scale
+        dx = d_down = d_up = None
+        if ctx.needs_input_grad[0]:
+            dx = _residual_many(g.contiguous(), up.transpose(1, 2).contiguous(),
+                                down.transpose(1, 2).contiguous(), s, dx=True).to(x.dtype)
+        # client by client: a batched product is less accurate on the card (ref.py)
+        gf, xf = g.float(), x.float()
+        k = range(x.shape[0])
+        if ctx.needs_input_grad[1]:
+            d_down = torch.stack([s * (xf[i].t() @ (gf[i] @ up[i].float().t()))
+                                  for i in k]).to(down.dtype)                   # (K, D, r)
+        if ctx.needs_input_grad[2]:
+            d_up = torch.stack([s * ((xf[i] @ down[i].float()).t() @ gf[i])
+                                for i in k]).to(up.dtype)                       # (K, r, D)
+        return dx, d_down, d_up, None
+
+
+MAX_CLIENTS = 65535      # csrc/lora.cu: the clients of one call (a grid dimension)
+MAX_TILE_ROWS = 524280   # csrc/lora.cu: f32 rows a client (65,535 tiles of 8)
+
+
+def _residual_many(x, down, up, scale: float, dx: bool = False):
+    """x (K, T, D): the plain version on the CPU, the kernel on a CUDA device."""
+    if x.device.type == "cpu":
+        return ref.lora_residual_many(x, down, up, scale=scale)
+    build.require_cuda("lora_residual_many", x, down, up)
+    _check_x("lora_residual_many", x)
+    if x.dim() != 3 or down.dim() != 3 or up.dim() != 3:
+        raise ValueError("lora_residual_many: x (K, T, D), down (K, D, r), up (K, r, D)")
+    k, t, d = x.shape
+    r = _check_adapters("lora_residual_many", down, up, d)
+    if down.shape[0] != k or up.shape[0] != k:
+        raise ValueError(f"lora_residual_many: {k} clients' rows, adapters for "
+                         f"{down.shape[0]}/{up.shape[0]}")
+    if not 1 <= k <= MAX_CLIENTS or (x.dtype == torch.float32 and t > MAX_TILE_ROWS):
+        raise ValueError(f"lora_residual_many: K = {k}, T = {t} outside the kernel's grid")
+    out, scratch = torch.empty_like(x), _scratch(x, r)
+    with torch.cuda.device(x.device):
+        err = build.library().repro_lora_residual_many(
+            x.data_ptr(), down.data_ptr(), up.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            out.data_ptr(), k, t, d, r, float(scale), build.DTYPE_CODES[x.dtype],
+            build.stream_of(x))
+    build.check(err, "lora_residual_many")
+    lora_residual_many.launches += 1
+    lora_residual_many.dx_launches += dx
     return out
 
 

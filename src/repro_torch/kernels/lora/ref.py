@@ -15,6 +15,16 @@ def lora_residual(x, down, up, *, scale: float):
     return (xf + scale * y).to(x.dtype)
 
 
+def lora_residual_many(x, down, up, *, scale: float):
+    """K clients, each with its own adapter: y_k = x_k + scale · (x_k @ A_k) @ B_k.
+    x (K, T, D); down (K, D, r); up (K, r, D) (``jax.vmap`` of
+    ``lora_residual``). Client by client: on the card a batched product over
+    D = 4,096 rounds about 3x further from f64 than K separate ones (PERF.md
+    §6), outside the f32 tolerance."""
+    return torch.stack([lora_residual(x[k], down[k], up[k], scale=scale)
+                        for k in range(x.shape[0])])
+
+
 def grouped_lora_residual(x, down, up, idx, *, scale: float):
     """Per-row adapter selection against a stacked bank.
 

@@ -1,10 +1,14 @@
 """Federated training driver of the port (``python -m repro_torch.launch.train``).
 
 The JAX package's ``repro.launch.train`` cut to what the port runs: any
-registered strategy (or ``centralized``, the one-client upper bound) with
-the sequential engine on a smoke-size backbone and the synthetic non-IID
-VQA corpus, on ``--device`` (default ``cuda``; on the CPU the kernels' plain
-versions run). ``--server-opt`` applies a FedOpt step to the merged result,
+registered strategy (or ``centralized``, the one-client upper bound) on a
+smoke-size backbone and the synthetic non-IID VQA corpus, on ``--device``
+(default ``cuda``; on the CPU the kernels' plain versions run).
+``--engine`` picks the round engine: ``sequential``, ``vmap`` (each
+round's cohort folded into one batch, in chunks of ``--agg-chunk``),
+``buffered`` (FedBuff-style merges of ``--buffer-size`` completions,
+``--straggler-prob`` delaying a completion) or ``sharded`` (ROADMAP queue
+6, raises). ``--server-opt`` applies a FedOpt step to the merged result,
 ``--client-frac`` samples that fraction of the clients each round.
 ``--use-pallas`` routes the adapters and attention (``cfg.use_pallas``) and
 the server's Fisher merge (``use_pallas``) through the hand-written kernels,
@@ -14,9 +18,7 @@ round state under ``<out>/state`` every ``--checkpoint-every`` rounds and
 at the end; ``--resume DIR`` continues from a snapshot (run with the same
 flags). Writes the same JSON summary under ``--out`` and the final server
 checkpoint under ``<out>/ckpt``, which ``launch.serve --ckpt-root`` serves.
-``--engine``, ``--buffer-size`` and ``--straggler-prob`` (read only by the
-buffered engine), ``--devices`` and ``--no-overlap`` wait for ROADMAP
-queues 5c and 6.
+``--devices`` and ``--no-overlap`` wait for ROADMAP queue 6.
 """
 from __future__ import annotations
 
@@ -44,6 +46,12 @@ def main(argv=None):
                     help="server-optimizer learning rate (default: the opt's own)")
     ap.add_argument("--client-frac", type=float, default=1.0,
                     help="fraction of clients sampled per round (C in C·K)")
+    ap.add_argument("--engine", default="sequential",
+                    choices=["sequential", "vmap", "sharded", "buffered"],
+                    help="round engine: per-client loop, the cohort folded into one batch, "
+                         "the sharded engine (ROADMAP queue 6), or FedBuff-style buffered async")
+    ap.add_argument("--buffer-size", type=int, default=None,
+                    help="server buffer size for --engine buffered (default: half the clients)")
     ap.add_argument("--clients", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--local-steps", type=int, default=8)
@@ -55,7 +63,8 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--agg-chunk", type=int, default=None,
-                    help="fold the uploads into a streaming merge every N clients")
+                    help="fold the uploads into a streaming merge every N clients (vmap: "
+                         "cohorts of N)")
     ap.add_argument("--use-pallas", action="store_true",
                     help="run the adapters, attention and merge on the hand-written kernels")
     ap.add_argument("--out", default="runs/train")
@@ -70,6 +79,8 @@ def main(argv=None):
     ap.add_argument("--crash-prob", type=float, default=0.0,
                     help="per-round probability a client dies mid-update (download "
                          "charged, progress lost)")
+    ap.add_argument("--straggler-prob", type=float, default=0.0,
+                    help="probability a buffered-engine client is delayed")
     ap.add_argument("--failure-seed", type=int, default=0,
                     help="seed of the failure schedule (independent of --seed)")
     ap.add_argument("--device", default="cuda")
@@ -102,13 +113,15 @@ def main(argv=None):
         sampler = (UniformSampler(frac=args.client_frac, seed=args.seed)
                    if args.client_frac < 1.0 else None)
         failures = None
-        if args.dropout_prob or args.crash_prob:
+        if args.dropout_prob or args.crash_prob or args.straggler_prob:
             failures = FailureModel(dropout_prob=args.dropout_prob, crash_prob=args.crash_prob,
+                                    straggler_prob=args.straggler_prob,
                                     seed=args.failure_seed)
         res = run_federated(args.seed, cfg, train, evald, strategy=args.strategy,
                             rounds=args.rounds, hp=hp, verbose=True,
                             use_pallas=args.use_pallas, server_opt=server_opt,
-                            sampler=sampler, agg_chunk=args.agg_chunk, failures=failures,
+                            sampler=sampler, engine=args.engine, agg_chunk=args.agg_chunk,
+                            buffer_size=args.buffer_size, failures=failures,
                             checkpoint_dir=os.path.join(args.out, "state"),
                             checkpoint_every=args.checkpoint_every, resume=args.resume,
                             device=args.device)

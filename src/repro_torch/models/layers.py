@@ -133,17 +133,22 @@ def init_learned_pos(gen, max_len: int, d: int, dtype):
 # losses (f32, as the JAX package computes them)
 # ---------------------------------------------------------------------------
 
-def lm_loss(logits, labels, mask):
+def lm_loss(logits, labels, mask, clients=None):
     """Masked next-token cross entropy.
 
     logits (B, S, V), already shifted (logits[t] predicts labels[t]);
     labels (B, S) int; mask (B, S) {0, 1}, 1 on supervised (answer) positions.
+    ``clients=K``: the B rows are K clients' blocks of B/K, and the loss is
+    (K,), each client's masked sum over its own mask count.
     """
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    if clients is None:
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll.reshape(clients, -1).sum(1)
+            / torch.clamp(mask.reshape(clients, -1).sum(1), min=1.0))
 
 
 def token_accuracy(logits, labels, mask):

@@ -119,20 +119,24 @@ def _text_positions(positions):
     return positions if positions.ndim == 2 else positions[0]
 
 
-def forward(cfg, params, embeds, positions, enc_embeds=None):
+def forward(cfg, params, embeds, positions, enc_embeds=None, clients=None):
     """Full-sequence causal forward (training and evaluation).
 
     embeds (B, S, D), adapter-processed; positions (B, S) int, or (3, B, S)
     under M-RoPE; enc_embeds (B, M, D), the connected frame embeddings of
     the audio family. Returns (hidden (B, S, D) after the final norm, aux:
     the MoE balance loss summed over the layers, 0 for the other families).
+    ``clients=K``: the B rows are K clients' blocks (the cohort's folded
+    pass); aux is then (K,).
     """
     x = _add_learned_pos(cfg, params, embeds, _text_positions(positions))
     angles = make_angles(cfg, positions)
     if cfg.family == "audio":
         x, aux = encdec.decode_forward(cfg, params, x, _encode_memory(cfg, params, enc_embeds))
     else:
-        x, aux = transformer.forward_stack(cfg, params, x, angles)
+        x, aux = transformer.forward_stack(cfg, params, x, angles, clients)
+    if clients is not None:
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device).expand(clients)
     return norm(cfg, params["final_norm"], x), aux
 
 
@@ -141,16 +145,17 @@ def logits(cfg, params, hidden):
     return unembed(params["embed" if cfg.tie_embeddings else "unembed"], hidden)
 
 
-def loss_fn(cfg, params, embeds, positions, labels, mask, enc_embeds=None):
+def loss_fn(cfg, params, embeds, positions, labels, mask, enc_embeds=None, clients=None):
     """Masked LM loss of the frozen backbone on adapted embeddings -> (loss, aux).
 
     aux, the MoE balance loss, is reported and never differentiated (the JAX
     client's ``has_aux``), so it leaves the graph here. The port's configs
     have no ``loss_chunk``, so the full (B, S, V) logits are formed, as in
-    ``repro.models.model.loss_fn``.
+    ``repro.models.model.loss_fn``. ``clients=K`` (rows as in
+    :func:`forward`): loss and aux (K,), each client's own.
     """
-    hidden, aux = forward(cfg, params, embeds, positions, enc_embeds)
-    return lm_loss(logits(cfg, params, hidden), labels, mask), aux.detach()
+    hidden, aux = forward(cfg, params, embeds, positions, enc_embeds, clients)
+    return lm_loss(logits(cfg, params, hidden), labels, mask, clients), aux.detach()
 
 
 def prefill(cfg, params, embeds, positions, capacity: int, enc_embeds=None, length=None):

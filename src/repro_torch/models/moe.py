@@ -101,16 +101,20 @@ def route(cfg, router, xg) -> Routing:
     return Routing(probs, gates, idx, slot < C, slot, C)
 
 
-def moe_apply(cfg, params, x, group: Optional[int] = None):
+def moe_apply(cfg, params, x, group: Optional[int] = None, clients: Optional[int] = None):
     """x (B, S, D) -> (y (B, S, D), balance loss scalar f32) (``moe.py:50-114``).
 
     The B·S tokens route in groups of ``group`` (default ``_group_size``).
     The decode step passes 1, so that each row routes alone, as under the
-    JAX engine's ``vmap`` over its pages.
+    JAX engine's ``vmap`` over its pages. ``clients=K``: the B rows are K
+    clients' blocks, so the default group is ``_group_size`` of one client's
+    tokens (a group never straddles two clients, and capacity drops are
+    those of JAX's ``vmap`` over clients), and the balance loss is (K,), each
+    client's mean over its own groups.
     """
     E = cfg.moe.n_experts
     B, S, D = x.shape
-    xg = x.reshape(-1, group or _group_size(B * S), D)
+    xg = x.reshape(-1, group or _group_size(B * S // (clients or 1)), D)
     r = route(cfg, params["router"], xg)
 
     oh = F.one_hot(r.idx, E).float()                              # (g, G, K, E)
@@ -133,5 +137,5 @@ def moe_apply(cfg, params, x, group: Optional[int] = None):
 
     # GShard balance loss: reported only, the backbone is frozen under FedNano
     frac_tokens = oh[:, :, 0, :].mean(dim=1)                      # (g, E)
-    lb = E * (frac_tokens * r.probs.mean(dim=1)).sum(-1).mean()
-    return y, lb
+    lb = E * (frac_tokens * r.probs.mean(dim=1)).sum(-1)          # (g,)
+    return y, (lb.mean() if clients is None else lb.reshape(clients, -1).mean(1))

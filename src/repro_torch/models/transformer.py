@@ -122,25 +122,26 @@ def _layer_state(stacked, i):
     return type(stacked)(*(t[i] for t in stacked))
 
 
-def dense_body(cfg, lp, x, angles):
+def dense_body(cfg, lp, x, angles, clients=None):
     """One attention layer over the full sequence -> (x, (k, v), aux).
 
     Shared by training (``forward_stack``) and prefill, dense, moe and the
     hybrid stack's attention alike; aux is the MoE balance loss, 0 for a
     dense layer. It writes nothing in place, so autograd can save its
-    tensors; prefill seeds the cache after.
+    tensors; prefill seeds the cache after. ``clients``: the rows are that
+    many clients' blocks (``moe_apply``).
     """
     h = norm(cfg, lp["norm1"], x)
     out, kv = attn_lib.full_attention(cfg, lp["attn"], h, angles, return_kv=True)
     x = x + out
-    y, aux = _ffn(cfg, lp, norm(cfg, lp["norm2"], x))
+    y, aux = _ffn(cfg, lp, norm(cfg, lp["norm2"], x), clients=clients)
     return x + y, kv, aux
 
 
-def _ffn(cfg, lp, h, group=None):
+def _ffn(cfg, lp, h, group=None, clients=None):
     """The layer's MLP or MoE layer -> (y, balance loss, 0 for an MLP)."""
     if "moe" in lp:
-        return moe_lib.moe_apply(cfg, lp["moe"], h, group=group)
+        return moe_lib.moe_apply(cfg, lp["moe"], h, group=group, clients=clients)
     return mlp(cfg, lp["mlp"], h), 0.0
 
 
@@ -159,13 +160,15 @@ def rec_prefill(cfg, lp, x, length=None):
     return x + mlp(cfg, lp["mlp"], norm(cfg, lp["norm2"], x)), st
 
 
-def forward_stack(cfg, stack, x, angles):
+def forward_stack(cfg, stack, x, angles, clients=None):
     """Full-sequence causal stack for training: x (B, S, D) -> (hidden, aux).
 
     aux is the MoE balance loss summed over the layers, 0 for the other
     families (``transformer.py:214-236``). Activations are kept for the
     backward: the JAX package's ``remat`` is a memory option that changes
-    no number.
+    no number. ``clients=K``: the B rows are K clients' blocks; only the MoE
+    layers read it (routing groups within a client, aux (K,)), every other
+    layer is row-local.
     """
     check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -182,7 +185,7 @@ def forward_stack(cfg, stack, x, angles):
         if cfg.family == "ssm":
             x = ssm_body(cfg, lp, x)
         else:
-            x, _, a = dense_body(cfg, lp, x, angles)
+            x, _, a = dense_body(cfg, lp, x, angles, clients)
             aux = aux + a
     return x, aux
 

@@ -8,8 +8,8 @@ gradient estimate and lets a ``ServerOpt`` take the step (Reddi et al. 2021):
 
 ``None`` is the identity (θ_global ← merged), the paper's Alg. 1. A
 ``ServerOpt`` is a stateless frozen dataclass; its moments are a tree
-threaded through ``apply``. FedBuff's damped step waits for the buffered
-engine (ROADMAP queue 5c).
+threaded through ``apply``. ``FedBuffOpt`` is the buffered engine's damped
+step.
 """
 from __future__ import annotations
 
@@ -30,6 +30,18 @@ class ServerOpt:
     def apply(self, opt_state, global_params, merged):
         """-> (new global params, new opt state)."""
         return merged, opt_state
+
+
+@dataclass(frozen=True)
+class FedBuffOpt(ServerOpt):
+    """Damped server step for buffered asynchronous merging (FedBuff, Nguyen
+    et al. 2022): θ ← θ + lr·Δ. The identity at lr = 1; lr < 1 tempers
+    merges built from stale buffered uploads."""
+
+    lr: float = 1.0
+
+    def apply(self, s, global_params, merged):
+        return tree_map(lambda g, m: g + self.lr * (m - g), global_params, merged), s
 
 
 @dataclass(frozen=True)

@@ -2,7 +2,10 @@
 needs). A tree is nested dicts, lists and tuples (a backbone's ``layers``,
 a decode state's ``KVCache`` and recurrent states, flattened field by
 field) whose leaves are tensors; ``None`` is an empty subtree, as in JAX
-(a hybrid stack with no extra layers)."""
+(a hybrid stack with no extra layers). Dicts are walked in sorted key
+order, as ``jax.tree_util`` flattens them, so two trees with the same keys
+give their leaves in the same order whatever order their dicts were built
+in (the Fisher merge pairs an upload's θ and F leaf by leaf)."""
 from __future__ import annotations
 
 import math
@@ -15,7 +18,7 @@ def tree_map(fn, tree, *rest):
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
         if isinstance(tree, list):
@@ -25,11 +28,12 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_leaves(tree):
-    """Leaves in insertion order (the order ``tree_map`` visits them)."""
+    """Leaves in the order ``tree_map`` visits them (dicts by sorted key)."""
     if tree is None:
         return []
     if isinstance(tree, (dict, list, tuple)):
-        return [leaf for v in (tree.values() if isinstance(tree, dict) else tree)
+        return [leaf for v in ([tree[k] for k in sorted(tree)] if isinstance(tree, dict)
+                               else tree)
                 for leaf in tree_leaves(v)]
     return [tree]
 
@@ -62,7 +66,7 @@ def tree_map_with_path(fn, tree, prefix: str = ""):
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, join(k)) for k, v in tree.items()}
+        return {k: tree_map_with_path(fn, tree[k], join(k)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         named = hasattr(tree, "_fields")
         out = [tree_map_with_path(fn, v, join(k))
@@ -109,6 +113,19 @@ def tree_sq_norm(tree):
         s = (x * x).sum()
         total = s if total is None else total + s
     return total if total is not None else torch.zeros(())
+
+
+def tree_stack(trees):
+    """Stack identically structured trees along a new leading axis
+    (``repro.utils.tree_stack``), on the device where the leaves lie: the
+    cohort engine's (K, ...) client rows."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(tree, n: int):
+    """Inverse of :func:`tree_stack`: ``n`` trees, tree i holding row i of
+    every leaf (a view of the stacked leaf)."""
+    return [tree_map(lambda x, i=i: x[i], tree) for i in range(n)]
 
 
 def tree_weighted_sum(trees, weights):

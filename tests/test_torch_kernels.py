@@ -282,6 +282,71 @@ def test_lora_grad_matches_pallas_vjp_and_autograd(t, d, r, bt, dtype):
         assert_close(_np(g), _np(p), kernel="lora", dtype=dtype, err_msg=f"{name} vs autograd")
 
 
+def _many_inputs(seed, k, t, d, r):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((k, t, d)).astype(np.float32),
+            (rng.standard_normal((k, d, r)) * 0.05).astype(np.float32),
+            (rng.standard_normal((k, r, d)) * 0.05).astype(np.float32))
+
+
+def _vmapped_pallas(a, b, c):
+    """``jax.vmap`` of the JAX package's ``lora_residual`` (custom VJP, Pallas
+    in interpret mode): the batched pallas_call the JAX vmap engine runs."""
+    return jax.vmap(lambda x, dn, u: jax_lora.lora_residual(x, dn, u, scale=SCALE, block_t=16,
+                                                            interpret=True))(a, b, c)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,t,d,r", harness.MANY_LORA_SHAPES)
+def test_lora_many_matches_vmapped_pallas(k, t, d, r, dtype):
+    """K clients, each with its own adapter: the plain version (the CPU path
+    of ``lora_residual_many``) against ``jax.vmap`` of the Pallas kernel, and
+    each client's rows against the one-adapter wrapper."""
+    x, down, up = _many_inputs(k * 100 + t + d, k, t, d, r)
+    jx, tx = _pair(x, dtype)
+    want = _vmapped_pallas(jx, jnp.asarray(down), jnp.asarray(up))
+    td, tu = torch.from_numpy(down), torch.from_numpy(up)
+    got = lora_ops.lora_residual_many(tx, td, tu, scale=SCALE)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    assert_close(_np(got), want, kernel="lora", dtype=dtype, err_msg=f"k{k}t{t}d{d}r{r}")
+    for i in range(k):
+        one = lora_ops.lora_residual(tx[i], td[i], tu[i], scale=SCALE)
+        assert_close(_np(got[i]), _np(one), kernel="lora", dtype=dtype, err_msg=f"client {i}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,t,d,r", harness.MANY_LORA_SHAPES)
+def test_lora_many_grad_matches_vmapped_pallas_vjp_and_autograd(k, t, d, r, dtype):
+    """dx, dA, dB of ``LoraResidualMany`` against the vmapped custom VJP and
+    against autograd through the plain version."""
+    x, down, up = _many_inputs(k * 7 + r, k, t, d, r)
+    jx, tx = _pair(x, dtype)
+    td, tu = torch.from_numpy(down), torch.from_numpy(up)
+    want = _sq_loss_grads_jax(_vmapped_pallas, jx, jnp.asarray(down), jnp.asarray(up))
+    got = _sq_loss_grads_torch(lambda a, b, c: lora_ops.lora_residual_many(a, b, c, scale=SCALE),
+                               tx, td, tu)
+    plain = _sq_loss_grads_torch(lambda a, b, c: lora_ref.lora_residual_many(a, b, c,
+                                                                             scale=SCALE),
+                                 tx, td, tu)
+    for name, g, w, p in zip(("dx", "dA", "dB"), got, want, plain):
+        assert g.dtype == (tx.dtype if name == "dx" else torch.float32)
+        assert_close(_np(g), w, kernel="lora", dtype=dtype, err_msg=f"{name} vs Pallas VJP")
+        assert_close(_np(g), _np(p), kernel="lora", dtype=dtype, err_msg=f"{name} vs autograd")
+
+
+def test_lora_many_checks_and_counts_nothing_on_the_cpu():
+    """The CPU path is the plain version (no launch counted); the backward
+    skips dx for a frozen x, as the one-adapter Function does."""
+    x, down, up = _many_inputs(3, 2, 5, 32, 4)
+    tx = torch.from_numpy(x)
+    td, tu = (torch.from_numpy(a).requires_grad_(True) for a in (down, up))
+    before = (lora_ops.lora_residual_many.launches, lora_ops.lora_residual_many.dx_launches)
+    lora_ops.lora_residual_many(tx, td, tu, scale=SCALE).sum().backward()
+    assert tx.grad is None and td.grad is not None and tu.grad is not None
+    assert (lora_ops.lora_residual_many.launches,
+            lora_ops.lora_residual_many.dx_launches) == before
+
+
 def test_lora_backward_skips_dx_for_frozen_x():
     """FedNano's x is frozen: the backward asks for no dx."""
     x, down, up, _ = _lora_inputs(1, 6, 32, 4)

@@ -11,8 +11,10 @@ package's ``tests/kernel_harness.py``, plus the full-width shapes of
 llava-1.5-7b, mamba2-130m, the dense family, the MoE family and qwen2-vl-72b
 (grok-1's attention softcap of 30 at GQA 6, llama4-scout's GQA 5),
 recurrentgemma-9b (head dim 256, 16 heads on one KV head, its 2,048 window)
-and whisper-base (head dim 64, LoRA over 1,500 frames at d_model 512). The
-gradients of ``lora_residual``, ``flash_attention``
+and whisper-base (head dim 64, LoRA over 1,500 frames at d_model 512), and
+the vmap engine's batched ``lora_residual_many`` over cohorts of 1 to 8
+clients and its tile edges. The gradients of ``lora_residual``,
+``lora_residual_many``, ``flash_attention``
 and ``ssd`` (kernel forward, hand-written or recomputed backward) are held
 against ``torch.autograd`` through the plain versions; the Fisher-merge and
 SSD kernels against their plain versions (the Fisher kernels also over whole
@@ -48,6 +50,8 @@ GROUPED_IDS = (["-".join(map(str, s)) for s in GROUPED]
                + [s[0] for s in harness.GROUPED_LORA_EDGE_SHAPES])
 FLASH = (harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.DENSE_FLASH_SHAPES
          + harness.MOE_FLASH_SHAPES + harness.HYBRID_FLASH_SHAPES + harness.AUDIO_FLASH_SHAPES)
+# the vmap engine's batched LoRA: small cohorts, llava's cohort rows, tile edges
+MANY = harness.MANY_LORA_SHAPES + harness.FULL_MANY_LORA_SHAPES + harness.MANY_LORA_EDGE_SHAPES
 LORA_EDGE = harness.LORA_EDGE_SHAPES
 FLASH_EDGE = harness.FLASH_EDGE_SHAPES
 # the bf16 tensor-core kernels against their rounding models
@@ -207,6 +211,70 @@ def test_lora_bf16_kernel_matches_its_model(cuda, t, d, r, bt):
     harness.check_close(got, want, "bfloat16", f"lora t{t}d{d}r{r} vs model",
                         harness.BF16_MODEL_TOLERANCES)
     harness.check_share(got, want, harness.LORA_MODEL_MAX_SHARE, f"lora t{t}d{d}r{r} vs model")
+
+
+def _many(gen, k, t, d, r, dtype):
+    return (_randn(gen, (k, t, d), dtype=getattr(torch, dtype)), _randn(gen, (k, d, r), 0.05),
+            _randn(gen, (k, r, d), 0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,t,d,r", MANY)
+def test_lora_many_kernel_matches_plain(cuda, k, t, d, r, dtype):
+    """The batched kernel (one call over K clients) against the plain version;
+    in f32 each client's rows equal the one-adapter kernel's bit for bit (a
+    row's sums depend only on D and r)."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 1000 + t + d)
+    x, down, up = _many(gen, k, t, d, r, dtype)
+    before = lora_ops.lora_residual_many.launches
+    got = lora_ops.lora_residual_many(x, down, up, scale=SCALE)
+    assert lora_ops.lora_residual_many.launches == before + 1
+    want = lora_ref.lora_residual_many(x, down, up, scale=SCALE)
+    torch.cuda.synchronize()
+    harness.check_close(got, want, dtype, f"lora_many k{k}t{t}d{d}r{r}")
+    if dtype == "float32":
+        one = torch.stack([lora_ops.lora_residual(x[i], down[i], up[i], scale=SCALE)
+                           for i in range(k)])
+        assert torch.equal(got, one), f"lora_many k{k}t{t}d{d}r{r}: f32 rows vs one adapter"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,t,d,r", MANY)
+def test_lora_many_bf16_kernel_matches_its_model(cuda, k, t, d, r):
+    gen = torch.Generator(device=cuda).manual_seed(k * 3 + t + d + r)
+    x, down, up = _many(gen, k, t, d, r, "bfloat16")
+    got = lora_ops.lora_residual_many(x, down, up, scale=SCALE)
+    want = lora_ref.lora_residual_split_tf32(x, down, up, scale=SCALE)
+    torch.cuda.synchronize()
+    harness.check_close(got, want, "bfloat16", f"lora_many k{k}t{t}d{d}r{r} vs model",
+                        harness.BF16_MODEL_TOLERANCES)
+    harness.check_share(got, want, harness.LORA_MODEL_MAX_SHARE,
+                        f"lora_many k{k}t{t}d{d}r{r} vs model")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,t,d,r", harness.MANY_LORA_GRAD_SHAPES)
+def test_lora_many_grad_matches_plain(cuda, k, t, d, r, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(k * 5 + t + r)
+    x, down, up = _many(gen, k, t, d, r, dtype)
+    before = lora_ops.lora_residual_many.dx_launches
+    got = _grads(lambda a, b, c: lora_ops.lora_residual_many(a, b, c, scale=SCALE), x, down, up)
+    assert lora_ops.lora_residual_many.dx_launches == before + 1
+    want = _grads(lambda a, b, c: lora_ref.lora_residual_many(a, b, c, scale=SCALE), x, down,
+                  up)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "dA", "dB"), got, want):
+        harness.check_close(g, w, dtype, f"lora_many grad {name} k{k}t{t}d{d}r{r}")
+
+
+@pytest.mark.cuda
+def test_lora_many_rejects_mismatched_clients(cuda):
+    x = torch.zeros((3, 4, 32), device=cuda)
+    a, b = torch.zeros((2, 32, 4), device=cuda), torch.zeros((2, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="3 clients"):
+        lora_ops.lora_residual_many(x, a, b, scale=SCALE)
 
 
 @pytest.mark.cuda

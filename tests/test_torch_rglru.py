@@ -232,14 +232,15 @@ def test_hybrid_split_reads_the_block_pattern():
 
 def test_tree_helpers_walk_decode_states():
     """``tree_leaves`` and ``tree_map`` walk a decode state's namedtuples
-    field by field and take ``None`` (no extra layers) as an empty subtree,
-    so the slot pool's page write and a whole-tree cast reach every leaf."""
+    field by field (dicts by sorted key, as ``jax.tree_util``) and take
+    ``None`` (no extra layers) as an empty subtree, so the slot pool's page
+    write and a whole-tree cast reach every leaf."""
     st = model_lib.init_state(get_smoke_config(ARCH), 2, 8, torch.float32, "cpu")
     leaves = tree_leaves(st)
     tri = st["triples"]
-    assert [t.shape for t in leaves] == [tri["rec0"].conv.shape, tri["rec0"].h.shape,
-                                         tri["rec1"].conv.shape, tri["rec1"].h.shape,
-                                         tri["attn"].k.shape, tri["attn"].v.shape]
+    assert [t.shape for t in leaves] == [tri["attn"].k.shape, tri["attn"].v.shape,
+                                         tri["rec0"].conv.shape, tri["rec0"].h.shape,
+                                         tri["rec1"].conv.shape, tri["rec1"].h.shape]
     doubled = tree_map(lambda t: t.double(), st)
     assert doubled["extras"] is None
     assert type(doubled["triples"]["rec0"]) is type(tri["rec0"])

@@ -284,13 +284,12 @@ def test_streaming_and_batch_merge_agree(arch):
                           ADAPTER_TOL, f"use_pallas={use_pallas}")
 
 
-@pytest.mark.parametrize("engine", ["vmap", "sharded", "buffered"])
+@pytest.mark.parametrize("engine", ["sharded"])
 def test_unported_options_raise(engine):
-    """The engines beyond ``sequential`` name their queue (5c, or 6 for the
-    sharded one); failures, checkpoints and resume run (test_torch_resume.py)."""
+    """The sharded engine names its queue (6); the vmap and buffered engines
+    run (test_torch_engine.py, test_torch_buffered.py)."""
     _, _, cfg, (train_b, eval_b, _) = _data(False)
-    queue = "6" if engine == "sharded" else "5c"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {queue}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 6"):
         run_federated(0, cfg, train_b, eval_b, rounds=1, device="cpu", engine=engine)
 
 
