@@ -305,6 +305,35 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    gradients against each client's own step within 1e-4, and the adapters
    after both rounds within ROUNDING_MARGIN times the gap between two f32
    orders of the sequential engine (kernels, and use_pallas=False).
+19. The split-learning runtime, rank-heterogeneous NanoAdapters and the
+   sharded round engine, on phase 8's llava-1.5-7b server at phase 18's batch
+   (4 x (64 patches + 32 tokens)), kernels on. Phase 3 holds LoRA at ranks
+   16 and 32 at d 4,096 (``harness.HETERO_LORA_SHAPES``) and the batched
+   kernel at rank 16 (``HETERO_MANY_LORA_SHAPES``).
+   a. After phase 18, in bf16, and after 18b's f32 half, in f32: one split
+      step (``split_train_grads``: NanoEdge on the client, the backbone's
+      forward and backward with respect to the wire, the client's backward)
+      against the fused gradient of ``fednano_loss`` on adapters off
+      identity, f32 within SPLIT_TOL (bf16 printed); the wire bytes equal to
+      ``split_activation_bytes_per_step``; the ms of a split and a fused step.
+   b. f32: three clients at ranks 16, 32 and 64 (alpha 2r) each take one
+      local step through the kernels; ``hetero_fisher_merge`` of their
+      uploads against the fisher_merge kernel on the padded trees (1e-6);
+      ranks 16 and 32 alone in rank-64 space leave every coordinate past 32
+      exactly 0 (no NaN), plain and kernel; the merge's rank-16 slice padded
+      back to 64 gives the slice's NanoEdge output through the LoRA kernel
+      (1e-6).
+   c. f32 on the first SHARDED_LAYERS layers: FedNano, 8 clients, the
+      sharded engine on ``client_mesh()`` against the vmap engine (round 0,
+      1e-5), with the Fisher kernels' per-client merge against its stacked
+      merge (1e-5), an ``agg_chunk=2`` round by fisher_fold against
+      fisher_merge (1e-6), overlap on against off and a resume from round 1
+      (both to the bit), a mesh of two ``cuda:0`` entries against one
+      (1e-5); round time and peak memory of each run, the busy share of a
+      round with overlap on and off, the host syncs of a round
+      (``torch.cuda.set_sync_debug_mode``). Counters are reset around each
+      run; phase 19 must launch lora_residual, lora_residual_many,
+      flash_attention, fisher_merge and fisher_fold.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
@@ -488,7 +517,7 @@ def parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref):
         dtype = getattr(torch, dtype_name)
         for t, d, r, _ in (harness.LORA_SHAPES + harness.FULL_LORA_SHAPES
                            + harness.LORA_EDGE_SHAPES + harness.MOE_LORA_SHAPES
-                           + harness.NEW_FAMILY_LORA_SHAPES):
+                           + harness.NEW_FAMILY_LORA_SHAPES + harness.HETERO_LORA_SHAPES):
             x, down, up = randn((t, d), dtype=dtype), randn((d, r), 0.05), randn((r, d), 0.05)
             got = lora_ops.lora_residual(x, down, up, scale=SCALE)
             err = harness.check_close(got, lora_ref.lora_residual(x, down, up, scale=SCALE),
@@ -2290,7 +2319,8 @@ def step_profile(torch, tr, st):
 
 
 def profile_summary(torch, prof, wall, what):
-    """Log the busy share and the largest device times by kernel name."""
+    """Log the busy share and the largest device times by kernel name. -> the
+    busy share (None where the profiler saw no device activity)."""
     # device activities only (kernels, copies, sets): a CPU op's device time
     # would count its kernels a second time
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -2298,7 +2328,7 @@ def profile_summary(torch, prof, wall, what):
     if not spans:
         log(f"[profile] {what}: the profiler recorded no device activity: busy share not "
             "measured")
-        return
+        return None
     busy_us, reach = 0.0, float("-inf")
     by_name = {}
     for start, end, name in sorted(spans):
@@ -2323,6 +2353,7 @@ def profile_summary(torch, prof, wall, what):
             parts.append(f"{kernel} {t / 1e3:.3f} ms over {n} launches "
                          f"({t / busy_us:.3f} of busy)")
     log(f"[profile]   the port's kernels: {'; '.join(parts) or 'none'}")
+    return busy_us / 1e6 / wall
 
 
 # ---------------------------------------------------------------------------
@@ -3422,7 +3453,7 @@ def many_parity(torch, harness, lora_ops, lora_ref):
 
     main_err, n_cases, model_gap = {}, 0, [0.0, 0.0]
     shapes = (harness.MANY_LORA_SHAPES + harness.FULL_MANY_LORA_SHAPES
-              + harness.MANY_LORA_EDGE_SHAPES)
+              + harness.MANY_LORA_EDGE_SHAPES + harness.HETERO_MANY_LORA_SHAPES)
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for k, t, d, r in shapes:
@@ -3892,6 +3923,342 @@ def cohort_full_f32(torch, tr, counters, st):
     return {"cohort_vmap_f32": runs["vmap"][2]}
 
 
+# Phase 19: the split runtime, rank-heterogeneous adapters and the sharded
+# engine on phase 8's llava-1.5-7b server, at phase 18's batch (4 x (64
+# patches + 32 tokens)).
+SPLIT_BATCH = (4, 32, 64)       # rows, text tokens, image patches
+HETERO_RANKS = (16, 32, 64)     # alpha = 2r: every client's scale is 2
+# 19c: 8 clients x 2 rounds in f32 on the first SHARDED_LAYERS of the 32
+# layers (the runs below take 13 rounds of 8 clients; at full depth in f32,
+# where a local step's 11 TFLOP run on the CUDA cores, that is about 80 s).
+SHARDED_DATA = dict(TRAIN_DATA, n_clients=8)
+SHARDED_LAYERS = 8
+# at the split's shape
+SPLIT_TOL = {"float32": 1e-5}
+PHASE19_KERNELS = ("lora_residual", "lora_residual_many", "flash_attention", "fisher_merge",
+                   "fisher_fold")
+
+
+def phase19_server(st, dtype_name, n_layers=None):
+    """Phase 8's llava server as ``dtype_name`` names it (phase 17 upcasts the
+    weights in place), cut to its first ``n_layers``."""
+    cfg = st["cfg"].with_(dtype=dtype_name)
+    server = dataclasses.replace(st["server"], cfg=cfg)
+    if n_layers is not None:
+        cfg, backbone = cut_depth(cfg, server.backbone, n_layers)
+        server = dataclasses.replace(server, cfg=cfg, backbone=backbone)
+    return cfg, server
+
+
+def split_phase(torch, tr, counters, st, dtype_name):
+    """Phase 19a: one split-learning step (client NanoEdge forward, the
+    server's backbone forward and backward with respect to the wire, the
+    client's backward) against the fused gradient of ``fednano_loss``, on the
+    adapters off identity; the wire bytes against the analytic count; the
+    ms of each. -> launches of one split step."""
+    from repro_torch.core import split
+
+    cfg, server = phase19_server(st, dtype_name)
+    rows, seq, n_patches = SPLIT_BATCH
+    train, _, _ = tr["make_federated_data"](cfg, device="cuda", **TRAIN_DATA)
+    batch = train[0][0]
+    if tuple(batch.tokens.shape) != (rows, seq) or batch.patches.shape[1] != n_patches:
+        raise AssertionError(f"19a batch {tuple(batch.tokens.shape)} + {batch.patches.shape}")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    adapters = {m: {"down": a["down"], "up": torch.randn(a["up"].shape, generator=gen,
+                                                         device="cuda") * 0.05}
+                for m, a in server.global_adapters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    loss, grads, traffic = split.split_train_grads(cfg, server.backbone, adapters, batch)
+    torch.cuda.synchronize()
+    launched = {n: fn.launches for n, fn in counters.items()}
+    floss, _, fgrads = tr["client"].value_and_grad(
+        lambda a: tr["fednano_loss"](cfg, server.backbone, a, batch), adapters)
+    loss_gap = abs(float(loss) - float(floss)) / abs(float(floss))
+    grad_gap = tree_gap(grads, fgrads)
+    want = split.split_activation_bytes_per_step(cfg, rows, seq, n_patches=n_patches)
+    if traffic != want:
+        raise AssertionError(f"19a {dtype_name}: wire bytes {traffic}, analytic {want}")
+    if dtype_name in SPLIT_TOL and (loss_gap > SPLIT_TOL[dtype_name]
+                                    or grad_gap > SPLIT_TOL[dtype_name]):
+        raise AssertionError(f"19a {dtype_name}: split vs fused loss {loss_gap:.3e}, adapter "
+                             f"grads {grad_gap:.3e} (bound {SPLIT_TOL[dtype_name]})")
+    if (not math.isfinite(float(loss)) or not launched["lora_residual"]
+            or not launched["flash_attention"]):
+        raise AssertionError(f"19a {dtype_name}: loss {float(loss)}, launches {launched}")
+    split_ms = time_host(torch, lambda: float(split.split_train_grads(
+        cfg, server.backbone, adapters, batch)[0]))
+    fused_ms = time_host(torch, lambda: float(tr["client"].value_and_grad(
+        lambda a: tr["fednano_loss"](cfg, server.backbone, a, batch), adapters)[0]))
+    held = (f"(bound {SPLIT_TOL[dtype_name]})" if dtype_name in SPLIT_TOL
+            else "(reported: bf16 rounds the wire)")
+    log(f"[split] {cfg.name} {dtype_name}, batch {rows} x ({n_patches} patches + {seq} tokens), "
+        f"kernels on: split loss {float(loss):.6f} vs fused {float(floss):.6f} (rel "
+        f"{loss_gap:.3e}), adapter grads {grad_gap:.3e} of ‖ref‖∞ {held}; wire bytes "
+        f"{traffic} = analytic {want}; split step {split_ms:.2f} ms, fused step "
+        f"{fused_ms:.2f} ms (host ms, ending in the loss on the host) | launches of one split "
+        f"step {json.dumps(launched)}")
+    return {f"split_{dtype_name}": launched}
+
+
+def hetero_phase(torch, tr, counters, st):
+    """Phase 19b in f32: three clients at ranks 16, 32 and 64 (alpha 2r) each
+    take one local step through the kernels from the global adapters cut to
+    their rank, with its squared gradient as Fisher; their uploads merged in
+    rank-64 space (plain) against the fisher_merge kernel on the padded
+    trees; the merge without the rank-64 client leaves the coordinates past
+    rank 32 at exactly 0; the rank-16 slice, padded back to 64, gives that
+    slice's NanoEdge output through the LoRA kernel. -> launches."""
+    from repro_torch.core.aggregation import fisher_merge
+    from repro_torch.core.fisher import FisherAccumulator
+    from repro_torch.core.hetero import hetero_fisher_merge, pad_nanoedge, truncate_nanoedge
+
+    cfg, server = phase19_server(st, "float32")
+    hp, strat = st["hp"], tr["get_strategy"]("fednano")
+    train, _, _ = tr["make_federated_data"](cfg, device="cuda", **COHORT_DATA)
+    rank_cfg = {r: cfg.with_(adapter=dataclasses.replace(cfg.adapter, rank=r, alpha=2.0 * r))
+                for r in HETERO_RANKS}
+    for fn in counters.values():
+        fn.launches = 0
+    thetas, fishers, losses = [], [], []
+    for c, r in enumerate(HETERO_RANKS):
+        adp = truncate_nanoedge(server.global_adapters, r)
+        adp = {m: {n: t.contiguous() for n, t in a.items()} for m, a in adp.items()}
+        acc = FisherAccumulator.init(adp)
+        new, _, loss, acc = tr["client"].train_step(
+            rank_cfg[r], strat, hp, server.backbone, adp, tr["adamw_init"](adp), train[c][0],
+            adp, fisher_acc=acc)
+        thetas.append(new)
+        fishers.append(acc.finalize())
+        losses.append(float(loss))
+    sizes = [len(train[c]) for c in range(len(HETERO_RANKS))]
+    rmax = max(HETERO_RANKS)
+    merged = hetero_fisher_merge(thetas, fishers, HETERO_RANKS, sizes)
+    kernel = fisher_merge([pad_nanoedge(t, rmax) for t in thetas],
+                          [pad_nanoedge(f, rmax) for f in fishers], sizes, use_pallas=True)
+    merge_gap = tree_gap(merged, kernel)
+    # without the rank-64 client: no Fisher mass past rank 32
+    low = [r for r in HETERO_RANKS if r < rmax]
+    part = hetero_fisher_merge(thetas[:len(low)], fishers[:len(low)], low, sizes[:len(low)],
+                               rank_max=rmax)
+    part_k = fisher_merge([pad_nanoedge(t, rmax) for t in thetas[:len(low)]],
+                          [pad_nanoedge(f, rmax) for f in fishers[:len(low)]], sizes[:len(low)],
+                          use_pallas=True)
+    part_gap = tree_gap(part, part_k)
+    empty = [(t[:, max(low):] if n == "down" else t[max(low):])
+             for tree in (part, part_k) for a in tree.values() for n, t in a.items()]
+    live = [t[:, :max(low)] if n == "down" else t[:max(low)]
+            for a in part_k.values() for n, t in a.items()]
+    nan = any(bool(torch.isnan(t).any()) for tree in (merged, kernel, part, part_k)
+              for a in tree.values() for t in a.values())
+    # the rank-16 slice of the merge, and the same slice padded back to 64
+    r0 = HETERO_RANKS[0]
+    sub = truncate_nanoedge(merged, r0)
+    sub = {m: {n: t.contiguous() for n, t in a.items()} for m, a in sub.items()}
+    with torch.no_grad():
+        want = tr["adapters"].nanoedge_forward(rank_cfg[r0], server.backbone, sub, train[0][0])
+        # rank 64 at alpha 128: the slice's own scale, alpha / rank = 2
+        got = tr["adapters"].nanoedge_forward(rank_cfg[rmax], server.backbone,
+                                              pad_nanoedge(sub, rmax), train[0][0])
+    slice_gap = float((got[0] - want[0]).abs().max()) / float(want[0].abs().max())
+    torch.cuda.synchronize()
+    launched = {n: fn.launches for n, fn in counters.items()}
+    if (merge_gap > 1e-6 or part_gap > 1e-6 or slice_gap > 1e-6 or nan
+            or any(bool(t.any()) for t in empty) or not all(bool(t.any()) for t in live)
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"19b: merge plain vs kernel {merge_gap:.3e}, without the rank-64 "
+                             f"client {part_gap:.3e}, rank-16 slice {slice_gap:.3e} (bounds "
+                             f"1e-6), NaN {nan}, zero past rank {max(low)} "
+                             f"{not any(bool(t.any()) for t in empty)}, losses {losses}")
+    log(f"[hetero] {cfg.name} f32, clients at ranks {list(HETERO_RANKS)} (alpha 2r), one "
+        f"local step each through the kernels: losses {losses}; merged in rank-{rmax} space "
+        f"(plain) vs the fisher_merge kernel on the padded trees {merge_gap:.3e} of ‖ref‖∞; "
+        f"ranks {low} alone in rank-{rmax} space: {part_gap:.3e}, every coordinate past rank "
+        f"{max(low)} exactly 0 in both, no NaN; the rank-{r0} slice padded to {rmax} vs the "
+        f"slice through the LoRA kernel {slice_gap:.3e} (bounds 1e-6) | launches "
+        f"{json.dumps(launched)}")
+    return {"hetero": launched}
+
+
+def same_run(a, b) -> bool:
+    """Two runs equal to the bit: round metrics, comm, every adapter, AdamW
+    state and Fisher."""
+    from repro_torch.utils import tree_leaves
+
+    trees = lambda res: ([res.server.global_adapters]
+                         + [t for c in res.clients for t in (c.adapters, c.opt_state, c.fisher)])
+    return (a.round_metrics == b.round_metrics and a.comm_totals == b.comm_totals
+            and all(torch_equal(x, y) for ta, tb in zip(trees(a), trees(b))
+                    for x, y in zip(tree_leaves(ta), tree_leaves(tb))))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return x.shape == y.shape and bool(torch.equal(x, y))
+
+
+def run_gaps(got, want):
+    """(round 0's loss, the global adapters, the clients' adapters): largest
+    relative gaps."""
+    l0 = abs(got.round_metrics[0]["mean_loss"] - want.round_metrics[0]["mean_loss"]) / abs(
+        want.round_metrics[0]["mean_loss"])
+    return (l0, tree_gap(got.server.global_adapters, want.server.global_adapters),
+            max(tree_gap(g.adapters, w.adapters) for g, w in zip(got.clients, want.clients)))
+
+
+@contextlib.contextmanager
+def counted_syncs(torch):
+    """Count the host syncs CUDA work makes inside the block
+    (``torch.cuda.set_sync_debug_mode("warn")``): -> {"file:line" of the
+    Python call that synced: count}."""
+    import warnings
+
+    seen = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for w in caught:
+        if "synchronizing" not in str(w.message):
+            continue
+        key = f"{Path(w.filename).name}:{w.lineno}"
+        seen[key] = seen.get(key, 0) + 1
+
+
+def sharded_phase(torch, tr, counters, st, root):
+    """Phase 19c in f32 on the first SHARDED_LAYERS layers: FedNano, 8
+    clients, the sharded engine on client_mesh() (one card) against the
+    vmap engine (round 0: losses and adapters 1e-5), with the Fisher kernels
+    (the per-client path) against the stacked merge (1e-5), overlap on
+    against off (to the bit), a mesh of two cuda:0 entries against one
+    (1e-5), a resume from round 1 against the uninterrupted run (to the bit),
+    an agg_chunk=2 round folded by fisher_fold (1e-6 of fisher_merge's);
+    round time, busy share and peak memory with overlap on and off, the host
+    syncs of a round. -> launches by run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sharding import ClientMesh, client_mesh
+
+    cfg, server = phase19_server(st, "float32", SHARDED_LAYERS)
+    hp = st["hp"]
+    train, evald, _ = tr["make_federated_data"](cfg, device="cuda", **SHARDED_DATA)
+    mesh1, mesh2 = client_mesh(device="cuda"), ClientMesh([torch.device("cuda", 0)] * 2)
+    if mesh1.size != torch.cuda.device_count():
+        raise AssertionError(f"client_mesh() over {mesh1.size} of "
+                             f"{torch.cuda.device_count()} cards")
+    launches, timing = {}, {}
+
+    def run(label, engine="sharded", **kw):
+        kw.setdefault("rounds", 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = tr["run_federated"](0, cfg, train, evald, strategy="fednano", hp=hp,
+                                  server=fresh_server(server), final_eval=False, engine=engine,
+                                  **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = {n: fn.launches for n, fn in counters.items()}
+        timing[label] = (wall / kw["rounds"], torch.cuda.max_memory_allocated())
+        if not all(math.isfinite(m["mean_loss"]) for m in res.round_metrics):
+            raise AssertionError(f"19c {label}: {res.round_metrics}")
+        return res
+
+    vm = run("vmap", engine="vmap", rounds=1)
+    vm1 = run("vmap, cohorts of 1 (agg_chunk 1)", engine="vmap", rounds=1, agg_chunk=1)
+    fast = run("mesh 1, 1 round", devices=mesh1, rounds=1)
+    kern = run("mesh 1, Fisher kernels, 1 round", devices=mesh1, rounds=1, use_pallas=True)
+    fold = run("mesh 1, Fisher kernels, agg_chunk 2, 1 round", devices=mesh1, rounds=1,
+               use_pallas=True, agg_chunk=2)
+    on = run("mesh 1, overlap on", devices=mesh1, checkpoint_dir=f"{root}/sharded",
+             checkpoint_every=1)
+    off = run("mesh 1, overlap off", devices=mesh1, overlap=False)
+    two = run("mesh of 2 x cuda:0", devices=mesh2)
+    resumed = run("mesh 1, resumed from round 1", devices=mesh1,
+                  resume=f"{root}/sharded/round_000001")
+    vm1_gap, kern_gap = run_gaps(fast, vm1), run_gaps(kern, fast)
+    # against the whole cohort in one vmap pass: other GEMM shapes on the
+    # card, so other f32 orders, which AdamW turns into sign-sized steps on
+    # isolated elements; the witness is the vmap engine against itself at
+    # cohorts of 1 (no sharded code)
+    vm_gap, witness = run_gaps(fast, vm), run_gaps(vm1, vm)
+    vm_held = hold_adapters(fast, vm, max(1e-5, ROUNDING_MARGIN * max(witness[1:])),
+                            "19c sharded vs vmap (one cohort)")
+    _, vm_over, vm_total = adapter_outliers(fast, vm, 1e-5)
+    two_gap = run_gaps(two, on)
+    uploads = [(c.adapters, c.fisher, c.n_examples) for c in fold.clients]
+    batch_merge = tr["get_strategy"]("fednano").aggregate(*(list(u) for u in zip(*uploads)),
+                                                          use_pallas=True)
+    fold_gap = tree_gap(fold.server.global_adapters, batch_merge)
+    k = SHARDED_DATA["n_clients"]
+    if (max(vm1_gap) > 1e-5 or vm_gap[0] > 1e-5 or max(kern_gap) > 1e-5
+            or max(two_gap) > 1e-5 or fold_gap > 1e-6
+            or not same_run(on, off) or not same_run(on, resumed)
+            or fast.comm_totals != vm.comm_totals or kern.comm_totals != vm.comm_totals
+            or [m["participants"] for m in on.round_metrics] != [k, k]):
+        raise AssertionError(
+            f"19c: sharded vs vmap in cohorts of 1 (loss, global, clients) {vm1_gap}, vs vmap "
+            f"in one cohort {vm_gap}, Fisher kernels vs stacked "
+            f"merge {kern_gap}, mesh of 2 vs 1 {two_gap} (bounds 1e-5), agg_chunk 2 fold vs "
+            f"merge {fold_gap:.3e} (1e-6), overlap off equal {same_run(on, off)}, resumed "
+            f"equal {same_run(on, resumed)}, comm {fast.comm_totals} vs {vm.comm_totals}")
+    folds = launches["mesh 1, Fisher kernels, agg_chunk 2, 1 round"]
+    if (launches["mesh 1, 1 round"]["fisher_merge"] != 0
+            or launches["mesh 1, Fisher kernels, 1 round"]["fisher_merge"] != 1
+            or folds["fisher_fold"] != k or not launches["mesh 1, 1 round"][
+                "lora_residual_many"]):
+        raise AssertionError(f"19c launches {launches}")
+    # one round with overlap on and off, twice in turns: its wall and busy
+    # share (device activities only, so the profiler adds little host work);
+    # then the host syncs of a round
+    busy = {"on": [], "off": []}
+    for label in ("on", "off", "on", "off"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr["run_federated"](0, cfg, train, evald, strategy="fednano", hp=hp, rounds=1,
+                                server=fresh_server(server), final_eval=False,
+                                engine="sharded", devices=mesh1, overlap=label == "on")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        share = profile_summary(torch, prof, wall, f"one sharded round ({k} clients, "
+                                f"{SHARDED_LAYERS} layers, f32), overlap {label}")
+        busy[label].append(f"{1e3 * wall:.1f} ms at busy share "
+                           f"{'not measured' if share is None else f'{share:.3f}'}")
+    with counted_syncs(torch) as syncs:
+        tr["run_federated"](0, cfg, train, evald, strategy="fednano", hp=hp, rounds=1,
+                            server=fresh_server(server), final_eval=False, engine="sharded",
+                            devices=mesh1)
+        torch.cuda.synchronize()
+    log(f"[sharded] {cfg.name} f32 cut to {SHARDED_LAYERS} of 32 layers, fednano {k} clients "
+        f"x 2 rounds x ({hp.local_steps} steps + {hp.fisher_batches} Fisher batches), batch 4 x "
+        f"(64 patches + 32 tokens), kernels on: mesh 1 (client_mesh(), chunks of 1) vs vmap "
+        f"in cohorts of 1, round 0 (loss, global, clients) "
+        f"{tuple(f'{x:.3e}' for x in vm1_gap)}; vs vmap in one cohort of {k} "
+        f"{tuple(f'{x:.3e}' for x in vm_gap)} ({vm_over} of {vm_total} adapter elements "
+        f"beyond 1e-5): {vm_held}, the witness vmap in cohorts of 1 vs "
+        f"one cohort {tuple(f'{x:.3e}' for x in witness)}; the Fisher "
+        f"kernels' per-client merge vs the stacked merge {tuple(f'{x:.3e}' for x in kern_gap)}; "
+        f"mesh of 2 x cuda:0 vs mesh 1 after 2 rounds {tuple(f'{x:.3e}' for x in two_gap)} "
+        f"(bounds 1e-5, loss of one cohort too); agg_chunk 2 by fisher_fold ({folds['fisher_fold']} launches) vs "
+        f"fisher_merge {fold_gap:.3e} (1e-6); overlap off equal to on to the bit; resumed from "
+        f"round 1 equal to the bit; losses {[m['mean_loss'] for m in on.round_metrics]}; comm "
+        f"{on.comm_totals}")
+    log("[sharded] round wall and peak memory: " + "; ".join(
+        f"{label} {1e3 * w:.1f} ms a round, {p / 2**30:.2f} GiB" for label, (w, p)
+        in timing.items()) + f" | one round, in turns: overlap on {', '.join(busy['on'])}; "
+        f"off {', '.join(busy['off'])} | host syncs in one round (overlap on), by the Python "
+        f"line that synced: {json.dumps(syncs)}")
+    log(f"[sharded] launches by run (counters reset around each): {json.dumps(launches)}")
+    return {"phase19c": {n: sum(v[n] for v in launches.values()) for n in counters}}
+
+
 SOURCES = {
     "lora_residual": ("src/repro_torch/csrc/lora.cu", "src/repro/kernels/lora/lora.py:49"),
     # jax.vmap of lora_residual_2d's pallas_call: the vmap engine's batched call
@@ -3921,6 +4288,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import HyperParams, init_server, run_federated
+    from repro_torch.core import adapters as adapters_lib
     from repro_torch.core import client as client_lib
     from repro_torch.core.adapters import fednano_loss
     from repro_torch.core.fisher import fisher_pass
@@ -3980,7 +4348,7 @@ def main() -> int:
               client=client_lib, fednano_loss=fednano_loss, fisher_pass=fisher_pass,
               make_federated_data=make_federated_data, adamw_init=adamw_init,
               get_strategy=get_strategy, available_strategies=available_strategies,
-              strategies=strategies, model=model_lib)
+              strategies=strategies, model=model_lib, adapters=adapters_lib)
     main_err.update(training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref,
                                     fm_ops, fm_ref))
     training_smoke(torch, tr)
@@ -4002,6 +4370,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(buffered_full(torch, tr, counters, st, tmp))
     t18 = time.perf_counter() - t18
+    # phase 19a in bf16, on the same server before phase 17 upcasts it
+    t19 = time.perf_counter()
+    launches.update(split_phase(torch, tr, counters, st, "bfloat16"))
+    t19 = time.perf_counter() - t19
     # phase 17 on the same llava server: resume under failures, checkpoint
     # tenants, the naive loop; then the server's weights are f32
     sv = dict(synth=synth_tenant_adapters, make_requests=make_requests, Engine=ServingEngine)
@@ -4013,6 +4385,19 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(cohort_full_f32(torch, tr, counters, st))
     log(f"[phase18] the vmap and buffered engines: {t18 + time.perf_counter() - t0:.1f} s")
+    # phase 19 in f32: the split step, rank-heterogeneous adapters, the sharded engine
+    t0 = time.perf_counter()
+    phase19 = split_phase(torch, tr, counters, st, "float32")
+    phase19.update(hetero_phase(torch, tr, counters, st))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase19.update(sharded_phase(torch, tr, counters, st, tmp))
+    phase19["split_bfloat16"] = launches["split_bfloat16"]
+    for name in PHASE19_KERNELS:
+        if not sum(path[name] for path in phase19.values()):
+            raise AssertionError(f"phase 19 never launched the {name} kernel: {phase19}")
+    launches.update(phase19)
+    log(f"[phase19] the split step, hetero ranks, the sharded engine: "
+        f"{t19 + time.perf_counter() - t0:.1f} s")
     del st
     torch.cuda.empty_cache()
 

@@ -25,10 +25,20 @@ taken per client. The step differentiates Σₖ of each client's wrapped loss;
 the adapter rows are disjoint, so one backward gives every client its own
 gradient. It runs in three parts, ``prepare_cohort`` (checks, stacking),
 ``launch_cohort`` (the update) and ``collect_cohort`` (the losses to the
-host once, the rows back into ``ClientState``s). The sharded engine's
-parts (a mesh, ``pad_to``, ``opt0_override``, ``batches_override``,
-``with_opt=False``, ``collect_cohort_deferred``, ``loss_metrics_deferred``)
-are ROADMAP queue 6.
+host once, the rows back into ``ClientState``s).
+
+The sharded engine runs the same layout over a ``("clients",)`` mesh
+(``repro_torch.sharding``): ``prepare_cohort(mesh=)`` pads the cohort to a
+multiple of the mesh size by repeating the last client's row and cuts each
+stacked input into the mesh's row blocks, block d on ``devices[d]``;
+``make_many_update(mesh=)`` runs the unchanged update body on each block,
+on its own device, so each client's arithmetic is the vmap engine's.
+Padding rows compute and are sliced off before any state, metric or byte
+leaves this module. ``opt0_override`` and ``batches_override`` take stacks
+the engine keeps on the devices across rounds; ``collect_cohort(
+with_opt=False)`` and ``collect_cohort_deferred`` leave the stacked outputs
+there, and ``loss_metrics_deferred`` brings many chunks' losses to the
+host in one copy.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import adapters as adapters_lib
@@ -44,6 +55,7 @@ from repro_torch.core.types import Batch
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import token_accuracy
 from repro_torch.optim import adamw_init, adamw_update, adamw_update_many
+from repro_torch.sharding import ClientMesh, Sharded, pad_to_multiple, replicate, shard
 from repro_torch.utils import tree_leaves, tree_map, tree_stack, tree_unstack
 
 
@@ -291,14 +303,20 @@ def cohort_fisher_grad(cfg, backbone, adapters, batch: Batch, k: int):
 
 
 def make_many_update(cfg, strategy, hp: HyperParams, *, downloads: bool,
-                     warmup: bool) -> Callable:
+                     warmup: bool, mesh: Optional[ClientMesh] = None) -> Callable:
     """The whole round of a stacked cohort, run eagerly (the body the JAX
     package compiles as ``vmap`` over clients of ``lax.scan`` over steps):
     ``update(backbone, global_adapters, adapters0, opt0, local0, lopt0,
     train_xs, warm_xs, fish_xs) -> (adapters, opt, local, lopt, fisher,
     losses (K, T))``, every output stacked on the device. ``*_xs`` are lists
     of batches with (K, B, ...) leaves, one a step (None: no steps);
-    ``adapters0`` is None when the cohort downloads the global adapters."""
+    ``adapters0`` is None when the cohort downloads the global adapters.
+
+    With ``mesh`` (the JAX package's ``shard_map``): the stacked arguments
+    are :class:`~repro_torch.sharding.Sharded` over the mesh, the backbone
+    and global adapters :class:`~repro_torch.sharding.Replicated`; block d
+    goes through the same body on ``mesh.devices[d]``, and each output is
+    ``Sharded`` (None where the body gives None)."""
 
     def update(backbone, global_adapters, adapters, opt_state, local, lopt, train_xs, warm_xs,
                fish_xs):
@@ -329,7 +347,16 @@ def make_many_update(cfg, strategy, hp: HyperParams, *, downloads: bool,
                   else torch.zeros((k, 0), dtype=torch.float32, device=opt_state.step.device))
         return adapters, opt_state, local, lopt, fisher, losses
 
-    return update
+    if mesh is None:
+        return update
+
+    def sharded(backbone, global_adapters, *stacks):
+        outs = [update(backbone.on(dev), global_adapters.on(dev),
+                       *(None if s is None else s.blocks[d] for s in stacks))
+                for d, dev in enumerate(mesh.devices)]
+        return tuple(None if col[0] is None else Sharded(list(col), mesh) for col in zip(*outs))
+
+    return sharded
 
 
 def _stack_batch_rows(batch_lists: Sequence[List[Batch]], picks, *, shared: bool, k: int):
@@ -350,7 +377,8 @@ def _stack_batch_rows(batch_lists: Sequence[List[Batch]], picks, *, shared: bool
 @dataclass
 class PreparedCohort:
     """What :func:`prepare_cohort` hands to :func:`launch_cohort`: the
-    cohort's states, its update and its stacked inputs."""
+    cohort's states, its update and its stacked inputs (under a mesh padded
+    and cut into the mesh's row blocks). ``k`` counts the real clients."""
 
     states: List[ClientState]
     k: int
@@ -359,11 +387,13 @@ class PreparedCohort:
     has_local: bool
     warmup: bool
     wants_fisher: Optional[str]
+    train_t: int = 0
+    mesh: Optional[ClientMesh] = None
 
 
 @dataclass
 class LaunchedCohort:
-    """A cohort's update, run: its outputs stacked on the device (CUDA work
+    """A cohort's update, run: its outputs stacked on the devices (CUDA work
     may still be in flight)."""
 
     prepared: PreparedCohort
@@ -371,11 +401,26 @@ class LaunchedCohort:
 
 
 def prepare_cohort(cfg, states: List[ClientState], batch_lists: Sequence[List[Batch]],
-                   hp: HyperParams, strategy) -> PreparedCohort:
+                   hp: HyperParams, strategy, *, mesh: Optional[ClientMesh] = None,
+                   pad_to: Optional[int] = None, opt0_override=None,
+                   batches_override=None) -> PreparedCohort:
     """Check and stack a cohort (``repro.core.client.prepare_cohort``): every
     client must have the same download and warmup flags this round (the
     engine groups them so), the same batch shapes, and as many warmup and
-    Fisher batches; else ``ValueError`` (use ``engine="sequential"``)."""
+    Fisher batches; else ``ValueError`` (use ``engine="sequential"``).
+
+    With ``mesh`` the cohort is padded to ``pad_to`` rows (default: the next
+    multiple of the mesh size) by repeating the last client's row, and every
+    stacked input is cut into the mesh's row blocks. Padding rows compute and
+    are discarded: never returned, merged or counted.
+
+    ``opt0_override`` is the stacked AdamW state itself (already padded and
+    placed: last round's output for the same chunk), skipping the stacking;
+    the caller owns the invariant that it is these clients' current state.
+    ``batches_override`` is an already stacked and placed ``(train_xs,
+    warm_xs, fish_xs)`` for this exact cohort: a client's batches never
+    change within a run, so the engine reuses them across rounds.
+    """
     from repro_torch.strategies.base import get_strategy
 
     strategy = get_strategy(strategy)
@@ -395,6 +440,19 @@ def prepare_cohort(cfg, states: List[ClientState], batch_lists: Sequence[List[Ba
                 "local_update_many needs a cohort with uniform download/"
                 "warmup schedules; group clients by these flags first")
 
+    if mesh is not None:
+        nd = mesh.size
+        width = pad_to if pad_to is not None else pad_to_multiple(k, nd)
+        if width % nd != 0:
+            raise ValueError(f"pad_to={width} must be a multiple of the mesh size {nd}")
+        if width < k:
+            raise ValueError(f"pad_to={width} is smaller than the cohort ({k})")
+        pad = width - k
+        states = list(states) + [states[-1]] * pad
+        batch_lists = list(batch_lists) + [batch_lists[-1]] * pad
+    width = len(states)
+    place = (lambda t: t) if mesh is None else (lambda t: None if t is None else shard(t, mesh))
+
     warm_ts = {min(len(bl), hp.local_steps) for bl in batch_lists} if warmup else {0}
     fish_ts = ({min(len(bl), hp.fisher_batches) for bl in batch_lists}
                if strategy.wants_fisher == "dedicated" else {0})
@@ -406,63 +464,125 @@ def prepare_cohort(cfg, states: List[ClientState], batch_lists: Sequence[List[Ba
     train_t = hp.local_steps
 
     shared = all(bl is batch_lists[0] for bl in batch_lists)
-    try:
-        train_xs = _stack_batch_rows(
-            batch_lists, lambda bl: (bl[t % len(bl)] for t in range(train_t)),
-            shared=shared, k=k)
-        warm_xs = _stack_batch_rows(batch_lists, lambda bl: bl[:warm_t], shared=shared,
-                                    k=k) if warmup else None
-        fish_xs = _stack_batch_rows(batch_lists, lambda bl: bl[:fish_t], shared=shared,
-                                    k=k) if fish_t else None
-    except RuntimeError as e:  # torch.stack: shapes differ
-        raise ValueError(
-            "local_update_many needs identical batch shapes across the "
-            f"cohort ({e}); use engine='sequential' for ragged shards") from e
+    if batches_override is not None:
+        train_xs, warm_xs, fish_xs = batches_override
+    else:
+        try:
+            train_xs = _stack_batch_rows(
+                batch_lists, lambda bl: (bl[t % len(bl)] for t in range(train_t)),
+                shared=shared, k=width)
+            warm_xs = _stack_batch_rows(batch_lists, lambda bl: bl[:warm_t], shared=shared,
+                                        k=width) if warmup else None
+            fish_xs = _stack_batch_rows(batch_lists, lambda bl: bl[:fish_t], shared=shared,
+                                        k=width) if fish_t else None
+        except RuntimeError as e:  # torch.stack: shapes differ
+            raise ValueError(
+                "local_update_many needs identical batch shapes across the "
+                f"cohort ({e}); use engine='sequential' for ragged shards") from e
+        train_xs, warm_xs, fish_xs = place(train_xs), place(warm_xs), place(fish_xs)
     if train_t > 0 and train_xs is None:
         raise ValueError("clients with no training batches cannot run local steps")
 
-    adapters0 = None if downloads else tree_stack([s.adapters for s in states])
-    opt0 = tree_stack([s.opt_state for s in states])
-    local0 = tree_stack([s.local_adapters for s in states]) if has_local else None
+    adapters0 = None if downloads else place(tree_stack([s.adapters for s in states]))
+    opt0 = (opt0_override if opt0_override is not None
+            else place(tree_stack([s.opt_state for s in states])))
+    local0 = place(tree_stack([s.local_adapters for s in states])) if has_local else None
     lopt0 = None
     if warmup:
-        lopt0 = tree_stack([s.local_opt_state if s.local_opt_state is not None
-                            else adamw_init(s.local_adapters) for s in states])
+        lopt0 = place(tree_stack([s.local_opt_state if s.local_opt_state is not None
+                                  else adamw_init(s.local_adapters) for s in states]))
 
-    fn = make_many_update(cfg, strategy, hp, downloads=downloads, warmup=warmup)
-    return PreparedCohort(states=list(states), k=k, fn=fn,
+    fn = make_many_update(cfg, strategy, hp, downloads=downloads, warmup=warmup, mesh=mesh)
+    return PreparedCohort(states=list(states[:k]), k=k, fn=fn,
                           args=(adapters0, opt0, local0, lopt0, train_xs, warm_xs, fish_xs),
                           has_local=has_local, warmup=warmup,
-                          wants_fisher=strategy.wants_fisher)
+                          wants_fisher=strategy.wants_fisher, train_t=train_t, mesh=mesh)
 
 
 def launch_cohort(prepared: PreparedCohort, backbone, global_adapters) -> LaunchedCohort:
     """Run a prepared cohort's update. The host queues the whole round's CUDA
-    work; nothing here waits for the card."""
+    work; nothing here waits for the card. Under a mesh the backbone and
+    global adapters are placed on each distinct device, unless the engine
+    already placed them (``repro_torch.sharding.replicate``)."""
+    if prepared.mesh is not None:
+        backbone = replicate(backbone, prepared.mesh)
+        global_adapters = replicate(global_adapters, prepared.mesh)
     return LaunchedCohort(prepared=prepared,
                           outs=prepared.fn(backbone, global_adapters, *prepared.args))
 
 
-def collect_cohort(launched: LaunchedCohort) -> Tuple[List[ClientState], List[Dict]]:
-    """The cohort's (K, T) losses to the host in one copy, and each client's
-    rows back into its ``ClientState`` (views of the stacked outputs)."""
+def _rows(stack, k: int) -> list:
+    """The first ``k`` rows of a stacked output as per-client trees (under a
+    mesh on its first device): views of the stack."""
+    return stack.rows(k) if isinstance(stack, Sharded) else tree_unstack(stack, k)
+
+
+def _host_losses(losses, k: int):
+    """The first ``k`` rows of a (W, T) losses output as a host array."""
+    if isinstance(losses, Sharded):
+        losses = losses.gather(k)
+    return losses[:k].cpu().numpy()
+
+
+def collect_cohort(launched: LaunchedCohort, *, with_opt: bool = True,
+                   ) -> Tuple[List[ClientState], List[Dict]]:
+    """The cohort's (K, T) losses to the host in one copy (one a block under a
+    mesh), and each real client's rows back into its ``ClientState`` (views
+    of the stacked outputs; under a mesh on its first device). Padding rows
+    never leave this function.
+
+    ``with_opt=False`` leaves the AdamW state stacked on the devices: the
+    states keep their previous (now stale) ``opt_state``, and the caller
+    takes ``launched.outs[1]`` and writes rows back when a client's own value
+    is needed (a snapshot, a reshuffled cohort, the end of the run)."""
     p = launched.prepared
     k = p.k
     new_adp, new_opt, new_local, new_lopt, fishers, losses = launched.outs
 
-    adp_list = tree_unstack(new_adp, k)
-    opt_list = tree_unstack(new_opt, k)
-    local_list = tree_unstack(new_local, k) if p.has_local else [None] * k
-    lopt_list = tree_unstack(new_lopt, k) if p.warmup else [None] * k
-    fisher_list = tree_unstack(fishers, k) if p.wants_fisher is not None else [None] * k
-    losses_np = losses.cpu().numpy()
+    adp_list = _rows(new_adp, k)
+    opt_list = _rows(new_opt, k) if with_opt else None
+    local_list = _rows(new_local, k) if p.has_local else [None] * k
+    lopt_list = _rows(new_lopt, k) if p.warmup else [None] * k
+    fisher_list = _rows(fishers, k) if p.wants_fisher is not None else [None] * k
+    losses_np = _host_losses(losses, k)
 
     new_states = [dataclasses.replace(
-        s, adapters=adp_list[i], opt_state=opt_list[i], local_adapters=local_list[i],
+        s, adapters=adp_list[i], opt_state=opt_list[i] if with_opt else s.opt_state,
+        local_adapters=local_list[i],
         local_opt_state=lopt_list[i] if p.warmup else s.local_opt_state,
         fisher=fisher_list[i], rounds_participated=s.rounds_participated + 1)
         for i, s in enumerate(p.states)]
     return new_states, _loss_metrics(losses_np)
+
+
+def collect_cohort_deferred(launched: LaunchedCohort):
+    """Collect only the participation counts of a launched cohort; nothing
+    leaves the devices. The caller takes ``launched.outs`` (the sharded
+    engine keeps them on the devices and folds them into the stacked merge).
+    -> (states with their previous, now stale, adapters, AdamW state and
+    Fisher; the (W, T) losses still on the devices, or None without local
+    steps), the losses for :func:`loss_metrics_deferred`."""
+    p = launched.prepared
+    new_states = [dataclasses.replace(s, rounds_participated=s.rounds_participated + 1)
+                  for s in p.states]
+    return new_states, (launched.outs[5] if p.train_t > 0 else None)
+
+
+def loss_metrics_deferred(loss_arrays, ks) -> List[List[Dict]]:
+    """Many chunks' device losses to the host in one copy -> per-chunk metric
+    lists (:func:`_loss_metrics`'s arithmetic). ``ks`` holds each chunk's real
+    client count; a ``None`` entry (no local steps) gives zero-loss metrics."""
+    rows = [(a.gather(k) if isinstance(a, Sharded) else a[:k]) for a, k in zip(loss_arrays, ks)
+            if a is not None]
+    host = torch.cat([r.to(rows[0].device) for r in rows]).cpu().numpy() if rows else None
+    out, at = [], 0
+    for a, k in zip(loss_arrays, ks):
+        if a is None:
+            out.append(_loss_metrics(np.zeros((k, 0), np.float32)))
+        else:
+            out.append(_loss_metrics(host[at:at + k]))
+            at += k
+    return out
 
 
 def _loss_metrics(losses_np) -> List[Dict]:
@@ -481,10 +601,12 @@ def _loss_metrics(losses_np) -> List[Dict]:
 
 def local_update_many(cfg, backbone, states: List[ClientState],
                       batch_lists: Sequence[List[Batch]], hp: HyperParams, strategy,
-                      global_adapters) -> Tuple[List[ClientState], List[Dict]]:
+                      global_adapters, *, mesh: Optional[ClientMesh] = None,
+                      pad_to: Optional[int] = None) -> Tuple[List[ClientState], List[Dict]]:
     """``local_update`` over a cohort of clients with the same schedule flags:
-    prepare, launch, collect."""
-    prepared = prepare_cohort(cfg, states, batch_lists, hp, strategy)
+    prepare, launch, collect. ``mesh`` cuts the cohort over a client mesh,
+    padded to ``pad_to`` rows (default: the next multiple of the mesh size)."""
+    prepared = prepare_cohort(cfg, states, batch_lists, hp, strategy, mesh=mesh, pad_to=pad_to)
     return collect_cohort(launch_cohort(prepared, backbone, global_adapters))
 
 

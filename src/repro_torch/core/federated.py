@@ -14,8 +14,7 @@
     server_opt.apply           -> an optional FedOpt step on the merged result
     strategy.eval_params       -> which params each client evaluates at the end
 
-Three engines share those hooks (the sharded one raises
-``NotImplementedError`` naming ROADMAP queue 6):
+Four engines share those hooks:
 
   * ``sequential``: one client at a time.
   * ``vmap``: each round's cohort grouped by its schedule flags (download,
@@ -25,6 +24,23 @@ Three engines share those hooks (the sharded one raises
     them at once. Uploads are offered client by client in plan order, so
     the merge and the streaming folds see what the sequential engine's
     would; round metrics keep cohort order.
+  * ``sharded``: the vmap layout over a ``("clients",)`` mesh
+    (``repro_torch.sharding.client_mesh``, or a ``ClientMesh`` that may
+    name one card more than once): each chunk of a multiple of D clients
+    is cut into D row blocks, block d through the same cohort update on
+    ``devices[d]``; a chunk that does not fill the width repeats its last
+    client, and those rows reach no merge, metric or byte count. Each flag
+    group runs in ``_PIPELINE_CHUNKS`` chunks at least, at most
+    ``_CHUNK_WIDTH_CAP`` wide. With ``overlap`` the engine keeps two
+    chunks in flight: the host stacks and queues chunk k+1 before it
+    collects chunk k. A chunk's stacked AdamW state stays on the devices
+    across rounds (``resident``; the ``ClientState`` fields go stale while
+    ``home`` names the chunk, and ``materialize`` writes the rows back
+    before a snapshot, a reshuffled cohort and the end of the run), as do
+    its stacked batches (``batch_cache``). When every upload is the raw
+    adapter tree (``fast_agg``) the round's outputs stay where they are and
+    fold into the merge by ``agg_stream_fold_stacked`` at the round's end,
+    padding rows at weight 0, their losses brought to the host in one copy.
   * ``buffered``: FedBuff-style asynchronous merging. Clients train against
     the global version they last downloaded; a completion-ordered event
     loop over integer ticks fills a server buffer, and every
@@ -53,6 +69,7 @@ import dataclasses
 import heapq
 import os
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -68,12 +85,22 @@ from repro_torch.core.client import ClientState, HyperParams
 from repro_torch.core.comm import CommLog, RoundTraffic
 from repro_torch.core.failures import FailureModel
 from repro_torch.core.types import Batch
-from repro_torch.strategies.base import get_strategy
+from repro_torch.sharding import ClientMesh, client_mesh, pad_to_multiple, replicate
+from repro_torch.strategies.base import Strategy, get_strategy
 from repro_torch.strategies.sampling import ClientSampler
 from repro_torch.strategies.transforms import TransformCtx, default_transforms
 from repro_torch.utils import tree_bytes, tree_leaves
 
 ENGINES = ("sequential", "vmap", "sharded", "buffered")
+
+# Without agg_chunk the sharded engine cuts each flag group into at least this
+# many chunks (each a multiple of the mesh size wide), so that the two-deep
+# pipeline has launches to overlap, and caps a chunk at _CHUNK_WIDTH_CAP
+# clients (the JAX package's values; a chunk's width changes no number:
+# uploads are offered client by client in plan order and the streaming folds
+# trigger at agg_chunk boundaries only).
+_PIPELINE_CHUNKS = 16
+_CHUNK_WIDTH_CAP = 128
 
 # buffered-engine event kinds: RUN completes a local update; RETRY is a
 # failed attempt (dropout or crash) coming back to be dispatched again
@@ -93,10 +120,6 @@ class FederatedResult:
     engine: str = "sequential"
     server_opt_state: Optional[object] = None  # final ServerOpt moments
     setup_s: float = 0.0          # wall seconds spent initializing the clients
-
-
-def _not_ported(what: str, queue: str):
-    raise NotImplementedError(f"{what}: not in the port yet (ROADMAP queue {queue})")
 
 
 class _Checkpointer:
@@ -204,7 +227,7 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
                   checkpoint_every: int = 0, resume: Optional[str] = None,
                   buffer_size: Optional[int] = None, staleness_power: float = 0.5,
                   latency_fn: Optional[Callable[[int, int], int]] = None,
-                  device=None) -> FederatedResult:
+                  devices=None, overlap: bool = True, device=None) -> FederatedResult:
     """Run R rounds of federated NanoAdapter tuning.
 
     ``seed`` takes the place of the JAX package's PRNG key: it draws the server
@@ -223,7 +246,11 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
     cohort in chunks of that many). ``engine`` picks the execution path
     (module docstring); ``buffer_size`` (default half the clients),
     ``staleness_power`` and ``latency_fn(cid, version) -> ticks`` (default
-    1) set up the buffered engine, whose ``rounds`` are merges.
+    1) set up the buffered engine, whose ``rounds`` are merges. ``devices``
+    (sharded engine only) is the mesh: a count of ``device``'s kind
+    (default all visible cards; on the CPU logical shards, default 1) or a
+    :class:`~repro_torch.sharding.ClientMesh`; ``overlap=False`` turns the
+    sharded engine's two-deep pipeline off.
 
     Fault tolerance: ``failures`` injects seeded client churn
     (:class:`repro_torch.core.failures.FailureModel`); ``checkpoint_dir``
@@ -236,8 +263,8 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
-    if engine == "sharded":
-        _not_ported(f"engine={engine!r}", "6")
+    if devices is not None and engine != "sharded":
+        raise ValueError("devices= only applies to engine='sharded'")
     strat = get_strategy(strategy)
     if transforms is None:
         transforms = default_transforms(hp)
@@ -248,6 +275,9 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
 
     if device is None:
         device = _default_device(server)
+    mesh = None
+    if engine == "sharded":
+        mesh = devices if isinstance(devices, ClientMesh) else client_mesh(devices, device)
     if server is None:
         server = server_lib.init_server(cfg, seed=seed, device=device)
     cids = sorted(train_data)
@@ -293,7 +323,7 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
                                    transforms, tstates, server_opt, sampler, rounds=rounds,
                                    engine=engine, agg_chunk=agg_chunk, use_pallas=use_pallas,
                                    verbose=verbose, failures=failures, ckpt=ckpt,
-                                   resume_state=resume_state)
+                                   resume_state=resume_state, mesh=mesh, overlap=overlap)
     result.setup_s = setup_s
     if final_eval:
         for cid in cids:
@@ -314,8 +344,10 @@ def _chunks(seq: List, width: int):
 
 def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, transforms, tstates,
               server_opt, sampler, *, rounds, engine, agg_chunk, use_pallas, verbose,
-              failures=None, ckpt=None, resume_state=None):
-    """Synchronized rounds: ``engine`` is "sequential" or "vmap"."""
+              failures=None, ckpt=None, resume_state=None, mesh: Optional[ClientMesh] = None,
+              overlap: bool = True):
+    """Synchronized rounds: ``engine`` is "sequential", "vmap" or "sharded"
+    (``mesh`` given)."""
     streaming = bool(agg_chunk) and strat.aggregates
     opt_state = server_opt.init(server.global_adapters) if server_opt is not None else None
     result = FederatedResult(strategy=strat.name, engine=engine)
@@ -325,6 +357,38 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
         if resume_state.server_opt_state is not None:
             opt_state = resume_state.server_opt_state
         result.round_metrics = list(resume_state.round_metrics)
+
+    # the frozen backbone on each distinct mesh device once for the run; the
+    # global adapters again at each round's start
+    backbone_dev = replicate(server.backbone, mesh) if mesh is not None else server.backbone
+    # chunk-resident client state (sharded engine): a chunk's stacked AdamW
+    # state, and in fast_agg rounds its adapters and Fisher too, stays on the
+    # devices between rounds and feeds the next round's launch of the same
+    # chunk. A client's ClientState fields go stale while ``home`` names its
+    # chunk; ``materialize`` writes the true rows back before anything reads
+    # them (a snapshot, a reshuffled cohort, the end of the run).
+    resident: Dict[tuple, dict] = {}   # chunk key -> {k, opt, adp, fish}
+    home: Dict[int, tuple] = {}        # cid -> chunk key holding its rows
+    # a client's batches never change within a run, so a chunk's stacked and
+    # placed (train, warm, Fisher) batches are the same every round it recurs
+    batch_cache: Dict[tuple, tuple] = {}
+
+    def materialize(cids_needed=None):
+        keys = ({home[c] for c in cids_needed if c in home} if cids_needed is not None
+                else set(home.values()))
+        for ck in keys:
+            ent = resident[ck]
+            kk = ent["k"]
+            rows = {field: ent[key].rows(kk) for field, key in
+                    (("opt_state", "opt"), ("adapters", "adp"), ("fisher", "fish"))
+                    if ent[key] is not None}
+            for j, c in enumerate(ck):
+                if home.get(c) != ck:
+                    continue
+                clients[index_of[c]] = dataclasses.replace(
+                    clients[index_of[c]], **{f: r[j] for f, r in rows.items()})
+                del home[c]
+
     for r in range(start_round, rounds):
         cohort = list(sampler.select(r, cids))
         gbytes = tree_bytes(server.global_adapters)
@@ -349,6 +413,11 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
         stream_buf: List[tuple] = []
         stream_bytes = {"param_up": 0, "fisher_up": 0}
         folded_any = False
+        # the sharded engine's stacked merge: the round's outputs fold where
+        # they lie at its end, padding rows at weight 0
+        fast_pend: List[tuple] = []        # (theta stack, fisher stack, weights)
+        fast_losses: List[tuple] = []      # (chunk, device losses, real k)
+        fast_bytes = {"param_up": 0, "fisher_up": 0}
 
         def apply_transforms(cid: int, theta):
             """-> (θ the server sees, wire bytes): the last size-changing
@@ -396,7 +465,7 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
                     cfg, server.backbone, clients[i], train_data[cid], hp, strat,
                     server.global_adapters, round_idx=r)
                 offer(cid, clients[i], metrics["loss_mean"])
-        else:  # vmap: group the cohort by its schedule flags, then run chunks
+        else:  # vmap, sharded: group the cohort by its schedule flags, then run chunks
             groups: Dict[tuple, List[int]] = {}
             for cid in cohort:
                 st = clients[index_of[cid]]
@@ -404,19 +473,133 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
                 flags = (strat.downloads_global(p),
                          st.local_adapters is not None and strat.local_warmup(p, hp))
                 groups.setdefault(flags, []).append(cid)
-            plan = [(downloads, chunk) for (downloads, _), gcids in groups.items()
-                    for chunk in _chunks(gcids, agg_chunk or len(gcids))]
-            for downloads, chunk in plan:
+            global_dev = server.global_adapters
+            if mesh is not None:
+                global_dev = replicate(server.global_adapters, mesh)
+
+            # the plan: (downloads, chunk) over every flag group
+            plan: List[tuple] = []
+            for (downloads, _), gcids in groups.items():
+                width = agg_chunk or len(gcids)
+                if mesh is not None:
+                    width = pad_to_multiple(agg_chunk or min(
+                        _CHUNK_WIDTH_CAP, max(1, -(-len(gcids) // _PIPELINE_CHUNKS))), mesh.size)
+                plan.extend((downloads, chunk) for chunk in _chunks(gcids, width))
+
+            # the stacked outputs are the uploads when every upload is the raw
+            # adapter tree (stock post_local_update, no wire transforms, no
+            # personal adapters) and every chunk downloads the global: then
+            # they fold into the merge where they lie
+            fast_agg = (
+                mesh is not None and strat.aggregates and not use_pallas and not transforms
+                and type(strat).post_local_update is Strategy.post_local_update
+                and all(flags[0] for flags in groups)
+                and not any(clients[index_of[g[0]]].local_adapters is not None
+                            for g in groups.values()))
+
+            # two chunks in flight (sharded + overlap): the host stacks and
+            # queues chunk k+1 before it collects chunk k
+            depth = 2 if (mesh is not None and overlap) else 1
+            inflight: deque = deque()
+
+            def collect_one():
+                nonlocal down_bytes, wire_up
+                downloads, chunk, launched = inflight.popleft()
+                kc = len(chunk)
                 if downloads:
-                    down_bytes += gbytes * len(chunk)
-                new_states, mets = client_lib.local_update_many(
-                    cfg, server.backbone, [clients[index_of[c]] for c in chunk],
-                    [train_data[c] for c in chunk], hp, strat, server.global_adapters)
+                    down_bytes += gbytes * kc
+                ck = tuple(chunk)
+                if fast_agg:
+                    # nothing leaves the devices: adapters, AdamW state and
+                    # Fisher wait for the round's stacked merge, the losses
+                    # for one copy at the round's end
+                    new_states, loss_dev = client_lib.collect_cohort_deferred(launched)
+                    outs = launched.outs
+                    wants_f = launched.prepared.wants_fisher is not None
+                    resident[ck] = {"k": kc, "opt": outs[1], "adp": outs[0],
+                                    "fish": outs[4] if wants_f else None}
+                    for c, ns in zip(chunk, new_states):
+                        home[c] = ck
+                        clients[index_of[c]] = ns
+                    width = outs[0].width
+                    fast_pend.append((outs[0], outs[4] if wants_f else None,
+                                      [float(clients[index_of[c]].n_examples) for c in chunk]
+                                      + [0.0] * (width - kc)))
+                    fast_bytes["param_up"] += outs[0].row_bytes() * kc
+                    wire_up += outs[0].row_bytes() * kc
+                    if wants_f:
+                        fast_bytes["fisher_up"] += outs[4].row_bytes() * kc
+                    fast_losses.append((chunk, loss_dev, kc))
+                    return
+                if mesh is not None:
+                    # the new AdamW state stays on the devices; the clients'
+                    # own opt_state goes stale until materialize
+                    new_states, mets = client_lib.collect_cohort(launched, with_opt=False)
+                    resident[ck] = {"k": kc, "opt": launched.outs[1], "adp": None,
+                                    "fish": None}
+                    for c in chunk:
+                        home[c] = ck
+                else:
+                    new_states, mets = client_lib.collect_cohort(launched)
                 for c, ns, m in zip(chunk, new_states, mets):
                     clients[index_of[c]] = ns
                     offer(c, ns, m["loss_mean"])
 
-        if strat.aggregates and (updates or stream_buf or folded_any):
+            for downloads, chunk in plan:
+                opt0 = bx = None
+                if mesh is not None:
+                    ck = tuple(chunk)
+                    bx = batch_cache.get(ck)
+                    if (all(home.get(c) == ck for c in chunk)
+                            and (downloads or resident[ck]["adp"] is None)):
+                        opt0 = resident[ck]["opt"]
+                    else:
+                        # a reshuffled cohort (or stale adapters would be
+                        # stacked): the resident rows back to their
+                        # ClientStates before stacking
+                        materialize([c for c in chunk if c in home])
+                prepared = client_lib.prepare_cohort(
+                    cfg, [clients[index_of[c]] for c in chunk], [train_data[c] for c in chunk],
+                    hp, strat, mesh=mesh, opt0_override=opt0, batches_override=bx)
+                if mesh is not None and bx is None:
+                    batch_cache[ck] = prepared.args[4:7]
+                inflight.append((downloads, chunk, client_lib.launch_cohort(
+                    prepared, backbone_dev, global_dev)))
+                if len(inflight) >= depth:
+                    collect_one()
+            while inflight:
+                collect_one()
+            # drop resident chunks no client points at any more (reshuffles)
+            # and the batch stacks of chunks this round did not run
+            live = set(home.values())
+            for ck in [ck for ck in resident if ck not in live]:
+                del resident[ck]
+            used = {tuple(chunk) for _, chunk in plan}
+            for ck in [ck for ck in batch_cache if ck not in used]:
+                del batch_cache[ck]
+            if fast_losses:
+                all_mets = client_lib.loss_metrics_deferred([a for _, a, _ in fast_losses],
+                                                            [kk for _, _, kk in fast_losses])
+                for (chunk, _, _), mets in zip(fast_losses, all_mets):
+                    for c, m in zip(chunk, mets):
+                        losses[c] = m["loss_mean"]
+
+        if fast_pend:
+            # the stacked merge: fold where the outputs lie, finalize, commit
+            # with the per-client path's byte totals (k rows of row bytes)
+            prev_global = server.global_adapters
+            acc = strat.agg_stream_fold_stacked(None, [f[0] for f in fast_pend],
+                                                [f[1] for f in fast_pend],
+                                                [f[2] for f in fast_pend], use_pallas=use_pallas)
+            server = server_lib.server_commit(
+                server, strat.agg_stream_finalize(acc, use_pallas=use_pallas),
+                param_up=fast_bytes["param_up"], fisher_up=fast_bytes["fisher_up"],
+                param_down=down_bytes, wire_up=wire_up)
+            if server_opt is not None:
+                new_global, opt_state = server_opt.apply(opt_state, prev_global,
+                                                         server.global_adapters)
+                server = dataclasses.replace(server, global_adapters=new_global)
+        elif strat.aggregates and (updates or stream_buf or folded_any):
             prev_global = server.global_adapters
             if streaming:
                 fold_stream()
@@ -453,8 +636,12 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
                      else f"mean local loss {rm['mean_loss']:.4f}")
             print(f"  [{strat.name}] round {r}: {shown}")
         if ckpt is not None:
+            if home and ckpt.would_save(r + 1):
+                materialize()  # a snapshot needs every client's own rows
             ckpt.maybe_save(r + 1, server=server, clients=clients, tstates=tstates,
                             opt_state=opt_state, metrics=result.round_metrics)
+    if home:
+        materialize()
     if ckpt is not None:
         ckpt.final_save(rounds, server=server, clients=clients, tstates=tstates,
                         opt_state=opt_state, metrics=result.round_metrics)

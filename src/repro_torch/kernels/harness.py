@@ -198,6 +198,15 @@ MANY_LORA_EDGE_SHAPES = [(3, 65, 96, 16), (2, 63, 33, 1), (4, 17, 130, 24), (2, 
                          (6, 7, 40, 8)]
 MANY_LORA_GRAD_SHAPES = [(3, 37, 48, 8), (4, 128, 4096, 64), (4, 256, 4096, 64)]
 FULL_FISHER_SHAPES = [(2, 4096 * 64, 0)]
+# Rank-heterogeneous NanoAdapters (core/hetero.py) at llava-1.5-7b's width:
+# one client's text rows (batch 4 x 32) through rank-16 and rank-32 adapters,
+# a vmap cohort of 4 at rank 16; and the merge of clients at ranks 16 and 32
+# padded to rank 64, (ranks, rank_max, d_model): each client's Fisher is zero
+# on its padding, so the columns of ``down`` (rows of ``up``) past 32 carry no
+# client's mass and must merge to exactly 0.
+HETERO_LORA_SHAPES = [(128, 4096, 16, 0), (128, 4096, 32, 0)]
+HETERO_MANY_LORA_SHAPES = [(4, 128, 4096, 16)]
+HETERO_FISHER_PAD = ((16, 32), 64, 4096)
 # ... and whole adapter trees: llava-1.5-7b's four (4096, 64) and (64, 4096)
 # leaves (text and image, down and up), mamba2-130m's two (768, 64) and
 # (64, 768), each at K = 1, 2 (the training path) and 5 (the CLI's default);

@@ -7,8 +7,10 @@ smoke-size backbone and the synthetic non-IID VQA corpus, on ``--device``
 ``--engine`` picks the round engine: ``sequential``, ``vmap`` (each
 round's cohort folded into one batch, in chunks of ``--agg-chunk``),
 ``buffered`` (FedBuff-style merges of ``--buffer-size`` completions,
-``--straggler-prob`` delaying a completion) or ``sharded`` (ROADMAP queue
-6, raises). ``--server-opt`` applies a FedOpt step to the merged result,
+``--straggler-prob`` delaying a completion) or ``sharded`` (the vmap
+layout cut over a client mesh of ``--devices`` cards, or logical CPU
+shards with ``--device cpu``, two chunks in flight unless
+``--no-overlap``). ``--server-opt`` applies a FedOpt step to the merged result,
 ``--client-frac`` samples that fraction of the clients each round.
 ``--use-pallas`` routes the adapters and attention (``cfg.use_pallas``) and
 the server's Fisher merge (``use_pallas``) through the hand-written kernels,
@@ -18,7 +20,6 @@ round state under ``<out>/state`` every ``--checkpoint-every`` rounds and
 at the end; ``--resume DIR`` continues from a snapshot (run with the same
 flags). Writes the same JSON summary under ``--out`` and the final server
 checkpoint under ``<out>/ckpt``, which ``launch.serve --ckpt-root`` serves.
-``--devices`` and ``--no-overlap`` wait for ROADMAP queue 6.
 """
 from __future__ import annotations
 
@@ -49,7 +50,13 @@ def main(argv=None):
     ap.add_argument("--engine", default="sequential",
                     choices=["sequential", "vmap", "sharded", "buffered"],
                     help="round engine: per-client loop, the cohort folded into one batch, "
-                         "the sharded engine (ROADMAP queue 6), or FedBuff-style buffered async")
+                         "the same cut over a clients device mesh, or FedBuff-style buffered "
+                         "async")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="mesh size for --engine sharded (default: every visible card; with "
+                         "--device cpu, logical CPU shards, default 1)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="turn off the sharded engine's two-deep prepare/compute pipeline")
     ap.add_argument("--buffer-size", type=int, default=None,
                     help="server buffer size for --engine buffered (default: half the clients)")
     ap.add_argument("--clients", type=int, default=5)
@@ -121,6 +128,7 @@ def main(argv=None):
                             rounds=args.rounds, hp=hp, verbose=True,
                             use_pallas=args.use_pallas, server_opt=server_opt,
                             sampler=sampler, engine=args.engine, agg_chunk=args.agg_chunk,
+                            devices=args.devices, overlap=not args.no_overlap,
                             buffer_size=args.buffer_size, failures=failures,
                             checkpoint_dir=os.path.join(args.out, "state"),
                             checkpoint_every=args.checkpoint_every, resume=args.resume,

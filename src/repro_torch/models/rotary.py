@@ -16,7 +16,9 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     """(head_dim/2,) inverse frequencies in f32."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    # the base made on the device (``torch.full``): a host tensor copied over
+    # would make the host wait for the card at every forward
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
 
 
 def rope_angles(positions, head_dim: int, theta: float):

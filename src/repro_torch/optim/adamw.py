@@ -45,8 +45,9 @@ def _update(grads, state: AdamWState, params, *, lr, b1, b2, eps, weight_decay, 
     mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
     nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g.square(), state.nu, grads)
     stepf = step.float()
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
+    # the bases made on the device (a copy from the host waits for the card)
+    bc1 = 1 - torch.pow(torch.full((), b1, dtype=torch.float32, device=stepf.device), stepf)
+    bc2 = 1 - torch.pow(torch.full((), b2, dtype=torch.float32, device=stepf.device), stepf)
 
     def upd(p, m, v):
         delta = (m / _rows(bc1, m)) / (torch.sqrt(v / _rows(bc2, v)) + eps)

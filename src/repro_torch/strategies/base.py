@@ -14,17 +14,54 @@ the flags ``dual_adapters`` and ``aggregates``, and an optional
 ``server_opt`` factory. Strategies are frozen dataclasses, registered by
 name with ``@register`` and resolved with ``get_strategy``, which passes
 instances through. ``checkpoint_meta`` is the identity a RunState records
-and a resume checks. The stacked fold of the sharded engine
-(``agg_stream_fold_stacked``) is ROADMAP queue 6.
+and a resume checks. ``agg_stream_fold_stacked`` is the sharded engine's
+fold of already stacked (K, ...) uploads, where they lie.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type, Union
 
-from repro_torch.utils import tree_add, tree_map, tree_weighted_sum
+import torch
+
+from repro_torch.sharding import Sharded
+from repro_torch.utils import tree_add, tree_leaves, tree_map, tree_weighted_sum
 
 _REGISTRY: Dict[str, Type["Strategy"]] = {}
+
+
+def weighted_sum_stacks(stacks, weights, fn):
+    """Σ over chunks of Σ_rows w·fn(rows), leaf by leaf: an f32 ``tensordot``
+    of each chunk's weights over its client axis (the JAX package's
+    ``jnp.tensordot(w, ., axes=1)``), added to the running sum chunk by chunk.
+    ``stacks`` holds per chunk a tuple of stacked trees of one structure; a
+    chunk of :class:`~repro_torch.sharding.Sharded` trees is reduced block by
+    block where each block lives, and its D partial sums are added to the
+    running sum on the mesh's first device in shard order (so a mesh whose
+    blocks are one client wide sums in the order of chunks one client wide)."""
+    total = None
+
+    def add(contrib):
+        nonlocal total
+        total = contrib if total is None else tree_add(total, contrib)
+
+    for trees, w in zip(stacks, weights):
+        w = torch.tensor([float(x) for x in w], dtype=torch.float32)
+        if isinstance(trees[0], Sharded):
+            mesh, bw = trees[0].mesh, trees[0].block_width
+            for d, dev in enumerate(mesh.devices):
+                wd = w[d * bw:(d + 1) * bw].to(dev)
+                add(tree_map(lambda *xs: torch.tensordot(wd, fn(*xs), dims=1).to(
+                    mesh.devices[0]), *(t.blocks[d] for t in trees)))
+        else:
+            wd = w.to(tree_leaves(trees[0])[0].device)
+            add(tree_map(lambda *xs: torch.tensordot(wd, fn(*xs), dims=1), *trees))
+    return total
+
+
+def stack_dtypes(stack):
+    """The leaf dtypes of a stacked (or Sharded) upload tree."""
+    return tree_map(lambda x: x.dtype, stack.blocks[0] if isinstance(stack, Sharded) else stack)
 
 
 def register(name: str) -> Callable[[Type["Strategy"]], Type["Strategy"]]:
@@ -122,6 +159,22 @@ class Strategy:
         if acc is None:
             return {"num": num, "w": w, "like": tree_map(lambda x: x.dtype, thetas[0])}
         return {"num": tree_add(acc["num"], num), "w": acc["w"] + w, "like": acc["like"]}
+
+    def agg_stream_fold_stacked(self, acc, theta_stack, fisher_stack,
+                                weights: Sequence[float], *, use_pallas: bool = False):
+        """Fold already stacked (K, ...) uploads: the sharded engine's fold of
+        its outputs where they lie, padding rows masked by zero weights (a
+        zero-weight row adds nothing). ``theta_stack``, ``fisher_stack`` and
+        ``weights`` may each be a list of per-chunk values, folded in one
+        call. The accumulator is ``agg_stream_fold``'s; the two folds differ
+        only in f32 summation order."""
+        if not isinstance(theta_stack, (list, tuple)):
+            theta_stack, weights = [theta_stack], [weights]
+        num = weighted_sum_stacks([(t,) for t in theta_stack], weights, lambda t: t.float())
+        wsum = float(sum(float(x) for w in weights for x in w))
+        if acc is None:
+            return {"num": num, "w": wsum, "like": stack_dtypes(theta_stack[0])}
+        return {"num": tree_add(acc["num"], num), "w": acc["w"] + wsum, "like": acc["like"]}
 
     def agg_stream_finalize(self, acc, *, use_pallas: bool = False):
         """The merged adapters (None if nothing was folded)."""

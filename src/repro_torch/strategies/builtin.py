@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.kernels.fisher_merge import ops as fm_ops
 from repro_torch.kernels.fisher_merge import ref as fm_ref
-from repro_torch.strategies.base import Strategy, register
-from repro_torch.utils import tree_leaves, tree_map, tree_sq_norm, tree_sub
+from repro_torch.strategies.base import Strategy, register, stack_dtypes, weighted_sum_stacks
+from repro_torch.utils import tree_add, tree_leaves, tree_map, tree_sq_norm, tree_sub
 
 
 def _fisher_fold_tree(num, den, theta, fisher, w: float, *, use_pallas: bool = False):
@@ -79,6 +79,23 @@ class FedNano(Strategy):
                                          use_pallas=use_pallas)
         return {"num": num, "den": den, "w": acc["w"] + float(sum(float(w) for w in weights)),
                 "like": acc["like"]}
+
+    # The stacked fold (sharded engine): Σ wFθ and Σ wF over each chunk's
+    # client axis, where the stacks lie, all chunks in one call.
+    def agg_stream_fold_stacked(self, acc, theta_stack, fisher_stack, weights, *,
+                                use_pallas=False):
+        if not isinstance(theta_stack, (list, tuple)):
+            theta_stack, fisher_stack, weights = [theta_stack], [fisher_stack], [weights]
+        if fisher_stack is None or any(f is None for f in fisher_stack):
+            raise ValueError("fednano streaming merge needs a FIM per upload")
+        num = weighted_sum_stacks(list(zip(theta_stack, fisher_stack)), weights,
+                                  lambda t, f: f.float() * t.float())
+        den = weighted_sum_stacks([(f,) for f in fisher_stack], weights, lambda f: f.float())
+        wsum = float(sum(float(x) for w in weights for x in w))
+        if acc is None:
+            return {"num": num, "den": den, "w": wsum, "like": stack_dtypes(theta_stack[0])}
+        return {"num": tree_add(acc["num"], num), "den": tree_add(acc["den"], den),
+                "w": acc["w"] + wsum, "like": acc["like"]}
 
     def agg_stream_finalize(self, acc, *, use_pallas=False, eps: float = 1e-8):
         if acc is None:

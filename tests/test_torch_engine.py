@@ -231,8 +231,7 @@ def test_ragged_cohort_raises_as_the_reference():
 
 
 def test_unknown_engine_raises():
-    """The reference's ``ValueError`` (the sharded engine's
-    ``NotImplementedError``: ``test_torch_training.py``)."""
+    """The reference's ``ValueError``."""
     *_, (train_b, eval_b, _) = _tiny()
     with pytest.raises(ValueError, match="unknown engine 'pmap'"):
         run_federated(0, _tiny()[3], train_b, eval_b, rounds=1, device="cpu", engine="pmap")

@@ -19,7 +19,9 @@ and ``ssd`` (kernel forward, hand-written or recomputed backward) are held
 against ``torch.autograd`` through the plain versions; the Fisher-merge and
 SSD kernels against their plain versions (the Fisher kernels also over whole
 adapter trees, one launch a tree, and their single-leaf wrappers against the
-tree wrappers).
+tree wrappers), also on the rank-heterogeneous merge's padded trees, where
+the coordinates no client's Fisher covers must merge to exactly 0. LoRA runs
+at ranks 16 and 32 at llava's width too (``harness.HETERO_*``).
 """
 import pytest
 import torch
@@ -37,7 +39,7 @@ from repro_torch.kernels.ssd_scan import ref as ssd_ref
 DTYPES = ("float32", "bfloat16")
 SCALE = 2.0
 LORA = (harness.LORA_SHAPES + harness.FULL_LORA_SHAPES + harness.MAMBA_LORA_SHAPES
-        + harness.MOE_LORA_SHAPES + harness.NEW_FAMILY_LORA_SHAPES)
+        + harness.MOE_LORA_SHAPES + harness.NEW_FAMILY_LORA_SHAPES + harness.HETERO_LORA_SHAPES)
 GROUPED = (harness.GROUPED_LORA_SHAPES + harness.FULL_GROUPED_SHAPES
            + harness.MAMBA_GROUPED_SHAPES + harness.MOE_GROUPED_SHAPES
            + harness.AUDIO_GROUPED_SHAPES)
@@ -51,7 +53,8 @@ GROUPED_IDS = (["-".join(map(str, s)) for s in GROUPED]
 FLASH = (harness.FLASH_SHAPES + harness.FULL_FLASH_SHAPES + harness.DENSE_FLASH_SHAPES
          + harness.MOE_FLASH_SHAPES + harness.HYBRID_FLASH_SHAPES + harness.AUDIO_FLASH_SHAPES)
 # the vmap engine's batched LoRA: small cohorts, llava's cohort rows, tile edges
-MANY = harness.MANY_LORA_SHAPES + harness.FULL_MANY_LORA_SHAPES + harness.MANY_LORA_EDGE_SHAPES
+MANY = (harness.MANY_LORA_SHAPES + harness.FULL_MANY_LORA_SHAPES + harness.MANY_LORA_EDGE_SHAPES
+        + harness.HETERO_MANY_LORA_SHAPES)
 LORA_EDGE = harness.LORA_EDGE_SHAPES
 FLASH_EDGE = harness.FLASH_EDGE_SHAPES
 # the bf16 tensor-core kernels against their rounding models
@@ -409,6 +412,40 @@ def test_fisher_tree_kernels_match_plain(cuda, k, sizes, dtype, offset):
     torch.cuda.synchronize()
     for a, b in zip(nums + dens, pnums + pdens):
         assert torch.equal(a, b), "fold"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fisher_merge_on_padded_rank_blocks(cuda, dtype):
+    """The hetero merge's trees: clients at ranks 16 and 32 padded to 64
+    (``down`` (4096, 64), ``up`` (64, 4096)), each Fisher zero on its padding.
+    One launch; f32 bit for bit against the plain version, bf16 at the
+    harness tolerance; past rank 32 no client has mass: exactly 0, no NaN."""
+    ranks, rmax, d = harness.HETERO_FISHER_PAD
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    dt = getattr(torch, dtype)
+    pad = lambda down, up: [torch.nn.functional.pad(down, (0, rmax - down.shape[1])),
+                            torch.nn.functional.pad(up, (0, 0, 0, rmax - up.shape[0]))]
+    thetas, fishers = [], []
+    for r in ranks:
+        thetas.append([t.to(dt) for t in pad(_randn(gen, (d, r)), _randn(gen, (r, d)))])
+        fishers.append([(t.abs() + 0.01).to(dt)
+                        for t in pad(_randn(gen, (d, r)), _randn(gen, (r, d)))])
+    w = torch.tensor([3.0, 1.0])
+    before = fm_ops.fisher_merge.launches
+    got = fm_ops.fisher_merge_leaves(thetas, fishers, w)
+    assert fm_ops.fisher_merge.launches - before == 1
+    want = fm_ref.fisher_merge_leaves(thetas, fishers, w)
+    torch.cuda.synchronize()
+    for leaf, (g, p) in enumerate(zip(got, want)):
+        if dtype == "float32":
+            assert torch.equal(g, p), f"leaf {leaf}"
+        else:
+            harness.check_close(g, p, dtype, f"padded merge leaf {leaf}")
+        assert not torch.isnan(g).any()
+    r_hi = max(ranks)
+    assert not got[0][:, r_hi:].any() and not got[1][r_hi:].any()
+    assert got[0][:, :r_hi].any() and got[1][:r_hi].any()
 
 
 @pytest.mark.cuda

@@ -284,13 +284,18 @@ def test_streaming_and_batch_merge_agree(arch):
                           ADAPTER_TOL, f"use_pallas={use_pallas}")
 
 
-@pytest.mark.parametrize("engine", ["sharded"])
-def test_unported_options_raise(engine):
-    """The sharded engine names its queue (6); the vmap and buffered engines
-    run (test_torch_engine.py, test_torch_buffered.py)."""
-    _, _, cfg, (train_b, eval_b, _) = _data(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 6"):
-        run_federated(0, cfg, train_b, eval_b, rounds=1, device="cpu", engine=engine)
+def test_sharded_engine_runs_through_the_cli(tmp_path, capsys):
+    """``--engine sharded`` on the CPU: one logical shard by default, the
+    round loop and summary as the other engines' (its numbers:
+    test_torch_sharded.py)."""
+    args = ["--device", "cpu", "--engine", "sharded", "--clients", "2", "--rounds", "2",
+            "--local-steps", "2", "--examples-per-client", "8", "--alpha", "100",
+            "--batch-size", "4", "--seq-len", "16", "--out", str(tmp_path)]
+    assert train.main(args) == 0
+    out = capsys.readouterr().out
+    assert "round 1" in out and "avg client accuracy" in out
+    summary = json.loads((tmp_path / "llava-1.5-7b_fednano.json").read_text())
+    assert [m["participants"] for m in summary["rounds"]] == [2, 2]
 
 
 def test_strategy_names_cover_the_reference():
