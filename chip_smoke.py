@@ -334,6 +334,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       (``torch.cuda.set_sync_debug_mode``). Counters are reset around each
       run; phase 19 must launch lora_residual, lora_residual_many,
       flash_attention, fisher_merge and fisher_fold.
+20. The launch layer's step functions (``repro_torch.launch.steps``) at the
+   production shapes (``INPUT_SHAPES``), last:
+   a. ``[dryrun]``: every assigned arch x shape's analytic per-card
+      footprint on one card (1x1) and on an eight-card node (1x8), from
+      meta tensors, and the roofline record (``dryrun.roofline_report``) of
+      each pair below.
+   b. At full width and depth, bf16, kernels on (``LAUNCH_RUNS``):
+      h2o-danube-1.8b and mamba2-130m at train_4k, prefill_32k, decode_32k
+      (128 rows at position 32,767) and long_500k (position 524,287), and
+      recurrentgemma-9b at the two decode shapes. Each at its global batch or
+      the largest batch the card holds (``dryrun.fit_batch``, whose two
+      probe steps warm it up; else one warm-up step), LAUNCH_ITERS steps
+      timed by CUDA events, counters reset around them; the measured peak beside the
+      analytic footprint, the ms beside the roofline's terms. Phase 20 must
+      launch lora_residual, flash_attention and ssd_scan.
+   c. Each step with kernels against the plain path on the first
+      LAUNCH_CHECK_LAYERS layers, bf16 and f32 (train: LOSS_TOL, GRAD_TOL;
+      prefill and decode logits and state: LOGIT_TOL); for h2o-danube the
+      flash kernel against ``chunked_sdpa`` at 32,768 positions (f32 at
+      ATTN_F32_TOL, bf16 printed) and ``chunked_lm_loss`` against
+      ``lm_loss`` at train_4k rows (CHUNKED_LOSS_TOL, peak memory of
+      each); for h2o-danube and recurrentgemma the decode to position
+      524,287 against the full windowed forward (f32, LOGIT_TOL).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
@@ -351,9 +374,12 @@ import tempfile
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s by type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+# The port's package; alone (without the checkout around it) the import fails.
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and operations/s by
+# type, the constants of the launch layer's roofline too.
+from repro_torch.launch.mesh import HBM_BYTES_PER_S, PEAK_OPS  # noqa: E402
+
 SCALE = 2.0
 # Full-width prefill logits, kernels vs their plain versions, relative to ‖ref‖∞.
 # f32 holds the kernels to their arithmetic through all 32 layers. In bf16 a
@@ -4259,6 +4285,553 @@ def sharded_phase(torch, tr, counters, st, root):
     return {"phase19c": {n: sum(v[n] for v in launches.values()) for n in counters}}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the launch step functions at the production shapes
+# ---------------------------------------------------------------------------
+
+# The launch layer's three step functions (``repro_torch.launch.steps``) at
+# ``INPUT_SHAPES``, full width and depth, bf16, kernels on: h2o-danube-1.8b and
+# mamba2-130m at all four shapes, recurrentgemma-9b at the two decode shapes
+# (22.6 and 19.5 GiB analytic; its train and prefill need 83-84 GiB).
+LAUNCH_RUNS = ((H2O, ("train_4k", "prefill_32k", "decode_32k", "long_500k")),
+               (MAMBA, ("train_4k", "prefill_32k", "decode_32k", "long_500k")),
+               (RGEMMA, ("decode_32k", "long_500k")))
+# A shape runs at its global batch or the largest batch the card holds
+# (``dryrun.fit_batch``: the peaks of steps at batch 1 and 2). One warm-up step
+# at that batch (the allocator grows to it there), then steps timed by kind: a
+# train or prefill step at that batch takes seconds (0.5 s a row of
+# h2o-danube's prefill_32k), so one is timed.
+LAUNCH_ITERS = {"train": 1, "prefill": 1, "decode": 3}
+# The kernels against the plain path on the first LAUNCH_CHECK_LAYERS layers,
+# bf16 as drawn and f32 on those layers upcast: batch 1 for train and prefill,
+# the whole batch for decode (a random state). Every layer left out runs the
+# same kernels at the same shapes as one kept (recurrentgemma's 5: a triple
+# and the two extra recurrent layers). The cut is forced: h2o's plain prefill
+# at 32,768 positions takes chunked_sdpa's 0.8 s a layer and row, its plain
+# train step keeps each layer's f32 chunk logits for the backward, and a
+# decode check at 128 rows holds four decode states (input, the plain run's
+# copy, both outputs) of 33.42 GiB at full depth. The kernels at the runs'
+# own batches: ``scale_check``.
+LAUNCH_CHECK_LAYERS = {H2O: 2, MAMBA: 24, RGEMMA: 5}
+# scale_check's plain sides in blocks: LoRA rows, SSD batch rows
+SCALE_LORA_ROWS = 1 << 17
+SCALE_SSD_ROWS = 4
+# Flash against chunked_sdpa at prefill_32k (the plain side: sdpa's (S, S)
+# scores would take 137 GB), f32, at the harness's bound.
+ATTN_F32_TOL = 1e-6
+CHUNKED_LOSS_TOL = 1e-5
+# Far-position decode in f32: a sequence whose last position is 524,287,
+# prefilled from a ring-aligned start (a multiple of the ring's slots) and
+# decoded teacher-forced for FAR_STEPS steps, each held against the full
+# windowed forward at the same absolute positions.
+FAR_LAYERS = {H2O: 2, RGEMMA: 5}
+FAR_STEPS = 16
+FAR_POS = 524_287
+LAUNCH_KERNELS = ("lora_residual", "flash_attention", "ssd_scan")
+
+
+def fill_random(torch, tree, seed):
+    """Every leaf of a decode state drawn in place from N(0, 0.25)."""
+    from repro_torch.utils import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for t in tree_leaves(tree):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.5)
+    return tree
+
+
+def launch_adapters(torch, cfg):
+    """The text adapter drawn from seed 0 with ``up`` off zero, so that
+    ``down`` carries gradient."""
+    from repro_torch.core.adapters import init_nanoedge
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    adapters = init_nanoedge(gen, cfg)
+    for a in adapters.values():
+        a["up"].copy_(torch.randn(a["up"].shape, generator=gen, device="cuda") * 0.05)
+    return adapters
+
+
+def fit_table(dryrun, archs, shapes):
+    """``[dryrun]``: every pair's per-card footprint on one card and on an
+    eight-card node, from meta tensors."""
+    for lay in ("1x1", "1x8"):
+        for arch in archs:
+            cells = []
+            for name in shapes:
+                rec = dryrun.run_fit(arch, name, lay, verbose=False)
+                cells.append(f"{name} skip ({rec['reason']})" if rec["status"] == "skip" else
+                             f"{name} {rec['analytic_footprint']['total'] / 2**30:.2f} GiB "
+                             f"{'fits' if rec['fits'] else 'over 80 GiB'}")
+            log(f"[dryrun] fit {lay} {arch}, analytic (TPU remat allowance): "
+                + "; ".join(cells))
+
+
+def roofline_text(rep) -> str:
+    return (f"{rep.hlo_flops:.4e} FLOP, {rep.hlo_bytes:.4e} B; compute "
+            f"{1e3 * rep.t_compute:.3f} ms, memory {1e3 * rep.t_memory:.3f} ms "
+            f"({rep.bottleneck}-bound), useful {rep.useful_ratio:.3f}")
+
+
+def launch_arch(torch, tr, counters, dryrun, arch, shapes, card):
+    """One arch's shapes at full width and depth, bf16, kernels on: each run
+    timed at the largest batch the card holds (or the cut), launches counted;
+    then its checks. -> launches by run."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import steps
+
+    cfg0 = tr["get_config"](arch).with_(use_pallas=True)
+    t0 = time.perf_counter()
+    backbone = tr["model"].init_backbone(cfg0, seed=0, device="cuda")
+    adapters = launch_adapters(torch, cfg0)
+    torch.cuda.synchronize()
+    log(f"[launch] {arch}: {cfg0.n_layers} layers, d_model {cfg0.d_model}, {cfg0.dtype}, drawn "
+        f"in {time.perf_counter() - t0:.1f} s")
+    short = arch.split("-")[0]
+    launches = {}
+    for name in shapes:
+        shape = INPUT_SHAPES[name]
+        cfg = steps.exec_config(cfg0, shape, "full")
+        run = dryrun.step_runner(cfg, shape, backbone, adapters)
+        fits, probe = shape.global_batch, None
+        if shape.global_batch > 2:
+            fits, probe = dryrun.fit_batch(cfg, shape, run, "cuda")
+        batch = fits
+        rep, _ = dryrun.roofline_report(arch, cfg0, shape, "1x1")
+        for fn in counters.values():
+            fn.launches = 0
+        rec = dryrun.run_record(arch, cfg0, cfg, shape, run, batch, "cuda", probe,
+                                iters=LAUNCH_ITERS[shape.kind],
+                                rep=rep if batch == shape.global_batch else None)
+        launches[f"launch_{short}_{name}"] = {n: fn.launches for n, fn in counters.items()}
+        foot = dryrun.analytic_footprint(cfg, shape, {"data": 1, "model": 1})["total"]
+        per_row = "" if probe is None else (
+            f"probes: peak {probe['peak_b1'] / 2**30:.2f} GiB at batch 1, "
+            f"{probe['peak_b2'] / 2**30:.2f} at 2, {probe['per_row'] / 2**30:.3f} GiB a row; ")
+        mean = sum(rec["ms"]) / len(rec["ms"])
+        log(f"[launch] {arch} x {name} ({shape.kind}, seq {shape.seq_len}, global batch "
+            f"{shape.global_batch}): {per_row}ran at batch {batch}"
+            f"{'' if batch == shape.global_batch else ', the largest the card holds'}; one "
+            f"warm-up step at that batch, then ms "
+            f"{', '.join(f'{t:.2f}' for t in rec['ms'])} (mean {mean:.2f}); peak "
+            f"{rec['peak_bytes'] / 2**30:.2f} GiB against the analytic {rec['footprint'] / 2**30:.2f}"
+            f" GiB at batch {batch} ({foot / 2**30:.2f} GiB at {shape.global_batch}); roofline at "
+            f"batch {batch}: compute {1e3 * rec['t_compute']:.3f} ms, memory "
+            f"{1e3 * rec['t_memory']:.3f} ms, measured / max {rec['ms_over_bound']:.3f}; launches "
+            f"{json.dumps({k: v for k, v in launches[f'launch_{short}_{name}'].items() if v})} | "
+            f"{card}")
+        log(f"[dryrun] roofline {arch} x {name} at batch {shape.global_batch} on 1x1: "
+            f"{roofline_text(rep)}")
+        if shape.kind != "decode":  # decode's launch_check runs the whole batch
+            scale_check(torch, cfg, shape, batch, adapters)
+        launch_check(torch, tr, dryrun, arch, cfg, shape, backbone, adapters)
+        torch.cuda.empty_cache()
+    if arch == H2O:
+        attention_32k_check(torch, tr, dryrun, cfg0, backbone, adapters)
+        chunked_loss_check(torch, tr, cfg0, backbone, adapters)
+    if arch in FAR_LAYERS:
+        far_decode_check(torch, tr, cfg0, backbone, adapters)
+    del backbone, adapters
+    torch.cuda.empty_cache()
+    return launches
+
+
+def outputs_gap(torch, got, want) -> float:
+    """Largest max |got - want| / ‖want‖∞ over the tensors of two output trees."""
+    from repro_torch.utils import tree_leaves
+
+    gaps = [0.0]
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError("non-finite output")
+        scale = float(w.float().abs().max())
+        if scale > 0:
+            gaps.append(float((g.float() - w.float()).abs().max()) / scale)
+    return max(gaps)
+
+
+def launch_check(torch, tr, dryrun, arch, cfg, shape, backbone, adapters):
+    """The step with the kernels against the plain path (``use_pallas=False``:
+    the plain attention, chunked past ``attn_chunk``, the plain LoRA and SSD)
+    on the first LAUNCH_CHECK_LAYERS layers, in bf16 and in f32 on those
+    layers upcast: train loss at LOSS_TOL and adapter gradients at GRAD_TOL
+    (``step_check``), prefill logits and state and decode logits and state
+    at LOGIT_TOL."""
+    from repro_torch.utils import tree_map
+
+    n = LAUNCH_CHECK_LAYERS[arch]
+    ccfg, cut = cut_depth(cfg, backbone, n) if n < cfg.n_layers else (cfg, backbone)
+    rows = shape.global_batch if shape.kind == "decode" else 1
+    for dtype in ("bfloat16", "float32"):
+        bb = cut if dtype == "bfloat16" else tree_map(lambda t: t.float(), cut)
+        c = ccfg.with_(dtype=dtype)
+        what = f"{arch} x {shape.name} ({n} of {cfg.n_layers} layers, batch {rows}, {dtype})"
+        ins = dryrun.make_inputs(c, shape, rows, "cuda", seed=1)
+        if shape.kind == "train":
+            step_check(torch, tr, c, bb, (("launch step", adapters),), ins["batch"], what=what)
+            continue
+        if shape.kind == "decode":
+            fill_random(torch, ins["state"], seed=2)
+        plain_ins = tree_map(lambda t: t.clone(), ins)
+        got = dryrun.step_runner(c, shape, bb, adapters)(ins)
+        want = dryrun.step_runner(c.with_(use_pallas=False), shape, bb, adapters)(plain_ins)
+        lg = outputs_gap(torch, got[1 if shape.kind == "prefill" else 0],
+                         want[1 if shape.kind == "prefill" else 0])
+        st = outputs_gap(torch, got[0 if shape.kind == "prefill" else 1],
+                         want[0 if shape.kind == "prefill" else 1])
+        if lg > LOGIT_TOL[dtype] or st > LOGIT_TOL[dtype]:
+            raise AssertionError(f"{what}: kernels vs plain path, logits {lg:.3e}, state "
+                                 f"{st:.3e} (bound {LOGIT_TOL[dtype]})")
+        log(f"[launch-check] {what}: kernels vs plain path, logits {lg:.3e}, state {st:.3e} "
+            f"of ‖ref‖∞ (bound {LOGIT_TOL[dtype]})")
+        del got, want, ins, plain_ins, bb
+        torch.cuda.empty_cache()
+
+
+def scale_check(torch, cfg, shape, batch, adapters):
+    """The kernels of a train or prefill run at the run's own batch, which
+    ``launch_check`` (batch 1) does not reach, bf16 at the harness's bounds:
+    LoRA on the batch x seq rows of d_model the text adapter sees (h2o-danube's
+    prefill_32k at 24 rows: 2.0e9 elements, within 7 % of 2^31) against its
+    plain version in blocks of SCALE_LORA_ROWS rows; flash on q (batch, S, H,
+    hd), each row bit for bit the kernel's own batch-1 call on that row and
+    the first and last rows against ``chunked_sdpa``; the SSD scan on x
+    (batch, S, H, P) against its plain version in blocks of SCALE_SSD_ROWS."""
+    from repro_torch.kernels import harness
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lora import ops as lora_ops
+    from repro_torch.kernels.lora import ref as lora_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    S = steps.text_seq_len(cfg, shape.seq_len)
+    what = f"{cfg.name} x {shape.name} at batch {batch}"
+    a, sc = adapters["text"], cfg.adapter.alpha / cfg.adapter.rank
+    x = torch.randn((batch * S, cfg.d_model), generator=gen, device="cuda").to(bf16)
+    with torch.no_grad():
+        y = lora_ops.lora_residual(x, a["down"], a["up"], scale=sc)
+        lora_err = max(harness.check_close(
+            y[r0:r0 + SCALE_LORA_ROWS],
+            lora_ref.lora_residual(x[r0:r0 + SCALE_LORA_ROWS], a["down"], a["up"], scale=sc),
+            "bfloat16", f"{what}: lora rows {r0}..") for r0 in range(0, x.shape[0], SCALE_LORA_ROWS))
+        del x, y
+        if cfg.family == "ssm":
+            m = cfg.ssm
+            h = m.expand * cfg.d_model // m.head_dim
+            args = ssd_inputs(torch, gen, batch, S, h, m.head_dim, m.d_state, bf16)
+            y = ssd_ops.ssd(*args, chunk=m.chunk_size)
+            errs = []
+            for b0 in range(0, batch, SCALE_SSD_ROWS):
+                part = [t if t.dim() == 1 else t[b0:b0 + SCALE_SSD_ROWS] for t in args]
+                errs.append(harness.check_close(
+                    y[b0:b0 + SCALE_SSD_ROWS], ssd_ref.ssd_chunked(*part, chunk=m.chunk_size),
+                    "bfloat16", f"{what}: ssd rows {b0}..", harness.FULL_SSD_TOLERANCES))
+            kernel = (f"ssd_scan at x ({batch}, {S}, {h}, {m.head_dim}) vs plain in blocks of "
+                      f"{SCALE_SSD_ROWS} rows, max |err| {max(errs):.3e}")
+            del args, y
+        else:
+            H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+            q = torch.randn((batch, S, H, hd), generator=gen, device="cuda").to(bf16)
+            k, v = (torch.randn((batch, S, Hkv, hd), generator=gen, device="cuda").to(bf16)
+                    for _ in range(2))
+            kw = dict(causal=True, window=cfg.sliding_window, softcap=cfg.logit_softcap)
+            o = fa_ops.flash_attention(q, k, v, **kw)
+            for b in range(batch):
+                if not torch.equal(o[b:b + 1], fa_ops.flash_attention(q[b:b + 1], k[b:b + 1],
+                                                                      v[b:b + 1], **kw)):
+                    raise AssertionError(f"{what}: flash row {b} differs from the kernel's "
+                                         "batch-1 call on that row")
+            errs = [harness.check_close(
+                o[b:b + 1], attn.chunked_sdpa(cfg, q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                              chunk=cfg.attn_chunk),
+                "bfloat16", f"{what}: flash row {b}") for b in sorted({0, batch - 1})]
+            kernel = (f"flash_attention at q ({batch}, {S}, {H}, {hd}) on {Hkv} kv heads, window "
+                      f"{cfg.sliding_window}: every row equal to the batch-1 call to the bit, rows "
+                      f"0 and {batch - 1} vs chunked_sdpa (chunk {cfg.attn_chunk}) max |err| "
+                      f"{max(errs):.3e}")
+            del q, k, v, o
+    torch.cuda.empty_cache()
+    log(f"[launch-check] {what}, the kernels at the run's batch, bf16 (the harness's bounds): "
+        f"lora_residual at x ({batch * S}, {cfg.d_model}) = {batch * S * cfg.d_model:.3e} "
+        f"elements vs plain in blocks of {SCALE_LORA_ROWS} rows, max |err| {lora_err:.3e}; "
+        f"{kernel}")
+
+
+def attention_32k_check(torch, tr, dryrun, cfg0, backbone, adapters):
+    """h2o-danube at prefill_32k on batch 1 and 2 layers, ``attn_chunk``
+    1,024 as ``exec_config``'s full mode sets it: the flash kernel against
+    ``chunked_sdpa`` on the first layer's q, k, v of the kernel run (32,768
+    positions, window 4,096), f32 at ATTN_F32_TOL; the bf16 gap printed."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as attn
+    from repro_torch.utils import tree_map
+
+    shape = INPUT_SHAPES["prefill_32k"]
+    cfg, cut = cut_depth(steps.exec_config(cfg0, shape, "full"), backbone, 2)
+    gaps = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.with_(dtype=dtype)
+        bb = cut if dtype == "bfloat16" else tree_map(lambda t: t.float(), cut)
+        seen, wrapper = [], fa_ops.flash_attention
+
+        def record(q, k, v, **kw):
+            if not seen:
+                seen.append((q, k, v, kw))
+            return wrapper(q, k, v, **kw)
+
+        record.launches = 0  # the comparison's launches stay off the counters
+        fa_ops.flash_attention = record
+        try:
+            dryrun.step_runner(c, shape, bb, adapters)(dryrun.make_inputs(c, shape, 1, "cuda",
+                                                                          seed=3))
+        finally:
+            fa_ops.flash_attention = wrapper
+        q, k, v, kw = seen[0]
+        with torch.no_grad():
+            got = wrapper(q, k, v, **kw)
+            want = attn.chunked_sdpa(c, q, k, v, chunk=c.attn_chunk)
+        gaps[dtype] = float((got.float() - want.float()).abs().max()) / float(
+            want.float().abs().max())
+        del seen, q, k, v, got, want, bb
+        torch.cuda.empty_cache()
+    if gaps["float32"] > ATTN_F32_TOL:
+        raise AssertionError(f"flash vs chunked_sdpa at 32,768 positions: {gaps}")
+    log(f"[launch-check] {cfg0.name} flash vs chunked_sdpa (chunk {cfg.attn_chunk}) at q "
+        f"(1, {shape.seq_len}, {cfg.n_heads}, {cfg.resolved_head_dim}) on {cfg.n_kv_heads} kv "
+        f"heads, window {cfg.sliding_window}, layer 0 of the prefill_32k step: f32 "
+        f"{gaps['float32']:.3e} (bound {ATTN_F32_TOL}), bf16 {gaps['bfloat16']:.3e} (printed)")
+
+
+def chunked_loss_check(torch, tr, cfg0, backbone, adapters):
+    """``chunked_lm_loss`` against the full logits' ``lm_loss`` at h2o-danube's
+    train_4k rows (batch 2 x 4,096, 2 layers, f32, kernels on): the step's
+    loss and adapter gradients at CHUNKED_LOSS_TOL; and the loss head alone
+    on the same final hidden states (loss and d/dhidden at the same bound),
+    with the peak memory each takes above its inputs."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.models.layers import chunked_lm_loss, lm_loss
+    from repro_torch.utils import tree_map
+
+    shape = INPUT_SHAPES["train_4k"]
+    rows, chunk = 2, 1024
+    cfg, cut = cut_depth(cfg0.with_(dtype="float32"), backbone, 2)
+    bb = tree_map(lambda t: t.float(), cut)
+    batch = dryrun.make_inputs(cfg, shape, rows, "cuda", seed=4)["batch"]
+    out = {}
+    for label, c in (("lm_loss", cfg), ("chunked_lm_loss", cfg.with_(loss_chunk=chunk))):
+        loss, _, grads = tr["client"].value_and_grad(
+            lambda a: tr["fednano_loss"](c, bb, a, batch), adapters)
+        out[label] = (float(loss), grads)
+    (lf, gf), (lc, gc) = out["lm_loss"], out["chunked_lm_loss"]
+    le, ge = abs(lc - lf) / abs(lf), tree_rel_err(gc, gf)
+    # the loss head alone: the same hidden states, the untied table
+    model, nano = tr["model"], tr["adapters"]
+    with torch.no_grad():
+        emb, pos, labels, mask, _ = nano.nanoedge_forward(cfg, bb, adapters, batch)
+        hidden = model.forward(cfg, bb, emb, pos)[0]
+    table = bb["unembed"]["table"]
+    head, peaks = {}, {}
+    for label, fn in (("lm_loss", lambda h: lm_loss(model.logits(cfg, bb, h), labels, mask)),
+                      ("chunked_lm_loss", lambda h: chunked_lm_loss(h, table, labels, mask,
+                                                                    chunk=chunk))):
+        h = hidden.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        val = fn(h)
+        (dh,) = torch.autograd.grad(val, h)
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() - base
+        head[label] = (float(val.detach()), dh)
+        del val, h
+    hv = abs(head["chunked_lm_loss"][0] - head["lm_loss"][0]) / abs(head["lm_loss"][0])
+    hg = rel_err([head["chunked_lm_loss"][1]], [head["lm_loss"][1]])
+    if max(le, ge, hv, hg) > CHUNKED_LOSS_TOL:
+        raise AssertionError(f"chunked_lm_loss vs lm_loss: step loss {lc} vs {lf}, adapter "
+                             f"grads {ge:.3e}; head loss {hv:.3e}, d/dhidden {hg:.3e}")
+    log(f"[launch-check] {cfg0.name} chunked_lm_loss (chunk {chunk}) vs lm_loss at batch {rows} "
+        f"x {shape.seq_len}, 2 layers, f32: step loss {lc:.7f} vs {lf:.7f} (rel {le:.3e}), "
+        f"adapter grads {ge:.3e}; loss head alone: loss {hv:.3e}, d/dhidden {hg:.3e} (bound "
+        f"{CHUNKED_LOSS_TOL}); the head's peak above its inputs {peaks['chunked_lm_loss'] / 2**30:.3f}"
+        f" GiB chunked vs {peaks['lm_loss'] / 2**30:.3f} GiB full logits (vocab "
+        f"{cfg.vocab_size}, {rows * shape.seq_len * cfg.vocab_size * 4 / 1e9:.2f} GB of f32 "
+        f"logits)")
+
+
+def far_decode_check(torch, tr, cfg0, backbone, adapters):
+    """The decode step at position 524,287 in f32 on the first FAR_LAYERS
+    layers: tokens at positions p0 .. 524,287 (p0 a multiple of the ring's C
+    slots, 2C positions), the text adapter on their embeddings, prefilled to
+    524,287 - FAR_STEPS + 1 and decoded teacher-forced to 524,287; every
+    decode step's logits held at LOGIT_TOL against the full windowed forward
+    of the 2C tokens at the same absolute positions, through the kernels and
+    through the plain versions."""
+    from repro_torch.core import adapters as nano
+    from repro_torch.utils import tree_map
+
+    model = tr["model"]
+    n = FAR_LAYERS[cfg0.name]
+    cfg, cut = cut_depth(cfg0.with_(dtype="float32"), backbone, n)
+    cut = tree_map(lambda t: t.float(), cut)
+    ring = cfg.rglru.local_window if cfg.family == "hybrid" else cfg.sliding_window
+    N = 2 * ring
+    p0 = FAR_POS + 1 - N
+    if p0 % ring:
+        raise AssertionError(f"start {p0} is not a multiple of the ring's {ring} slots")
+    tol = LOGIT_TOL["float32"]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (1, N), generator=gen, device="cuda")
+    pos = torch.arange(p0, p0 + N, device="cuda")[None]
+    a = adapters["text"]
+    with torch.no_grad():
+        emb = nano.nano_adapter_apply(a, model.embed_tokens(cfg, cut, tokens),
+                                      rank=cfg.adapter.rank, alpha=cfg.adapter.alpha,
+                                      use_pallas=True)
+        full = model.logits(cfg, cut, model.forward(cfg, cut, emb, pos)[0])[0]
+        with plain_versions():
+            plain = model.logits(cfg, cut, model.forward(cfg, cut, emb, pos)[0])[0]
+        gap = rel_err([full], [plain])
+        P = N - FAR_STEPS
+        state, _ = model.prefill(cfg, cut, emb[:, :P], pos[:, :P], capacity=N)
+        errs = []
+        for t in range(P, N):
+            got, state = model.decode_step(cfg, cut, emb[:, t:t + 1], state, p0 + t)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{cfg.name}: non-finite decode logits at {p0 + t}")
+            errs.append(max(rel_err([got[0, 0]], [full[t]]), rel_err([got[0, 0]], [plain[t]])))
+    if gap > tol or max(errs) > tol:
+        raise AssertionError(f"{cfg.name} decode at {FAR_POS}: forward kernels vs plain "
+                             f"{gap:.3e}, decode vs forward {errs} (bound {tol})")
+    log(f"[launch-check] {cfg.name} f32 far decode ({n} of {cfg0.n_layers} layers, {ring}-slot "
+        f"ring): positions {p0}..{FAR_POS}, prefilled to {p0 + P - 1}, {FAR_STEPS} decode steps "
+        f"to {FAR_POS}: worst {max(errs):.3e} (at {p0 + P + errs.index(max(errs))}), last "
+        f"{errs[-1]:.3e}; forward kernels vs plain {gap:.3e} (bound {tol} of ‖ref‖∞)")
+
+
+def launch_timings(torch, F, fa_ops, lora_ops, lora_ref, ssd_ops, ssd_ref):
+    """The kernels at the shapes phase 20 gives them, beside their plain
+    versions, a library call where one fits, and the bound: flash at
+    h2o-danube's prefill_32k q (1, 32768, 32, 80) on 8 kv heads, window 4,096
+    (plain: ``chunked_sdpa``, chunk 1,024, as sdpa's (S, S) scores do not
+    fit; SDPA on the memory-efficient backend with a band mask, K/V heads
+    repeated); LoRA at decode_32k's 128 rows of 2,560; the SSD scan at
+    mamba2-130m's prefill_32k x (1, 32768, 24, 64). Slow plain versions are
+    timed by events over 2 calls. -> rows by kernel."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bf16 = torch.bfloat16
+    cfg = get_config(H2O).with_(attn_chunk=1024)
+    B, S, H, Hkv, hd, w = 1, 32768, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, 4096
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(bf16)
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(bf16) for _ in range(2))
+    kw = dict(causal=True, window=w)
+    o, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    b_ms, b_by = bound(nbytes(q, k, v, o, lse), 4 * hd * causal_pairs(S, w) * H * B, "bf16")
+    k_ms, k_is = time_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw), iters=10)
+    c_ms = time_ms_cold(torch, lambda *a: fa_ops.flash_attention(*a, **kw), (q, k, v),
+                        nbytes(q, k, v, o, lse), iters=10)
+    with torch.no_grad():
+        p_ms = time_events(torch, lambda: attn.chunked_sdpa(cfg, q, k, v, chunk=1024), iters=2)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous() for t in (k, v))
+    mask = attn.causal_mask(S, S, window=w, device="cuda")
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+            lib_err = float((lib.float() - o.float()).abs().max())
+            del lib
+            l_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                            attn_mask=mask),
+                              iters=5)
+        lib_note = (f"{l_ms:.5f} (memory-efficient backend, band mask of window {w}, max abs "
+                    f"difference from the kernel {lib_err:.3e})")
+    except RuntimeError as e:  # a library yardstick only: no backend takes this call
+        l_ms, lib_note = None, f"None (SDPA with a band mask at {S}: {str(e)[:120]})"
+    del qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    log(f"[time] flash_attention at q ({B}, {S}, {H}, {hd}) k/v Hkv {Hkv} bf16 causal window "
+        f"{w} (h2o-danube-1.8b prefill_32k), device ms per call: kernel {k_ms:.5f} ({k_is:.5f} "
+        f"issued), cold {c_ms:.5f} | plain chunked_sdpa (chunk 1024) {p_ms:.5f} | library SDPA "
+        f"{lib_note} | bound {b_ms:.5f} ({b_by}) | bound / time: warm {b_ms / k_ms:.3f}, cold "
+        f"{b_ms / c_ms:.3f}")
+    rows = {"flash_attention": {"h2o prefill_32k": dict(
+        ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+        shape=[B, S, H, Hkv, hd, w])}}
+    del q, k, v, o, lse
+    x = torch.randn((128, cfg.d_model), generator=gen, device="cuda").to(bf16)
+    A = torch.randn((cfg.d_model, 64), generator=gen, device="cuda") * 0.05
+    Bm = torch.randn((64, cfg.d_model), generator=gen, device="cuda") * 0.05
+    rows["lora_residual"] = {"h2o decode_32k (128, 2560)": lora_timing(
+        torch, lora_ops, lora_ref, x, A, Bm, " (h2o-danube-1.8b decode_32k rows)")}
+    m = get_config(MAMBA).ssm
+    h = m.expand * get_config(MAMBA).d_model // m.head_dim
+    args = ssd_inputs(torch, gen, 1, S, h, m.head_dim, m.d_state, bf16)
+    q_ = m.chunk_size
+    n_bytes, n_ops = ssd_work(1, S, h, m.head_dim, m.d_state, q_, 2)
+    b_ms, b_by = bound(n_bytes, n_ops, "bf16")
+    k_ms, k_is = time_ms(torch, lambda: ssd_ops.ssd(*args, chunk=q_), iters=10)
+    c_ms = time_ms_cold(torch, lambda *a: ssd_ops.ssd(*a, chunk=q_), args, n_bytes, iters=10)
+    with torch.no_grad():
+        p_ms = time_events(torch, lambda: ssd_ref.ssd_chunked(*args, chunk=q_), iters=2)
+    log(f"[time] ssd_scan at x (1, {S}, {h}, {m.head_dim}) bf16, N {m.d_state}, chunk {q_} "
+        f"(mamba2-130m prefill_32k): device ms per call: kernel {k_ms:.5f} ({k_is:.5f} issued), "
+        f"cold {c_ms:.5f} | plain {p_ms:.5f} | library None | bound {b_ms:.5f} ({b_by}; "
+        f"{n_ops / 1e9:.4f} GFLOP, {n_bytes / 1e6:.3f} MB) | bound / time: warm "
+        f"{b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}")
+    rows["ssd_scan"] = {"prefill_32k (1, 32768)": dict(
+        shape=[1, S, h, m.head_dim, m.d_state, q_], ms=k_ms, cold_ms=c_ms, plain_ms=p_ms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)}
+    del args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def launch_phase(torch, tr, counters, kernels):
+    """Phase 20: the fit table, each LAUNCH_RUNS arch at its shapes, then the
+    kernels at phase 20's shapes (``kernels``: the ops and plain-version
+    modules ``launch_timings`` takes). -> (launches by run, timing rows)."""
+    from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    card = card_line()
+    torch.cuda.empty_cache()
+    fit_table(dryrun, ASSIGNED_ARCHS, INPUT_SHAPES)
+    log(f"[dryrun] fit table: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    # Their steps allocate blocks of about 10 GB. After the earlier phases the
+    # caching allocator's segments had no room left for one (20.60 GiB reserved
+    # but unallocated at h2o-danube's prefill_32k, 23 rows, on an H100 80GB), so
+    # the runs take expandable segments; the timings after them capture CUDA
+    # graphs, with the default segments again.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        for arch, shapes in LAUNCH_RUNS:
+            launches.update(launch_arch(torch, tr, counters, dryrun, arch, shapes, card))
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    for name in LAUNCH_KERNELS:
+        if not sum(v[name] for v in launches.values()):
+            raise AssertionError(f"phase 20 never launched the {name} kernel: {launches}")
+    rows = launch_timings(torch, *kernels)
+    log(f"[phase20] the launch step functions at the production shapes: "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return launches, rows
+
+
 SOURCES = {
     "lora_residual": ("src/repro_torch/csrc/lora.cu", "src/repro/kernels/lora/lora.py:49"),
     # jax.vmap of lora_residual_2d's pallas_call: the vmap engine's batched call
@@ -4283,7 +4856,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on an NVIDIA card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -4460,6 +5032,13 @@ def main() -> int:
     times["flash_attention"]["shapes"].update(flash_times)
     times["lora_residual"]["shapes"].update(lora_times)
     times["grouped_lora_residual"]["shapes"]["whisper-base 4 in use"] = grouped_time
+
+    # phase 20: the launch layer's step functions at the production shapes
+    launch_launches, launch_rows = launch_phase(torch, tr, counters,
+                                                (F, fa_ops, lora_ops, lora_ref, ssd_ops, ssd_ref))
+    launches.update(launch_launches)
+    for name, rows in launch_rows.items():
+        times[name]["shapes"].update(rows)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

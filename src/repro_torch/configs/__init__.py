@@ -27,8 +27,8 @@ from repro_torch.configs import (
     recurrentgemma_9b,
     whisper_base,
 )
-from repro_torch.configs.base import (AdapterConfig, ModelConfig, MoEConfig, RGLRUConfig,
-                                      SSMConfig, reduced)
+from repro_torch.configs.base import (INPUT_SHAPES, AdapterConfig, InputShape, ModelConfig,
+                                      MoEConfig, RGLRUConfig, SSMConfig, reduced)
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "glm4-9b": glm4_9b.config,
@@ -46,6 +46,24 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
 }
 
 
+# the ten assigned architectures, in the JAX registry's order, and the
+# paper's own two MLLM backbones (``repro/configs/__init__.py:55-68``)
+ASSIGNED_ARCHS = [
+    "h2o-danube-1.8b",
+    "qwen1.5-4b",
+    "llama4-scout-17b-a16e",
+    "recurrentgemma-9b",
+    "qwen2-vl-72b",
+    "grok-1-314b",
+    "mamba2-130m",
+    "glm4-9b",
+    "whisper-base",
+    "internlm2-20b",
+]
+
+PAPER_ARCHS = ["llava-1.5-7b", "minigpt4-7b"]
+
+
 def list_archs():
     return list(_REGISTRY)
 
@@ -60,5 +78,6 @@ def get_smoke_config(arch: str, **overrides) -> ModelConfig:
     return reduced(get_config(arch), **overrides)
 
 
-__all__ = ["AdapterConfig", "ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig",
-           "get_config", "get_smoke_config", "list_archs", "reduced"]
+__all__ = ["ASSIGNED_ARCHS", "INPUT_SHAPES", "PAPER_ARCHS", "AdapterConfig", "InputShape",
+           "ModelConfig", "MoEConfig", "RGLRUConfig", "SSMConfig", "get_config",
+           "get_smoke_config", "list_archs", "reduced"]

@@ -13,10 +13,14 @@ caps its attention logits), the hybrid family's ``rglru``, and the
 encoder-decoder family's ``max_seq_len`` (the learned position table),
 ``n_enc_layers`` and ``enc_seq_len``. ``parallel_block`` is set by no
 config and read by no layer of the JAX package, and the adapters'
-``dropout`` is read nowhere in it; ``attn_chunk`` and ``loss_chunk`` wait
-for a long-sequence caller. The JAX package's execution switches for its
-TPU mesh (``remat``, ``scan_layers``, ``seq_parallel``,
-``ctx_parallel_attn``) change no number and have no counterpart here.
+``dropout`` is read nowhere in it. ``attn_chunk`` and ``loss_chunk``
+bound the plain path's live logits at long sequences (the launch layer's
+``exec_config`` sets ``attn_chunk``; ``loss_chunk`` comes with a dry-run
+``--override``). The JAX package's execution switches for its TPU mesh
+(``remat``, ``scan_layers``, ``seq_parallel``, ``ctx_parallel_attn``) change
+no number and have no counterpart here. ``InputShape`` describes a
+workload, ``INPUT_SHAPES`` the four production shapes
+(``repro/configs/base.py:194-199``).
 """
 from __future__ import annotations
 
@@ -111,6 +115,16 @@ class ModelConfig:
     # numerics / execution
     dtype: str = "bfloat16"
     use_pallas: bool = False       # route hot ops through the hand-written kernels
+    attn_chunk: Optional[int] = None   # query chunking of the plain attention path;
+                                       # bounds live logits to (B, H, chunk, S)
+    loss_chunk: Optional[int] = None   # chunked cross-entropy (bounds (B, chunk, V) logits)
+
+    @property
+    def subquadratic(self) -> bool:
+        """Sub-quadratic sequence mixing: decides ``long_500k`` eligibility."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None
 
     @property
     def resolved_head_dim(self) -> int:
@@ -169,3 +183,21 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw["frontend_dim"] = min(cfg.frontend_dim, 128)
     kw.update(overrides)
     return replace(cfg, **kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """A workload: (kind, seq_len, global_batch)."""
+
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", "train", 4_096, 256),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": InputShape("decode_32k", "decode", 32_768, 128),
+    "long_500k": InputShape("long_500k", "decode", 524_288, 1),
+}

@@ -94,6 +94,41 @@ def sdpa(cfg, q, k, v, mask):
     return out.reshape(B, Sq, nh, hd)
 
 
+def chunked_sdpa(cfg, q, k, v, *, chunk: int):
+    """Causal (and, with ``cfg.sliding_window``, windowed) attention over query
+    chunks, the plain path's memory-bounded form (``attention.py:114-151``).
+
+    Only one chunk's (B, n_kv, g, chunk, S) f32 logits are live at a time
+    instead of sdpa's (B, n_kv, g, S, S): at 32,768 positions the full
+    scores of one h2o-danube layer would take 137 GB a row. Each chunk's mask
+    is built from absolute positions; the last chunk is padded with zero
+    queries and cut after, as the JAX package pads it. A Python loop over
+    chunks stands in for ``lax.scan``. Equal to :func:`sdpa` with the
+    causal (windowed) mask, row by row.
+    """
+    B, S, nh, hd = q.shape
+    nkv = k.shape[2]
+    g = nh // nkv
+    pad = (-S) % chunk
+    if pad:
+        q = torch.cat([q, q.new_zeros((B, pad, nh, hd))], dim=1)
+    kf = k.float()
+    kpos = torch.arange(S, device=q.device)[None, :]
+    outs = []
+    for start in range(0, S + pad, chunk):
+        qc = q[:, start:start + chunk].reshape(B, chunk, nkv, g, hd)
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * (hd ** -0.5)
+        logits = _softcap(logits, cfg.logit_softcap)
+        qpos = torch.arange(start, start + chunk, device=q.device)[:, None]
+        m = kpos <= qpos
+        if cfg.sliding_window is not None:
+            m = m & (qpos - kpos < cfg.sliding_window)
+        probs = torch.softmax(logits.masked_fill(~m, NEG_INF), dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", probs, v))
+    out = torch.cat(outs, dim=1).reshape(B, S + pad, nh, hd)
+    return out[:, :S] if pad else out
+
+
 def causal_mask(sq: int, sk: int, *, q_offset: int = 0, window: Optional[int] = None,
                 device=None):
     """(Sq, Sk) boolean mask, True = attend. Query i has absolute position
@@ -113,10 +148,12 @@ def full_attention(cfg, params, x, angles, *, causal: bool = True, memory=None,
     Causal self-attention by default, or bidirectional (``causal=False``, the
     encoder's); ``memory`` (B, M, D) makes it cross-attention: keys and values
     from the memory, no mask, no rotary. Rotary only where ``angles`` is given
-    (learned positions have none). ``cfg.use_pallas`` routes causal
-    self-attention through the flash-attention kernel with the config's
-    window and logit softcap (``attention.py:196-202``); the encoder and the
-    cross-attention take ``sdpa``, as in the JAX package.
+    (learned positions have none). Causal self-attention takes, in the JAX
+    package's order (``attention.py:196-211``): the flash-attention kernel
+    under ``cfg.use_pallas``, with the config's window and logit softcap;
+    else :func:`chunked_sdpa` where the sequence is longer than
+    ``cfg.attn_chunk``; else ``sdpa``. The encoder and the cross-attention
+    take ``sdpa``, as in the JAX package.
     Returns (out, (k, v)) when ``return_kv``.
     """
     q = _project_q(cfg, params, x)
@@ -129,6 +166,8 @@ def full_attention(cfg, params, x, angles, *, causal: bool = True, memory=None,
     if cfg.use_pallas and self_causal:
         out = flash_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
                                         softcap=cfg.logit_softcap)
+    elif self_causal and cfg.attn_chunk is not None and S > cfg.attn_chunk:
+        out = chunked_sdpa(cfg, q, k, v, chunk=cfg.attn_chunk)
     else:
         mask = (causal_mask(S, S, window=cfg.sliding_window, device=x.device)
                 if self_causal else None)

@@ -29,7 +29,9 @@ from repro_torch.models.layers import (
     init_embedding,
     init_learned_pos,
     init_norm,
+    chunked_lm_loss,
     lm_loss,
+    make_generator,
     norm,
     torch_dtype,
     unembed,
@@ -66,7 +68,7 @@ def init_backbone(cfg, *, seed: int = 0, device="cuda"):
     with the JAX package's leaves (``model.py:40-60``)."""
     check_supported(cfg)
     dtype = param_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = make_generator(device, seed)
     dev = gen.device
     params = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
@@ -149,12 +151,18 @@ def loss_fn(cfg, params, embeds, positions, labels, mask, enc_embeds=None, clien
     """Masked LM loss of the frozen backbone on adapted embeddings -> (loss, aux).
 
     aux, the MoE balance loss, is reported and never differentiated (the JAX
-    client's ``has_aux``), so it leaves the graph here. The port's configs
-    have no ``loss_chunk``, so the full (B, S, V) logits are formed, as in
-    ``repro.models.model.loss_fn``. ``clients=K`` (rows as in
-    :func:`forward`): loss and aux (K,), each client's own.
+    client's ``has_aux``), so it leaves the graph here. A sequence longer
+    than ``cfg.loss_chunk`` takes :func:`chunked_lm_loss` on the tied or
+    untied table (``model.py:118-127``), else the full (B, S, V) logits are
+    formed. ``clients=K`` (rows as in :func:`forward`): loss and aux (K,),
+    each client's own.
     """
     hidden, aux = forward(cfg, params, embeds, positions, enc_embeds, clients)
+    if cfg.loss_chunk is not None and hidden.shape[1] > cfg.loss_chunk:
+        table = params["embed" if cfg.tie_embeddings else "unembed"]["table"]
+        loss = chunked_lm_loss(hidden, table, labels, mask, chunk=cfg.loss_chunk,
+                               clients=clients)
+        return loss, aux.detach()
     return lm_loss(logits(cfg, params, hidden), labels, mask, clients), aux.detach()
 
 

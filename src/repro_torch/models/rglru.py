@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.layers import dense_init, gelu
+from repro_torch.models.layers import dense_init, gelu, normal, uniform
 
 _C = 8.0
 
@@ -43,10 +43,10 @@ def init_rglru(gen, cfg, dtype):
     (``rglru.py:37-56``): Λ is drawn so that a ∈ (0.9, 0.999) at r = 1."""
     d, dr, cw = cfg.d_model, _d_rnn(cfg), cfg.rglru.conv_width
     dev = gen.device
-    u = torch.rand((dr,), generator=gen, device=dev, dtype=torch.float32)
+    u = uniform(gen, (dr,))
     lam = 0.9 ** 2 + u * (0.999 ** 2 - 0.9 ** 2)
     lam = torch.log(torch.expm1(-torch.log(lam) / (2 * _C)))  # inverse of a = exp(-c softplus(Λ))
-    conv_w = torch.randn((cw, dr), generator=gen, device=dev, dtype=torch.float32)
+    conv_w = normal(gen, (cw, dr))
     return {
         "w_gate_branch": dense_init(gen, (d, dr), dtype),
         "w_rec_branch": dense_init(gen, (d, dr), dtype),

@@ -39,7 +39,8 @@ def mrope_angles(positions3, sections, head_dim: int, theta: float):
                          f"{head_dim // 2}")
     inv = rope_freqs(head_dim, theta, positions3.device)
     sel = torch.repeat_interleave(torch.arange(len(sections), device=positions3.device),
-                                  torch.tensor(sections, device=positions3.device))
+                                  torch.tensor(sections, device=positions3.device),
+                                  output_size=head_dim // 2)
     pos = positions3.index_select(0, sel).permute(1, 2, 0)   # (B, S, half)
     return pos.to(torch.float32) * inv
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, normal, uniform
 
 
 class SSMState(NamedTuple):
@@ -48,10 +48,10 @@ def init_ssm(gen, cfg, dtype):
     d = cfg.d_model
     d_inner, H, conv_dim = _dims(cfg)
     dev = gen.device
-    u = torch.rand((H,), generator=gen, device=dev, dtype=torch.float32)
+    u = uniform(gen, (H,))
     dt = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min)) + math.log(s.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))  # inverse softplus
-    conv_w = torch.randn((s.d_conv, conv_dim), generator=gen, device=dev, dtype=torch.float32)
+    conv_w = normal(gen, (s.d_conv, conv_dim))
     return {
         "in_proj": dense_init(gen, (d, 2 * d_inner + 2 * s.d_state + H), dtype),
         "conv_w": (conv_w * 0.1).to(dtype),

@@ -14,18 +14,58 @@ the CPU ``client_mesh(n, device="cpu")`` gives n logical shards of the CPU
 trees that every block reads (the backbone, the global adapters) are
 placed once on each distinct device (:func:`replicate`).
 
-The model-axis helpers of ``repro.sharding`` (``constrain``, ``use_mesh``,
-``resolve_spec``, ``named_sharding``, ``residual_spec``, ``AXIS_ALIASES``)
-change no number in one process and have no counterpart here.
+Logical axes over a **layout** (``resolve_spec``, ``AXIS_ALIASES``): a
+layout is an ordered dict of axis sizes, ``{"data": 16, "model": 16}`` or
+``{"pod": 2, "data": 16, "model": 16}``, the shape of one of the JAX
+package's production meshes. The launch layer's sharding rules resolve
+their logical specs over it to count each card's bytes
+(``launch/sharding_rules.py``). ``constrain``, ``use_mesh``,
+``named_sharding`` and ``residual_spec`` place tensors for XLA; the port runs
+one process and shards no model axis, so they have no counterpart.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.utils import tree_bytes, tree_leaves, tree_map, tree_unstack
+
+AxisName = Union[None, str, Tuple[str, ...]]
+
+# Logical-axis aliases: specs say "data" for the batch axis; on the multi-pod
+# layout batch parallelism spans ("pod", "data"). The resolver expands the
+# alias and then drops whatever axes the layout lacks.
+AXIS_ALIASES = {"data": ("pod", "data")}
+
+
+def _filter_axes(layout: Dict[str, int], dim_size: int,
+                 axes: AxisName) -> Optional[Tuple[str, ...]]:
+    """Expand aliases and drop axes absent from the layout, then the whole
+    dimension if it does not divide evenly (``sharding.py:86-104``)."""
+    if axes is None:
+        return None
+    expanded = []
+    for a in ((axes,) if isinstance(axes, str) else tuple(axes)):
+        expanded.extend(AXIS_ALIASES.get(a, (a,)))
+    kept = tuple(a for a in dict.fromkeys(expanded) if a in layout)
+    if not kept or dim_size % math.prod(layout[a] for a in kept):
+        return None
+    return kept
+
+
+def resolve_spec(layout: Dict[str, int], shape: Sequence[int],
+                 spec: Sequence[AxisName]) -> Tuple[Optional[Tuple[str, ...]], ...]:
+    """Per-dimension axis tuples (None: replicated) of a logical ``spec`` over
+    ``layout``: aliases expanded and de-duplicated in order, absent and
+    non-dividing axes dropped, as JAX's ``resolve_spec`` does on a mesh (a
+    single axis comes as a 1-tuple where JAX gives the bare name)."""
+    if len(shape) != len(spec):
+        raise ValueError(f"shape {tuple(shape)} and spec {tuple(spec)} differ in rank")
+    return tuple(_filter_axes(layout, d, a) for d, a in zip(shape, spec))
+
 
 # Axis name of the 1-D federated-cohort mesh: stacked per-client trees are cut
 # along their leading (client) axis over it.

@@ -22,7 +22,7 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import model as jmodel
 from repro_torch import interop
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch import serve, train
+from repro_torch.launch import dryrun, serve, train
 from repro_torch.models import model as model_lib
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -69,6 +69,10 @@ def test_entry_points_default_to_cuda(no_cuda, arch):
     with pytest.raises((RuntimeError, AssertionError)):
         train.main(["--arch", arch, "--rounds", "1", "--clients", "2", "--local-steps", "1",
                     "--examples-per-client", "8", "--batch-size", "4", "--seq-len", "8"])
+    # the dry-run's --run takes the assigned archs; llava's case runs h2o-danube
+    run_arch = arch if arch in dryrun.ASSIGNED_ARCHS else "h2o-danube-1.8b"
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        dryrun.main(["--run", "--arch", run_arch, "--shape", "long_500k"])
 
 
 @pytest.mark.parametrize("arch", ["llava-1.5-7b", "mamba2-130m"])
