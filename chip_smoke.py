@@ -357,6 +357,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       ``lm_loss`` at train_4k rows (CHUNKED_LOSS_TOL, peak memory of
       each); for h2o-danube and recurrentgemma the decode to position
       524,287 against the full windowed forward (f32, LOGIT_TOL).
+21. The port's three examples (``repro_torch.examples``) through their ``run``
+   functions, last:
+   a. at the JAX examples' own tiny dims in f32, from the same CPU-drawn
+      weights, the card (kernels) against the CPU (plain versions):
+      quickstart's six epoch losses and federated VQA's round losses and
+      per-client accuracies (``EXAMPLES_VQA_SMOKE``) within EXAMPLES_TOL,
+      split serving's tokens equal (or each first difference a near tie of
+      the CPU's logits, under NEAR_TIE), the wire and ledger bytes equal;
+   b. llava-1.5-7b at full width, bf16 weights from seed 0, kernels on,
+      counters reset around each run: quickstart for EXAMPLES_FULL_EPOCHS
+      epochs, federated VQA's three strategies (``EXAMPLES_VQA_FULL``) and
+      split serving's 8 requests of 5 tokens, each again on the plain
+      versions from the same weights: the first epoch's and each strategy's
+      round-0 loss held at RUN_LOSS_TOL_BF16, the rest and the token
+      agreement reported; ms a quickstart step, round wall s by strategy,
+      prefill and decode-step ms, peak memory. Each kernel run records the
+      inputs of the path's LoRA, flash and Fisher-merge calls (the last call
+      of each shape, ``path_inputs``) and calls each wrapper again on them
+      against its plain version at ``harness.TOLERANCES``, bf16 LoRA and
+      flash also against their rounding models at
+      ``harness.BF16_MODEL_TOLERANCES``, each LoRA call again with a random
+      up-projection whose term is max(1, ‖x‖∞) (``[examples-kernels]``).
+      Phase 21 must launch lora_residual, flash_attention and fisher_merge.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
@@ -4832,6 +4855,346 @@ def launch_phase(torch, tr, counters, kernels):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the three examples
+# ---------------------------------------------------------------------------
+
+# (a) at the JAX examples' own tiny dims, f32: the card (kernels) against the
+# CPU (plain versions), from the same CPU-drawn weights
+EXAMPLES_VQA_SMOKE = dict(rounds=2, clients=3, local_steps=2)
+EXAMPLES_TOL = 1e-5
+# (b) llava-1.5-7b at full width, bf16 weights from seed 0, kernels against
+# the plain versions: 2 of quickstart's epochs, federated VQA's three
+# strategies over 2 clients x 2 rounds x 2 local steps, split serving's 8
+# requests of 5 tokens
+EXAMPLES_FULL_EPOCHS = 2
+EXAMPLES_VQA_FULL = dict(strategies=("locft", "fedavg", "fednano"), rounds=2, clients=2,
+                         local_steps=2)
+EXAMPLES_KERNELS = ("lora_residual", "flash_attention", "fisher_merge")
+
+
+def to_cuda(tree):
+    from repro_torch.utils import tree_map
+
+    return tree_map(lambda t: t.to("cuda"), tree)
+
+
+def server_to_cuda(server):
+    return dataclasses.replace(server, backbone=to_cuda(server.backbone),
+                               global_adapters=to_cuda(server.global_adapters))
+
+
+def first_difference_ties(torch, got, want):
+    """Each request whose tokens differ: (request, first differing step, the
+    top-2 gap of ``want``'s logits there relative to their ∞-norm). Raises
+    unless every such gap is a near tie (under NEAR_TIE)."""
+    ties = []
+    for i, (a, b) in enumerate(zip(got["tokens"], want["tokens"])):
+        if a == b:
+            continue
+        k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        lg = want["step_logits"][k][i].float()
+        top2 = torch.topk(lg, 2).values
+        gap = float(top2[0] - top2[1]) / float(lg.abs().max())
+        if gap >= NEAR_TIE:
+            raise AssertionError(f"split serving request {i}: tokens {a} vs {b} part at step "
+                                 f"{k}, where the top-2 logits are {gap:.3e} of ‖logits‖∞ "
+                                 f"apart (a near tie needs < {NEAR_TIE})")
+        ties.append((i, k, gap))
+    return ties
+
+
+def vqa_losses(out):
+    return {name: [m["mean_loss"] for m in res.round_metrics]
+            for name, res in out["results"].items()}
+
+
+class _Recording:
+    """An ops module as its caller sees it, with one wrapper replaced."""
+
+    def __init__(self, module, name, fn):
+        self._module, self._name, self._fn = module, name, fn
+
+    def __getattr__(self, attr):
+        return self._fn if attr == self._name else getattr(self._module, attr)
+
+
+@contextlib.contextmanager
+def path_inputs(record):
+    """Route the examples' path's calls of the LoRA, flash-attention and
+    Fisher-merge wrappers through a recorder: for each distinct shape and
+    dtype it keeps the last call's inputs in ``record`` (references to the
+    path's own tensors, no copies), then calls the wrapper as before. The
+    recorder stands in the callers' modules (the NanoEdge adapters, the
+    attention, the aggregation), so the ops modules and their launch counts
+    are untouched."""
+    from repro_torch.core import adapters as adapters_lib, aggregation
+    from repro_torch.models import attention
+
+    lora, flash, merge = (adapters_lib.lora_ops.lora_residual,
+                          attention.flash_ops.flash_attention,
+                          aggregation.fm_ops.fisher_merge_leaves)
+
+    def dtype_of(t):
+        return str(t.dtype).removeprefix("torch.")
+
+    def rec_lora(x, down, up, *, scale):
+        record[("lora_residual", tuple(x.shape), dtype_of(x))] = (
+            (x.detach(), down.detach(), up.detach()), dict(scale=scale))
+        return lora(x, down, up, scale=scale)
+
+    def rec_flash(q, k, v, **kw):
+        record[("flash_attention", tuple(q.shape), tuple(k.shape), dtype_of(q))] = (
+            (q.detach(), k.detach(), v.detach()), kw)
+        return flash(q, k, v, **kw)
+
+    def rec_merge(thetas, fishers, weights, **kw):
+        record[("fisher_merge", len(thetas), sum(t.numel() for t in thetas[0]),
+                dtype_of(thetas[0][0]))] = ((thetas, fishers, weights), kw)
+        return merge(thetas, fishers, weights, **kw)
+
+    swaps = [(adapters_lib, "lora_ops", "lora_residual", rec_lora),
+             (attention, "flash_ops", "flash_attention", rec_flash),
+             (aggregation, "fm_ops", "fisher_merge_leaves", rec_merge)]
+    modules = [getattr(caller, attr) for caller, attr, _, _ in swaps]
+    try:
+        for (caller, attr, name, fn), module in zip(swaps, modules):
+            setattr(caller, attr, _Recording(module, name, fn))
+        yield
+    finally:
+        for (caller, attr, _, _), module in zip(swaps, modules):
+            setattr(caller, attr, module)
+
+
+def hold_path_inputs(torch, record, what):
+    """Each recorded call of the examples' path again through its wrapper,
+    held against its plain version on the same inputs at the harness's bound
+    for the inputs' dtype (``harness.TOLERANCES``), the bf16 LoRA and flash
+    calls also against their rounding models at BF16_MODEL_TOLERANCES, as
+    the parity phase holds them. Logs one line per call; these launches fall
+    outside the counted runs."""
+    from repro_torch.kernels import harness
+    from repro_torch.kernels.fisher_merge import ops as fm_ops, ref as fm_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.lora import ops as lora_ops, ref as lora_ref
+
+    if not record:
+        raise AssertionError(f"{what}: no kernel call of the path was recorded")
+    calls = []  # (label, dtype, kernel, plain version, rounding model or None, args, kw)
+    for key, (args, kw) in sorted(record.items(), key=lambda kv: str(kv[0])):
+        name, dtype = key[0], key[-1]
+        label = f"{what} {name} {key[1:-1]} {dtype}"
+        if name == "lora_residual":
+            x, down, up = args
+            x = x.reshape(-1, x.shape[-1])
+            model = lora_ref.lora_residual_split_tf32 if dtype == "bfloat16" else None
+            calls.append((label, dtype, lora_ops.lora_residual, lora_ref.lora_residual, model,
+                          (x, down, up), kw))
+            # the path's rows again with a random up-projection scaled so that
+            # the adapter term's ∞-norm is max(1, ‖x‖∞): the harness's bounds,
+            # relative to max(1, ‖ref‖∞), then see a kernel that drops or
+            # garbles the term (the path's own up-projection may be 0)
+            gen = torch.Generator(device=up.device).manual_seed(0)
+            up = torch.randn(up.shape, generator=gen, device=up.device, dtype=up.dtype)
+            with torch.no_grad():
+                term = (kw["scale"] * (x.float() @ down.float()) @ up.float()).abs().max()
+                up = up * (max(1.0, float(x.float().abs().max())) / float(term))
+            calls.append((label + " (random up, term max(1, ‖x‖∞))", dtype,
+                          lora_ops.lora_residual, lora_ref.lora_residual, model,
+                          (x, down, up), kw))
+        elif name == "flash_attention":
+            model = fa_ref.attention_bf16_model if dtype == "bfloat16" else None
+            calls.append((label, dtype, fa_ops.flash_attention, fa_ref.attention, model, args,
+                          kw))
+        else:
+            flat = lambda fn: lambda *a, **k: torch.cat([t.flatten() for t in fn(*a, **k)])
+            calls.append((label, dtype, flat(fm_ops.fisher_merge_leaves),
+                          flat(fm_ref.fisher_merge_leaves), None, args, kw))
+    for label, dtype, kernel, plain, model, args, kw in calls:
+        with torch.no_grad():
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            ref_model = None if model is None else model(*args, **kw)
+        err = harness.check_close(got, want, dtype, label)
+        bound = harness.TOLERANCES[dtype]
+        line = (f"kernel vs plain max |err| {err:.3e}, max |err| / max(1, ‖ref‖∞) "
+                f"{rel_gap(got, want)[0]:.3e} (bound rtol {bound['rtol']}, atol "
+                f"{bound['atol_scale']}; ‖ref‖∞ {float(want.float().abs().max()):.3e})")
+        if ref_model is not None:
+            harness.check_close(got, ref_model, dtype, f"{label} vs model",
+                                harness.BF16_MODEL_TOLERANCES)
+            mb = harness.BF16_MODEL_TOLERANCES[dtype]
+            line += (f"; vs its rounding model {rel_gap(got, ref_model)[0]:.3e} (bound rtol "
+                     f"{mb['rtol']}, atol {mb['atol_scale']})")
+        if kernel is lora_ops.lora_residual:
+            x = args[0]
+            line += (f"; adapter term ‖s·(x·A)·B‖∞ "
+                     f"{float((want.float() - x.float()).abs().max()):.3e} beside ‖x‖∞ "
+                     f"{float(x.float().abs().max()):.3e}")
+        log(f"[examples-kernels] {label}: {line}")
+    torch.cuda.synchronize()
+
+
+def examples_smoke(torch, examples, init_backbone, init_server, card):
+    """Phase 21a: each example at its own tiny dims, f32, on the card with the
+    kernels against the CPU on the plain versions, from the same weights."""
+    quickstart, federated_vqa, split_serving = examples
+    t0 = time.perf_counter()
+    cfg = quickstart.tiny_config()
+    backbone = init_backbone(cfg, seed=0, device="cpu")
+    cpu = quickstart.run(cfg, device="cpu", backbone=backbone)
+    gpu = quickstart.run(cfg.with_(use_pallas=True), device="cuda", backbone=to_cuda(backbone))
+    errs = [abs(a - b) / abs(b) for a, b in zip(gpu["epoch_losses"], cpu["epoch_losses"])]
+    if gpu["param_count"] != cpu["param_count"] or max(errs) > EXAMPLES_TOL:
+        raise AssertionError(f"quickstart card vs CPU: epoch losses {gpu['epoch_losses']} vs "
+                             f"{cpu['epoch_losses']}")
+    log(f"[examples-smoke] quickstart f32, card (kernels) vs CPU (plain versions): epoch losses "
+        f"{gpu['epoch_losses']} vs {cpu['epoch_losses']} (max rel {max(errs):.3e}, bound "
+        f"{EXAMPLES_TOL}); {gpu['param_count']:,} adapter params")
+
+    cfg = federated_vqa.scale_config("tiny")
+    server = init_server(cfg, seed=0, device="cpu")
+    cpu = federated_vqa.run(cfg, device="cpu", server=server, verbose=False,
+                            **EXAMPLES_VQA_SMOKE)
+    gpu = federated_vqa.run(cfg.with_(use_pallas=True), device="cuda",
+                            server=server_to_cuda(server), verbose=False, **EXAMPLES_VQA_SMOKE)
+    gl, cl = vqa_losses(gpu), vqa_losses(cpu)
+    worst = 0.0
+    for name in cl:
+        g, c = gpu["results"][name], cpu["results"][name]
+        errs = [abs(a - b) / abs(b) for a, b in zip(gl[name], cl[name])]
+        acc = max(abs(g.client_accuracy[k] - c.client_accuracy[k]) for k in c.client_accuracy)
+        if (len(errs) != len(cl[name]) or max(errs) > EXAMPLES_TOL or acc > EXAMPLES_TOL
+                or g.comm_totals != c.comm_totals):
+            raise AssertionError(f"federated VQA {name} card vs CPU: losses {gl[name]} vs "
+                                 f"{cl[name]}, accuracy {g.client_accuracy} vs "
+                                 f"{c.client_accuracy}, comm {g.comm_totals} vs {c.comm_totals}")
+        worst = max(worst, *errs, acc)
+    log(f"[examples-smoke] federated VQA f32 {EXAMPLES_VQA_SMOKE}, card (kernels) vs CPU (plain "
+        f"versions): round losses {gl} vs {cl}, per-client accuracies and round losses within "
+        f"{worst:.3e} (bound {EXAMPLES_TOL}); ledger {gpu['ledger_name']} {gpu['ledger']} equal")
+
+    cfg = split_serving.tiny_config()
+    backbone = init_backbone(cfg, seed=0, device="cpu")
+    cpu = split_serving.run(cfg, device="cpu", backbone=backbone)
+    gpu = split_serving.run(cfg.with_(use_pallas=True), device="cuda",
+                            backbone=to_cuda(backbone))
+    ties = first_difference_ties(torch, gpu, cpu)
+    wire = [(k, gpu[k], cpu[k]) for k in ("wire_up", "wire_down", "backbone_bytes")]
+    if any(g != c for _, g, c in wire):
+        raise AssertionError(f"split serving card vs CPU: wire bytes {wire}")
+    log(f"[examples-smoke] split serving f32, card (kernels) vs CPU (plain versions): tokens "
+        f"{'equal' if not ties else 'equal but near ties ' + str(ties)}; wire bytes "
+        f"{[(k, g) for k, g, _ in wire]} equal; {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def examples_full(torch, examples, counters, init_server, get_config, card):
+    """Phase 21b: the three examples at llava-1.5-7b's full width, bf16, kernels
+    on, counters reset around each run; each again on the plain versions from
+    the same weights. -> the launches of the kernel runs."""
+    quickstart, federated_vqa, split_serving = examples
+    t0 = time.perf_counter()
+    cfg = get_config("llava-1.5-7b").with_(use_pallas=True)
+    server = init_server(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[examples] llava-1.5-7b {cfg.n_layers} layers, d_model {cfg.d_model}, backbone "
+        f"{cfg.dtype}, rank-{cfg.adapter.rank} {cfg.adapter.dtype} adapters: drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {n: 0 for n in counters}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: f.launches for n, f in counters.items()}
+        for n in got:
+            launches[n] += got[n]
+        return out, got, torch.cuda.max_memory_allocated() / 2**30
+
+    def plain(fn):
+        with plain_versions():
+            return fn()
+
+    quick = lambda: quickstart.run(cfg, device="cuda", backbone=server.backbone,
+                                   epochs=EXAMPLES_FULL_EPOCHS)
+    with path_inputs(rec := {}):
+        qk, ql, qpeak = counted(quick)
+    hold_path_inputs(torch, rec, "quickstart")
+    qp = plain(quick)
+    err = abs(qk["epoch_losses"][0] - qp["epoch_losses"][0]) / abs(qp["epoch_losses"][0])
+    if not all(math.isfinite(x) for x in qk["epoch_losses"]) or err > RUN_LOSS_TOL_BF16:
+        raise AssertionError(f"quickstart full width: epoch losses {qk['epoch_losses']} vs plain "
+                             f"{qp['epoch_losses']}")
+    steps = qk["step_s"]
+    log(f"[examples] quickstart llava-1.5-7b bf16, {EXAMPLES_FULL_EPOCHS} epochs of "
+        f"{len(steps) // EXAMPLES_FULL_EPOCHS} batches of 8 x (8 patches + 24 tokens): epoch "
+        f"losses kernels {qk['epoch_losses']} plain {qp['epoch_losses']} (epoch 0 rel "
+        f"{err:.3e}, bound {RUN_LOSS_TOL_BF16}; later epochs reported); ms per step "
+        f"{1e3 * sum(steps[1:]) / len(steps[1:]):.3f} (first step {1e3 * steps[0]:.3f}); peak "
+        f"memory {qpeak:.2f} GiB; {qk['param_count']:,} adapter params | launches "
+        f"{json.dumps(ql)} | {card}")
+
+    vqa = lambda: federated_vqa.run(cfg, device="cuda", server=server, verbose=False,
+                                    **EXAMPLES_VQA_FULL)
+    with path_inputs(rec := {}):
+        vk, vl, vpeak = counted(vqa)
+    hold_path_inputs(torch, rec, "federated VQA")
+    vp = plain(vqa)
+    kl, pl = vqa_losses(vk), vqa_losses(vp)
+    for name in kl:
+        e0 = abs(kl[name][0] - pl[name][0]) / abs(pl[name][0])
+        if not all(math.isfinite(x) for x in kl[name]) or e0 > RUN_LOSS_TOL_BF16:
+            raise AssertionError(f"federated VQA {name} full width: round losses {kl[name]} vs "
+                                 f"plain {pl[name]}")
+    wall = {n: round(s, 3) for n, s in vk["wall_s"].items()}
+    per_round = {n: round(s / EXAMPLES_VQA_FULL["rounds"], 3) for n, s in wall.items()}
+    log(f"[examples] federated VQA llava-1.5-7b bf16 {EXAMPLES_VQA_FULL}: round losses kernels "
+        f"{kl} plain {pl} (round 0 held at {RUN_LOSS_TOL_BF16}, round 1 reported); per-client "
+        f"accuracy {({n: r.client_accuracy for n, r in vk['results'].items()})}; wall s per "
+        f"strategy {wall} (the rounds and the final eval), a round {per_round}; ledger "
+        f"{vk['ledger_name']} {vk['ledger']}; peak memory {vpeak:.2f} GiB | launches "
+        f"{json.dumps(vl)} | {card}")
+
+    split = lambda: split_serving.run(cfg, device="cuda", backbone=server.backbone)
+    with path_inputs(rec := {}):
+        sk, sl, speak = counted(split)
+    hold_path_inputs(torch, rec, "split serving")
+    sp = plain(split)
+    first = sum(a[0] == b[0] for a, b in zip(sk["tokens"], sp["tokens"]))
+    same = sum(x == y for a, b in zip(sk["tokens"], sp["tokens"]) for x, y in zip(a, b))
+    total = sum(len(a) for a in sk["tokens"])
+    dec = sk["decode_step_s"]
+    log(f"[examples] split serving llava-1.5-7b bf16, 8 requests x 5 tokens: tokens kernels vs "
+        f"plain versions: first tokens equal {first}/8, all tokens equal {same}/{total} "
+        f"(reported); prefill ms {1e3 * sk['prefill_s']:.3f}, decode step ms "
+        f"{1e3 * sum(dec) / len(dec):.3f} ({[round(1e3 * d, 3) for d in dec]}); wire bytes up "
+        f"{sk['wire_up']} down {sk['wire_down']} vs the backbone's {sk['backbone_bytes']}; peak "
+        f"memory {speak:.2f} GiB | launches {json.dumps(sl)} | {card}")
+    del server
+    torch.cuda.empty_cache()
+    for name in EXAMPLES_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 21 never launched the {name} kernel: {launches}")
+    return launches
+
+
+def examples_phase(torch, counters, init_backbone, init_server, get_config):
+    """Phase 21: the port's three examples through their ``run`` functions.
+    -> {"examples": launches per kernel on the full-width kernel runs}."""
+    from repro_torch.examples import federated_vqa, quickstart, split_serving
+
+    examples = (quickstart, federated_vqa, split_serving)
+    t0 = time.perf_counter()
+    card = card_line()
+    torch.cuda.empty_cache()
+    examples_smoke(torch, examples, init_backbone, init_server, card)
+    launches = examples_full(torch, examples, counters, init_server, get_config, card)
+    log(f"[phase21] the examples: {time.perf_counter() - t0:.1f} s on {card}")
+    return {"examples": launches}
+
+
 SOURCES = {
     "lora_residual": ("src/repro_torch/csrc/lora.cu", "src/repro/kernels/lora/lora.py:49"),
     # jax.vmap of lora_residual_2d's pallas_call: the vmap engine's batched call
@@ -5039,6 +5402,9 @@ def main() -> int:
     launches.update(launch_launches)
     for name, rows in launch_rows.items():
         times[name]["shapes"].update(rows)
+
+    # phase 21: the three examples, at their own size and at llava's full width
+    launches.update(examples_phase(torch, counters, init_backbone, init_server, get_config))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

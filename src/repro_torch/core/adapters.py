@@ -40,6 +40,11 @@ def init_nanoedge(gen, cfg) -> Dict:
             for mod in acfg.modalities}
 
 
+def adapter_param_count(cfg) -> int:
+    """Trainable NanoEdge parameters: one (D, r) and one (r, D) per modality."""
+    return len(cfg.adapter.modalities) * 2 * cfg.d_model * cfg.adapter.rank
+
+
 def nano_adapter_apply(params, x, *, rank: int, alpha: float, use_pallas: bool = False):
     """y = x + (alpha/rank) · (x·down)·up.
 

@@ -10,7 +10,7 @@ hand-written ``fisher_merge`` kernel: one launch for the whole tree (the
 plain version on the CPU); without it each leaf takes the plain version
 wherever it lies. ``fedavg`` is the isotropic case (F_k ≡ 1), the merge of
 FedAvg, FedProx and FedDPA-F's shared adapter: a weighted sum the JAX
-package leaves to XLA, so plain torch here.
+package leaves to XLA, so plain torch here. ``aggregate`` routes a strategy's name to its merge.
 """
 from __future__ import annotations
 
@@ -61,3 +61,16 @@ def fisher_merge(thetas: List, fishers: List, data_sizes: Optional[Sequence[floa
     merged = merge([tree_leaves(t) for t in thetas], [tree_leaves(f) for f in fishers],
                    _norm_weights(data_sizes, k), eps=eps)
     return tree_unflatten(thetas[0], merged)
+
+
+STRATEGIES = ("fednano", "fednano_ef", "fedavg", "fedprox", "feddpa_f", "locft")
+
+
+def aggregate(strategy: str, thetas, fishers, data_sizes, *, use_pallas: bool = False):
+    if strategy in ("fednano", "fednano_ef"):
+        return fisher_merge(thetas, fishers, data_sizes, use_pallas=use_pallas)
+    if strategy in ("fedavg", "fedprox", "feddpa_f"):
+        return fedavg(thetas, data_sizes)
+    if strategy == "locft":
+        return None  # no aggregation: clients stay local
+    raise ValueError(f"unknown strategy {strategy!r}")

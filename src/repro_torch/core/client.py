@@ -5,6 +5,10 @@ adapter beside them). The backbone is frozen: its tensors never require
 grad, and gradients are taken with respect to the adapter tree alone, so the
 server-hosted LLM is never perturbed.
 
+``init_client`` builds a client through its strategy's hook;
+``init_clients_batched`` builds a cohort of the base hook's clients in cid
+order.
+
 Strategy-specific behaviour comes in through the ``repro_torch.strategies``
 hooks (``wrap_local_loss``, ``wants_fisher``, ``downloads_global``,
 ``local_warmup``). ``local_update`` is the sequential engine's path:
@@ -86,6 +90,23 @@ class ClientState:
                                             # download/warmup under sampling)
     local_opt_state: Any = None             # personal-adapter AdamW state,
                                             # carried across warmup rounds
+
+
+def init_client(gen, cfg, cid: int, n_examples: int, strategy) -> ClientState:
+    """Build a client via the strategy's ``init_client`` hook."""
+    from repro_torch.strategies.base import get_strategy
+
+    return get_strategy(strategy).init_client(gen, cfg, cid, n_examples)
+
+
+def init_clients_batched(strategy, gen, cfg, cids, n_examples) -> List[ClientState]:
+    """A cohort of the base ``Strategy.init_client`` body's clients, drawn
+    from ``gen`` in cid order (``repro.core.client.init_clients_batched``)."""
+    from repro_torch.strategies.base import Strategy
+
+    if len(n_examples) != len(cids):
+        raise ValueError(f"init_clients_batched: {len(cids)} cids but {len(n_examples)} sizes")
+    return [Strategy.init_client(strategy, gen, cfg, c, n) for c, n in zip(cids, n_examples)]
 
 
 def to_device(state: ClientState, device) -> ClientState:

@@ -60,5 +60,11 @@ def compress_update(adapters, global_ref,
     return q, tree_sub(delta, dequantize_delta(q))
 
 
+def apply_update(global_ref, recon_delta):
+    """Server side: θ_k as the aggregator sees it, the reconstructed delta
+    cast to each global leaf's dtype."""
+    return tree_add(global_ref, tree_map(lambda a, b: a.to(b.dtype), recon_delta, global_ref))
+
+
 def init_error_feedback(adapters) -> Dict:
     return tree_zeros_like(adapters)

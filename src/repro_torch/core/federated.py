@@ -284,8 +284,8 @@ def run_federated(seed: int, cfg, train_data: Dict[int, List[Batch]],
     index_of = {cid: i for i, cid in enumerate(cids)}
     gen = torch.Generator().manual_seed(seed + 2)
     t0 = time.perf_counter()
-    clients = [client_lib.to_device(strat.init_client(gen, cfg, cid, len(train_data[cid])),
-                                    device) for cid in cids]
+    clients = [client_lib.to_device(c, device) for c in strat.init_clients(
+        gen, cfg, cids, [len(train_data[cid]) for cid in cids])]
     setup_s = time.perf_counter() - t0
     tstates = {cid: [None] * len(transforms) for cid in cids}
 

@@ -17,7 +17,7 @@ from typing import Callable, Iterable, NamedTuple
 
 import torch
 
-from repro_torch.utils import tree_map, tree_zeros_like
+from repro_torch.utils import tree_bytes, tree_map, tree_zeros_like
 
 
 class FisherAccumulator(NamedTuple):
@@ -48,3 +48,7 @@ def fisher_pass(grad_fn: Callable, adapters, batches: Iterable, *, eps: float = 
     for batch in batches:
         acc = acc.update(grad_fn(adapters, batch))
     return acc.finalize(eps=eps)
+
+
+def fisher_size_bytes(fisher) -> int:
+    return tree_bytes(fisher)

@@ -9,6 +9,7 @@ normal draws as a tree and a test can hand it the JAX draws.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -44,3 +45,10 @@ def privatize_update(gen, adapters: Dict, global_ref: Dict, *, clip_norm: float,
                                    noise_mult * clip_norm)
     return tree_map(torch.add, global_ref, delta)
 
+
+
+def dp_sigma(epsilon: float, delta: float) -> float:
+    """Single-release Gaussian-mechanism noise multiplier for (ε, δ)."""
+    if epsilon <= 0:
+        raise ValueError("epsilon must be > 0")
+    return math.sqrt(2.0 * math.log(1.25 / delta)) / epsilon

@@ -60,6 +60,11 @@ def fisher_fold(num, den, theta, fisher, w: float):
     return num, den
 
 
+def fisher_finalize(num, den, *, eps: float = 1e-8, dtype=torch.float32):
+    """num / (den + eps) with the accumulators' f32 carried to the end."""
+    return (num / (den + eps)).to(dtype)
+
+
 def fisher_fold_leaves(nums, dens, thetas, fishers, w: float):
     """Fold one upload's L leaves into the running sums, in place, leaf by
     leaf. Returns (nums, dens)."""

@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.dryrun --run --arch mamba2-130m --shape prefill_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --list
 
+``--all`` takes every assigned arch, as ``--arch all`` (the JAX flag).
+
 ``--mode fit`` (the counterpart of ``run_pair``) prints each pair's
 analytic per-card footprint on the layout (sharded backbone, adapters,
 AdamW state, inputs or decode state, and an allowance of four live
@@ -437,6 +439,8 @@ def main(argv=None):
                     help="config override key=value (e.g. loss_chunk=1024)")
     ap.add_argument("--out", default=None, help="directory for per-pair JSON records")
     ap.add_argument("--tag", default="", help="suffix of the roofline records' file names")
+    ap.add_argument("--all", action="store_true",
+                    help="every assigned arch (x --shape, default all), as --arch all")
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--run", action="store_true",
                     help="run each step once on --device and time it, instead of --mode")
@@ -448,7 +452,7 @@ def main(argv=None):
             print(a)
         return 0
     overrides = parse_overrides(args.override)
-    archs = ASSIGNED_ARCHS if args.arch == "all" else [args.arch]
+    archs = ASSIGNED_ARCHS if (args.all or args.arch == "all") else [args.arch]
     shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
     n_err = 0
     for arch in archs:

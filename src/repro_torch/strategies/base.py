@@ -2,6 +2,7 @@
 federated method implements.
 
     init_client        build the per-client state (dual adapters, AdamW state)
+    init_clients       the same for a cohort, client after client
     wrap_local_loss    modify the local objective (FedProx's prox term)
     wants_fisher       None | "dedicated" | "streaming" FIM estimation
     post_local_update  what the client hands to the upload transforms
@@ -115,6 +116,11 @@ class Strategy:
         local = adapters_lib.init_nanoedge(gen, cfg) if self.dual_adapters else None
         return ClientState(cid=cid, adapters=adp, opt_state=adamw_init(adp),
                            n_examples=n_examples, local_adapters=local)
+
+    def init_clients(self, gen, cfg, cids, n_examples):
+        """A cohort's clients: the ``init_client`` calls in cid order, each
+        drawing from ``gen`` in turn."""
+        return [self.init_client(gen, cfg, cid, n) for cid, n in zip(cids, n_examples)]
 
     def downloads_global(self, rounds_participated: int) -> bool:
         """Whether the client adopts θ_global at the start of this round

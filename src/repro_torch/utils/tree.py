@@ -1,15 +1,16 @@
-"""Tree helpers of the port (the parts of ``repro.utils.tree`` the port
-needs). A tree is nested dicts, lists and tuples (a backbone's ``layers``,
-a decode state's ``KVCache`` and recurrent states, flattened field by
-field) whose leaves are tensors; ``None`` is an empty subtree, as in JAX
-(a hybrid stack with no extra layers). Dicts are walked in sorted key
-order, as ``jax.tree_util`` flattens them, so two trees with the same keys
-give their leaves in the same order whatever order their dicts were built
-in (the Fisher merge pairs an upload's θ and F leaf by leaf)."""
+"""Tree helpers of the port (``repro.utils.tree``). A tree is nested dicts,
+lists and tuples (a backbone's ``layers``, a decode state's ``KVCache`` and
+recurrent states, flattened field by field) whose leaves are tensors;
+``None`` is an empty subtree, as in JAX (a hybrid stack with no extra
+layers). Dicts are walked in sorted key order, as ``jax.tree_util`` flattens
+them, so two trees with the same keys give their leaves in the same order
+whatever order their dicts were built in (the Fisher merge pairs an
+upload's θ and F leaf by leaf)."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -105,6 +106,21 @@ def tree_sub(a, b):
     return tree_map(torch.sub, a, b)
 
 
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_dot(a, b):
+    """Σ of elementwise products over two trees: a 0-d tensor, each leaf's
+    sum added in ``tree_leaves`` order to an f32 zero (``jax.tree_util.
+    tree_reduce(jnp.add, ..., jnp.float32(0.0))``), on the first leaf's device."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    total = torch.zeros((), dtype=torch.float32, device=la[0].device if la else None)
+    for x, y in zip(la, lb):
+        total = total + (x * y).sum()
+    return total
+
+
 def tree_sq_norm(tree):
     """Σ x² over every leaf: a 0-d tensor, summed leaf by leaf in
     ``tree_leaves`` order from an f32 zero (``tree_dot(tree, tree)``)."""
@@ -138,3 +154,40 @@ def tree_weighted_sum(trees, weights):
         return torch.tensordot(w.to(stacked.device), stacked, dims=1)
 
     return tree_map(leaf, trees[0], *trees[1:])
+
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def _host(x) -> np.ndarray:
+    """A leaf as a numpy array on the host (bf16, which numpy lacks, widened
+    to f32 exactly)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def tree_allclose(a, b, rtol=1e-5, atol=1e-6) -> bool:
+    """``np.allclose`` leaf by leaf, wherever the tensors lie."""
+    return all(bool(np.allclose(_host(x), _host(y), rtol=rtol, atol=atol))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def fmt_params(n: int) -> str:
+    if n >= 1e9:
+        return f"{n / 1e9:.2f}B"
+    if n >= 1e6:
+        return f"{n / 1e6:.2f}M"
+    if n >= 1e3:
+        return f"{n / 1e3:.2f}K"
+    return str(n)
+
+
+def fmt_bytes(n: int) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if n < 1024 or unit == "TiB":
+            return f"{n:.2f}{unit}" if unit != "B" else f"{n}B"
+        n /= 1024
+    return f"{n}B"

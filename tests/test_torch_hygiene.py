@@ -1,8 +1,10 @@
 """Boundaries of the PyTorch port.
 
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
-  package ``repro``, checked in a fresh interpreter.
-* Without a CUDA card the entry points raise instead of running on the CPU,
+  package ``repro``, checked in a fresh interpreter; importing an example
+  (``repro_torch.examples``) runs nothing.
+* Without a CUDA card the entry points, the examples' ``main`` among them,
+  raise instead of running on the CPU,
   and ``chip_smoke.py`` fails without printing a result, as it does when
   the rest of the repository is missing.
 * ``interop`` carries the JAX package's stacked layer axis both ways.
@@ -22,6 +24,7 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import model as jmodel
 from repro_torch import interop
 from repro_torch.configs import get_smoke_config
+from repro_torch.examples import federated_vqa, quickstart, split_serving
 from repro_torch.launch import dryrun, serve, train
 from repro_torch.models import model as model_lib
 
@@ -57,6 +60,31 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 20  # every module of the port was imported
+
+
+def test_importing_an_example_runs_nothing():
+    code = (
+        "import sys\n"
+        "from repro_torch.examples import federated_vqa, quickstart, split_serving\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout == ""
+
+
+@pytest.mark.parametrize("example,argv", [(quickstart, []), (split_serving, []),
+                                          (federated_vqa, ["--rounds", "1", "--clients", "2",
+                                                           "--local-steps", "1"])],
+                         ids=["quickstart", "split_serving", "federated_vqa"])
+def test_examples_default_to_cuda(no_cuda, example, argv):
+    with pytest.raises((RuntimeError, AssertionError)):
+        example.main(argv)
+    with pytest.raises((RuntimeError, AssertionError)):
+        example.main(["--use-pallas", *argv])
 
 
 @pytest.mark.parametrize("arch", ["llava-1.5-7b", "mamba2-130m"])
