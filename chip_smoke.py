@@ -96,7 +96,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       totals against the expected bytes; the final evaluation counted with
       the run (FedDPA-F's personal adapters one LoRA launch a batch); the
       local step and the server merge timed; the same runs in f32 on the
-      weights upcast, round 0 within LOSS_TOL, round 1 within
+      first STRATEGY_F32_LAYERS layers upcast, round 0 within LOSS_TOL, round 1 within
       STRATEGY_RUN_TOL_F32, one step's loss and gradient within LOSS_TOL and
       GRAD_TOL; FedNano-EF's agg_chunk=1 round through fisher_fold (the
       streamed merge within 1e-6 of fisher_merge's); FedAvg with top-k
@@ -144,9 +144,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       of 3,900-4,096 tokens with 64 new tokens, so decode wraps its
       4,096-slot KV ring (``H2O_RING_KW``);
    b. training: FedNano 2 clients x 2 rounds x 2 steps at batch 4 x 32
-      tokens and one agg_chunk=1 round (as phase 8), round 0 held against a
-      run on the plain versions at RUN_LOSS_TOL_BF16, round 1 reported; the
-      loop's times (``loop_timings``);
+      tokens and one agg_chunk=1 round (as phase 8), round 0 held against
+      round 0 on the plain versions at RUN_LOSS_TOL_BF16; the loop's times
+      (``loop_timings``);
    c. the same weights upcast to f32 in place (internlm2-20b at 16 of its 48
       layers: 79.6 GB in f32 does not fit one card): prefill logits of the
       16 requests at 1e-4, one step's loss and adapter gradients at 1e-4;
@@ -288,8 +288,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       steps and 2 Fisher batches, ``engine="vmap"`` against
       ``engine="sequential"`` on the same server and data, counters reset
       around each run (the batched LoRA 8 launches a round against the
-      sequential 32 one-adapter launches, flash 32 a cohort step against
-      128), round 0 within RUN_LOSS_TOL_BF16 (round 1 reported), comm equal;
+      sequential 32 one-adapter launches, flash 64 a cohort step against
+      256: 32 layers, each launched again in remat's recompute), round 0
+      within RUN_LOSS_TOL_BF16 (round 1 reported), comm equal;
       a vmap run with ``agg_chunk=2`` folds two cohorts by fisher_fold,
       held against fisher_merge of the same uploads at 1e-6; a cohort step
       against a sequential client step (host ms, trained tokens/s, busy
@@ -300,11 +301,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       run snapshots after every merge, and a run resumed from merge 2 must
       equal it (RESUME_TOL; zero printed); the snapshot's MB, save and load
       ms.
-   After phase 17 (which upcasts the weights in place), 18b in f32: round 0
-   within 1e-4, the first cohort step's per-client loss and adapter
-   gradients against each client's own step within 1e-4, and the adapters
-   after both rounds within ROUNDING_MARGIN times the gap between two f32
-   orders of the sequential engine (kernels, and use_pallas=False).
+   After phase 17 (which upcasts the weights in place), 18b in f32 on the
+   first COHORT_F32_LAYERS layers: round 0 within 1e-4, the first cohort
+   step's per-client loss and adapter gradients against each client's own
+   step within 1e-4, and the adapters after both rounds within
+   ROUNDING_MARGIN times the gap between two f32 orders of the sequential
+   engine (kernels, and use_pallas=False).
 19. The split-learning runtime, rank-heterogeneous NanoAdapters and the
    sharded round engine, on phase 8's llava-1.5-7b server at phase 18's batch
    (4 x (64 patches + 32 tokens)), kernels on. Phase 3 holds LoRA at ranks
@@ -345,7 +347,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       (128 rows at position 32,767) and long_500k (position 524,287), and
       recurrentgemma-9b at the two decode shapes. Each at its global batch or
       the largest batch the card holds (``dryrun.fit_batch``, whose two
-      probe steps warm it up; else one warm-up step), LAUNCH_ITERS steps
+      probe steps warm it up; else one warm-up step; a train step with
+      remat on, as the config has it), LAUNCH_ITERS steps
       timed by CUDA events, counters reset around them; the measured peak beside the
       analytic footprint, the ms beside the roofline's terms. Phase 20 must
       launch lora_residual, flash_attention and ssd_scan.
@@ -380,6 +383,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       ``harness.BF16_MODEL_TOLERANCES``, each LoRA call again with a random
       up-projection whose term is max(1, ‖x‖∞) (``[examples-kernels]``).
       Phase 21 must launch lora_residual, flash_attention and fisher_merge.
+22. ``remat`` (``ModelConfig.remat``, on in every full config, so every
+   full-width training run above checkpoints each layer body and launches
+   flash attention and the SSD scan once more a layer in the backward's
+   recompute), last:
+   a. h2o-danube-1.8b and mamba2-130m at train_4k, full width and depth,
+      bf16, kernels on, with remat off (``--override remat=false``): the
+      peak a row from ``dryrun.fit_batch``'s two probe steps, the rows the
+      card holds and ms a step at that batch, counters reset around it,
+      beside phase 20's run of the same shape with remat on; the per-row
+      peak split into the layer inputs (``dryrun.train_transients``), the
+      larger of two transients that do not peak together (the f32 logits and
+      their gradient; h2o-danube's plain flash backward of one layer,
+      measured alone) and the rest;
+   b. llava-1.5-7b's local step (batch 4 x (64 + 32)) with remat on and
+      off: ms a step and the peak above the weights;
+   c. one step's loss and adapter gradients, remat on against off on the
+      same inputs (``remat_hold``): equal to the bit; each setting's launches
+      counted, flash and SSD exactly twice as many with remat, every other
+      kernel as many. Held for a and b at batch 1 and 4, and at the depths
+      their phases run for llama4-scout (15b, MOE_LAYERS), recurrentgemma-9b
+      and whisper-base (16b, full depth).
+   MoE routes recorded or replayed (``recorded_routes``,
+   ``replayed_routes``) skip the recompute's calls: a replayed recompute
+   takes its layer's forward choices. Every phase logs its seconds
+   (``[phase N ...]`` or ``[phaseN]``).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository beside this file, it fails before printing a result.
@@ -530,6 +558,14 @@ TRAINING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "flash_attention",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase_time(what: str):
+    """Log the seconds the block took as ``[phase <what>]: <seconds> s`` when it ends."""
+    t0 = time.perf_counter()
+    yield
+    log(f"[phase {what}]: {time.perf_counter() - t0:.1f} s")
 
 
 def card_line() -> str:
@@ -1265,7 +1301,12 @@ def training_full(torch, tr, counters, arch="llava-1.5-7b", server=None):
         f"client accuracy {res.client_accuracy}, comm {c}; wall {wall:.3f} s with final eval; "
         f"peak memory {peak / 2**30:.2f} GiB | launches {json.dumps(launches)}")
 
-    res_f, wall_f, launches_f, _, _ = main_path_run(rounds=1, agg_chunk=1, final_eval=False)
+    path = "train" if arch == "llava-1.5-7b" else f"train_{arch.split('-')[0]}"
+    state = dict(cfg=cfg, hp=hp, server=server, train=train, evald=evald, res=res,
+                 routes=routes, tokens_per_step=tokens_per_step, peak=peak)
+    # round 0 alone, its MoE routing kept for ``run_vs_plain(held=1)``
+    res_f, wall_f, launches_f, _, state["round0_routes"] = main_path_run(
+        rounds=1, agg_chunk=1, final_eval=False)
     uploads = [(cl.adapters, cl.fisher, cl.n_examples) for cl in res_f.clients]
     if launches_f["fisher_fold"] != len(uploads) or launches_f["fisher_merge"] != 0:
         raise AssertionError(f"agg_chunk=1 must fold each upload's whole tree in one "
@@ -1282,11 +1323,7 @@ def training_full(torch, tr, counters, arch="llava-1.5-7b", server=None):
         f"{loss0} (merge run {losses[0]}); streamed merge vs fisher_merge of the same uploads "
         f"{fold_err:.3e} of ‖ref‖∞ (bound 1e-6); wall {wall_f:.3f} s | launches "
         f"{json.dumps(launches_f)}")
-    path = "train" if arch == "llava-1.5-7b" else f"train_{arch.split('-')[0]}"
-    launches_by_path = {path: {n: launches[n] + launches_f[n] for n in launches}}
-    state = dict(cfg=cfg, hp=hp, server=server, train=train, evald=evald, res=res,
-                 routes=routes, tokens_per_step=tokens_per_step, peak=peak)
-    return state, launches_by_path
+    return state, {path: {n: launches[n] + launches_f[n] for n in launches}}
 
 
 def step_check(torch, tr, cfg, backbone, points, batch, what=None):
@@ -1323,23 +1360,27 @@ def step_check(torch, tr, cfg, backbone, points, batch, what=None):
 def run_vs_plain(torch, tr, st, held: int):
     """The bf16 run's round losses, kernels against a run on the plain
     versions from the same server (an MoE config's taking the kernel run's
-    expert choices); the first ``held`` rounds held at RUN_LOSS_TOL_BF16,
-    the rest reported."""
+    expert choices), held at RUN_LOSS_TOL_BF16. ``held=2``: both rounds and
+    the final evaluation, the global adapters' gap reported; ``held=1``: the
+    plain run takes round 0 only, without the evaluation (a cut that keeps
+    the script inside its time, PERF.md §4)."""
     cfg, server = st["cfg"], st["server"]
-    with plain_versions(), replayed_routes(st["routes"]) as own:
+    routes = st["routes"] if held == 2 else st["round0_routes"]
+    with plain_versions(), replayed_routes(routes) as own:
         plain = tr["run_federated"](0, cfg, st["train"], st["evald"], strategy="fednano",
-                                    hp=st["hp"], rounds=2, use_pallas=True,
-                                    server=fresh_server(server))
+                                    hp=st["hp"], rounds=held, use_pallas=True,
+                                    server=fresh_server(server), final_eval=held == 2)
     kl = [m["mean_loss"] for m in st["res"].round_metrics]
     pl = [m["mean_loss"] for m in plain.round_metrics]
     errs = [abs(a - b) / abs(b) for a, b in zip(kl, pl)]
-    ae = tree_rel_err(st["res"].server.global_adapters, plain.server.global_adapters)
-    if max(errs[:held]) > RUN_LOSS_TOL_BF16:
+    if len(pl) != held or max(errs) > RUN_LOSS_TOL_BF16:
         raise AssertionError(f"bf16 run, kernels vs plain versions: round losses {kl} vs {pl}")
-    log(f"[train-check] {cfg.name} bf16 whole run, kernels vs plain versions: round losses "
-        f"{kl} vs {pl} (rel {[f'{e:.3e}' for e in errs]}; the first {held} held at "
-        f"{RUN_LOSS_TOL_BF16}, the rest reported{replay_note(st['routes'], own)}); final "
-        f"global adapters {ae:.3e} of ‖ref‖∞ (reported)")
+    gap = ("" if held == 1 else "; final global adapters "
+           f"{tree_rel_err(st['res'].server.global_adapters, plain.server.global_adapters):.3e}"
+           " of ‖ref‖∞ (reported)")
+    log(f"[train-check] {cfg.name} bf16 run, kernels vs plain versions: round losses "
+        f"{kl} vs {pl} (rel {[f'{e:.3e}' for e in errs]}; held at "
+        f"{RUN_LOSS_TOL_BF16}{replay_note(routes, own)}){gap}")
 
 
 def training_check(torch, tr, st):
@@ -1385,6 +1426,10 @@ ROUNDING_MARGIN = 2.0
 # 1.3e-5 under FedAvg, 3.6e-4 under FedDPA-F, whose personal adapters are
 # trained in round 0 from zero (H100 at 700 W); about 3x the largest.
 STRATEGY_RUN_TOL_F32 = 1e-3
+# The f32 half runs on the first 8 of minigpt4-7b's 32 layers upcast: each
+# layer left out runs the same kernels at the same shapes as one kept, and the
+# cut keeps the script inside its time (f32 GEMMs without TF32 bound its steps).
+STRATEGY_F32_LAYERS = 8
 # 2 clients x 2 rounds of 2 local steps (and 2 Fisher batches), batch 4 x (32
 # query embeddings of width 768 + 32 tokens); the sampler run has 4 clients.
 STRATEGY_DATA = dict(n_clients=2, examples_per_client=32, batch_size=4, seq_len=32, seed=0)
@@ -1546,10 +1591,12 @@ def strategies_full(torch, tr, counters):
             f"{'' if opt_ms is None else f', server-opt step {opt_ms:.3f} ms'}; 2-round wall "
             f"{wall:.3f} s (no eval) | launches {json.dumps(launches)}")
 
-    # the same runs in f32 on the same weights upcast: the kernels' arithmetic
-    server32 = dataclasses.replace(server, cfg=cfg.with_(dtype="float32"),
-                                   backbone=tree_map(lambda t: t.float(), server.backbone))
-    cfg32 = server32.cfg
+    # the same runs in f32 on the same weights upcast, first STRATEGY_F32_LAYERS
+    # layers: the kernels' arithmetic
+    cfg32, cut = cut_depth(cfg.with_(dtype="float32"), server.backbone, STRATEGY_F32_LAYERS)
+    server32 = dataclasses.replace(server, cfg=cfg32,
+                                   backbone=tree_map(lambda t: t.float(), cut))
+    del cut
     for name in tr["available_strategies"]():
         strat = tr["get_strategy"](name)
         got, _, _ = run(name, srv=server32, main_path=False, rounds=2)
@@ -1578,7 +1625,8 @@ def strategies_full(torch, tr, counters):
                                  f"losses {kl} vs {pl} ({le[0]:.3e}, {le[1]:.3e}; bounds "
                                  f"{LOSS_TOL['float32']}, {STRATEGY_RUN_TOL_F32}); one step's "
                                  f"loss {sl:.3e}, gradient {sg:.3e} (bound 1e-4)")
-        log(f"[strategies] {STRATEGY_ARCH} {name} f32 (the same weights upcast), kernels vs "
+        log(f"[strategies] {STRATEGY_ARCH} {name} f32 (the same weights upcast, "
+            f"{STRATEGY_F32_LAYERS} of {cfg.n_layers} layers), kernels vs "
             f"plain versions: round losses {kl} vs {pl}, rel {le[0]:.3e}, {le[1]:.3e} (bounds "
             f"{LOSS_TOL['float32']}, {STRATEGY_RUN_TOL_F32}); one step at the run's end: loss "
             f"{sl:.3e}, shared-adapter gradient {sg:.3e} of ‖ref‖∞ (bounds "
@@ -1771,6 +1819,11 @@ def fisher_timings(torch, fm_ops, fm_ref, gen):
             for name, by_shape in rows.items()}
 
 
+# steps and Fisher batches ``loop_timings`` times after its warm-up call (a cut
+# that keeps the script inside its time, PERF.md §4)
+LOOP_REPS = 2
+
+
 def loop_timings(torch, tr, st):
     """The training loop end to end at full width: local step, Fisher batch,
     server merge (the run's uploads, and at K = 5), round."""
@@ -1781,9 +1834,10 @@ def loop_timings(torch, tr, st):
     adp = st["res"].server.global_adapters
     opt = tr["adamw_init"](adp)
     step_ms = time_host(torch, lambda: float(tr["client"].train_step(
-        cfg, strat, hp, server.backbone, adp, opt, train[0][0], adp)[2]))
+        cfg, strat, hp, server.backbone, adp, opt, train[0][0], adp)[2]), reps=LOOP_REPS)
     fisher_ms = time_host(torch, lambda: tr["fisher_pass"](
-        lambda a, b: tr["client"].fisher_grad(cfg, server.backbone, a, b), adp, train[0][:1]))
+        lambda a, b: tr["client"].fisher_grad(cfg, server.backbone, a, b), adp, train[0][:1]),
+        reps=LOOP_REPS)
     ups = [(cl.adapters, cl.fisher, cl.n_examples) for cl in st["res"].clients]
     thetas, fishers, sizes = ([u[i] for u in ups] for i in range(3))
     merge_ms = time_host(torch, lambda: strat.aggregate(thetas, fishers, sizes, use_pallas=True),
@@ -2522,15 +2576,19 @@ def detached(routing):
 @contextlib.contextmanager
 def recorded_routes():
     """Yield a list that receives every MoE layer's ``moe.Routing`` while
-    inside, detached, one record a call (``moe.route`` swapped for a
-    recording wrapper)."""
+    inside, detached, one record a forward call (``moe.route`` swapped for a
+    recording wrapper); a ``remat`` recompute's calls
+    (``transformer.recomputing()``), which repeat forward calls on the same
+    inputs, are not recorded."""
     from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import recomputing
 
     routes, route = [], moe_lib.route
 
     def recording(*args):
         r = route(*args)
-        routes.append(detached(r))
+        if not recomputing():
+            routes.append(detached(r))
         return r
 
     moe_lib.route = recording
@@ -2550,19 +2608,30 @@ def replayed_routes(recorded):
     router choices (``moe_routing`` prints the share), and a token sent to
     another expert meets other weights. Yields a list that receives this
     run's own routing of each call, detached; fails unless the calls match
-    ``recorded`` one for one."""
+    ``recorded`` one for one. A ``remat`` recompute's call (in the backward,
+    layers in reverse order) takes the choices its layer's forward call took
+    last, with gates from the recompute's own probabilities, so the
+    gradient belongs to the replayed routing; it is neither recorded nor
+    counted, and fails if its layer made no forward call inside."""
     from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import recomputing
 
-    own, route = [], moe_lib.route
+    own, route, last = [], moe_lib.route, {}
 
     def replaying(cfg, router, xg):
         r = route(cfg, router, xg)
-        own.append(detached(r))
-        n = len(own) - 1
-        if n >= len(recorded) or recorded[n].idx.shape != r.idx.shape:
-            raise AssertionError(f"routing replay: call {n} of {len(recorded)} recorded has "
-                                 f"choices {tuple(r.idx.shape)}")
-        want = recorded[n]
+        if recomputing():
+            if id(router) not in last:
+                raise AssertionError("routing replay: a remat recompute routed through a "
+                                     "layer that made no forward call in the replay")
+            want = last[id(router)]
+        else:
+            own.append(detached(r))
+            n = len(own) - 1
+            if n >= len(recorded) or recorded[n].idx.shape != r.idx.shape:
+                raise AssertionError(f"routing replay: call {n} of {len(recorded)} recorded "
+                                     f"has choices {tuple(r.idx.shape)}")
+            want = last[id(router)] = recorded[n]
         gates = r.probs.gather(-1, want.idx)
         gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
         return r._replace(gates=gates, idx=want.idx, keep=want.keep, slot=want.slot)
@@ -2767,6 +2836,10 @@ def moe_arch(torch, tr, sv, counters, arch):
     trained, batch = st["res"].server.global_adapters, st["train"][0][0]
     run_vs_plain(torch, tr, st, held=1)
     loop_timings(torch, tr, st)
+    if arch in REMAT_HOLD_ARCHS:  # phase 22's check of this family
+        hold = remat_hold(torch, tr, counters, cfg, server.backbone, trained, batch,
+                          f"{arch} ({n} layers, batch {tuple(batch.tokens.shape)})")
+        launches.update({f"remat_{short}_{k}": v for k, v in hold.items()})
 
     # f32 on the same weights upcast, MOE_F32_LAYERS deep
     n32 = MOE_F32_LAYERS[arch]
@@ -2986,6 +3059,10 @@ def new_family_arch(torch, tr, sv, counters, arch):
     trained, batch = st["res"].server.global_adapters, st["train"][0][0]
     run_vs_plain(torch, tr, st, held=1)
     loop_timings(torch, tr, st)
+    if arch in REMAT_HOLD_ARCHS:  # phase 22's check of this family
+        hold = remat_hold(torch, tr, counters, cfg, server.backbone, trained, batch,
+                          f"{arch} ({cfg.n_layers} layers, batch {tuple(batch.tokens.shape)})")
+        launches.update({f"remat_{short}_{k}": v for k, v in hold.items()})
 
     # f32 on the same weights upcast in place, at full depth
     picked = [reqs[i] for i in NEW_F32_REQUESTS.get(arch, range(len(reqs)))]
@@ -3458,6 +3535,9 @@ def resume_naive_phase(torch, tr, sv, counters, st):
 # patches + 32 tokens)), whose first two batches are whole for every client,
 # as the vmap engine's stacked steps need.
 COHORT_DATA = dict(TRAIN_DATA, n_clients=4)
+# 18b's f32 half on the first 8 of the 32 layers upcast (f32 GEMMs without
+# TF32 bound its steps; cut to keep the script inside its time)
+COHORT_F32_LAYERS = 8
 COHORT_SMOKE_DATA = dict(n_clients=4, examples_per_client=16, batch_size=4, seq_len=16, seed=0)
 COHORT_SMOKE_STRATEGIES = ("fednano", "fedprox", "feddpa_f")
 # 18c: buffer of 2 completions, 4 merges, a straggling draw of 0.3 a dispatch
@@ -3781,7 +3861,10 @@ def cohort_full(torch, tr, counters, st):
     vl = [m["mean_loss"] for m in vm.round_metrics]
     errs = [abs(a - b) / abs(b) for a, b in zip(vl, sl)]
     steps = hp.local_steps + hp.fisher_batches
-    want_many, want_flash = 2 * steps * 2, cfg.n_layers * steps * 2
+    # a step's flash launches: one a layer, and under remat one more a layer in
+    # the backward's recompute (the local steps and the Fisher batches alike)
+    want_many = 2 * steps * 2
+    want_flash = cfg.n_layers * (2 if cfg.remat else 1) * steps * 2
     if (not all(math.isfinite(x) for x in vl) or errs[0] > RUN_LOSS_TOL_BF16
             or [m["participants"] for m in vm.round_metrics] != [k, k]
             or vm.comm_totals != seq.comm_totals):
@@ -3921,8 +4004,9 @@ def cohort_full_f32(torch, tr, counters, st):
     sequential engine (kernels, and the model's use_pallas=False path)."""
     from repro_torch.utils import tree_stack, tree_unstack
 
-    cfg = st["cfg"].with_(dtype="float32")
-    server = dataclasses.replace(st["server"], cfg=cfg)
+    cfg, cut = cut_depth(st["cfg"].with_(dtype="float32"), st["server"].backbone,
+                         COHORT_F32_LAYERS)
+    server = dataclasses.replace(st["server"], cfg=cfg, backbone=cut)
     hp = st["hp"]
     client = tr["client"]
     train, evald, _ = tr["make_federated_data"](cfg, device="cuda", **COHORT_DATA)
@@ -3961,7 +4045,8 @@ def cohort_full_f32(torch, tr, counters, st):
         raise AssertionError(f"18b f32 vmap vs sequential: round losses {vl} vs {sl}, first "
                              f"step loss {step_err:.3e} grads {grad_err:.3e}, adapters "
                              f"({e_glob:.3e}, {e_own:.3e}); {held}")
-    log(f"[cohort] {cfg.name} f32 (weights upcast in place), fednano 4 clients x 2 rounds: "
+    log(f"[cohort] {cfg.name} f32 (weights upcast in place, {cfg.n_layers} of 32 layers), "
+        f"fednano 4 clients x 2 rounds: "
         f"vmap round losses {vl} vs sequential {sl} (rel {[f'{e:.3e}' for e in errs]}; round 0 "
         f"bound {LOSS_TOL['float32']}); first cohort step vs each client's own step: loss "
         f"{step_err:.3e}, adapter grads {grad_err:.3e} (bounds 1e-4); after 2 rounds global "
@@ -3980,8 +4065,10 @@ HETERO_RANKS = (16, 32, 64)     # alpha = 2r: every client's scale is 2
 # 19c: 8 clients x 2 rounds in f32 on the first SHARDED_LAYERS of the 32
 # layers (the runs below take 13 rounds of 8 clients; at full depth in f32,
 # where a local step's 11 TFLOP run on the CUDA cores, that is about 80 s).
+# 4 layers keep the script inside its time (PERF.md §4), each layer left out
+# running what a kept one runs.
 SHARDED_DATA = dict(TRAIN_DATA, n_clients=8)
-SHARDED_LAYERS = 8
+SHARDED_LAYERS = 4
 # at the split's shape
 SPLIT_TOL = {"float32": 1e-5}
 PHASE19_KERNELS = ("lora_residual", "lora_residual_many", "flash_attention", "fisher_merge",
@@ -4264,11 +4351,11 @@ def sharded_phase(torch, tr, counters, st, root):
             or folds["fisher_fold"] != k or not launches["mesh 1, 1 round"][
                 "lora_residual_many"]):
         raise AssertionError(f"19c launches {launches}")
-    # one round with overlap on and off, twice in turns: its wall and busy
-    # share (device activities only, so the profiler adds little host work);
-    # then the host syncs of a round
+    # one round with overlap on and off, in turns: its wall and busy share
+    # (device activities only, so the profiler adds little host work); then
+    # the host syncs of a round
     busy = {"on": [], "off": []}
-    for label in ("on", "off", "on", "off"):
+    for label in ("on", "off"):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             tr["run_federated"](0, cfg, train, evald, strategy="fednano", hp=hp, rounds=1,
@@ -4396,10 +4483,11 @@ def roofline_text(rep) -> str:
             f"({rep.bottleneck}-bound), useful {rep.useful_ratio:.3f}")
 
 
-def launch_arch(torch, tr, counters, dryrun, arch, shapes, card):
+def launch_arch(torch, tr, counters, dryrun, arch, shapes, card, records):
     """One arch's shapes at full width and depth, bf16, kernels on: each run
     timed at the largest batch the card holds (or the cut), launches counted;
-    then its checks. -> launches by run."""
+    then its checks. A train run (remat on, the config's default) leaves its
+    record in ``records`` by arch, for phase 22. -> launches by run."""
     from repro_torch.configs import INPUT_SHAPES
     from repro_torch.launch import steps
 
@@ -4427,13 +4515,16 @@ def launch_arch(torch, tr, counters, dryrun, arch, shapes, card):
                                 iters=LAUNCH_ITERS[shape.kind],
                                 rep=rep if batch == shape.global_batch else None)
         launches[f"launch_{short}_{name}"] = {n: fn.launches for n, fn in counters.items()}
+        if shape.kind == "train":
+            records[arch] = rec
         foot = dryrun.analytic_footprint(cfg, shape, {"data": 1, "model": 1})["total"]
         per_row = "" if probe is None else (
             f"probes: peak {probe['peak_b1'] / 2**30:.2f} GiB at batch 1, "
             f"{probe['peak_b2'] / 2**30:.2f} at 2, {probe['per_row'] / 2**30:.3f} GiB a row; ")
         mean = sum(rec["ms"]) / len(rec["ms"])
         log(f"[launch] {arch} x {name} ({shape.kind}, seq {shape.seq_len}, global batch "
-            f"{shape.global_batch}): {per_row}ran at batch {batch}"
+            f"{shape.global_batch}{', remat on' if shape.kind == 'train' and cfg.remat else ''}"
+            f"): {per_row}ran at batch {batch}"
             f"{'' if batch == shape.global_batch else ', the largest the card holds'}; one "
             f"warm-up step at that batch, then ms "
             f"{', '.join(f'{t:.2f}' for t in rec['ms'])} (mean {mean:.2f}); peak "
@@ -4823,7 +4914,8 @@ def launch_timings(torch, F, fa_ops, lora_ops, lora_ref, ssd_ops, ssd_ref):
 def launch_phase(torch, tr, counters, kernels):
     """Phase 20: the fit table, each LAUNCH_RUNS arch at its shapes, then the
     kernels at phase 20's shapes (``kernels``: the ops and plain-version
-    modules ``launch_timings`` takes). -> (launches by run, timing rows)."""
+    modules ``launch_timings`` takes). -> (launches by run, timing rows, the
+    train runs' records by arch)."""
     from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES
     from repro_torch.launch import dryrun
 
@@ -4832,7 +4924,7 @@ def launch_phase(torch, tr, counters, kernels):
     torch.cuda.empty_cache()
     fit_table(dryrun, ASSIGNED_ARCHS, INPUT_SHAPES)
     log(f"[dryrun] fit table: {time.perf_counter() - t0:.1f} s")
-    launches = {}
+    launches, records = {}, {}
     # Their steps allocate blocks of about 10 GB. After the earlier phases the
     # caching allocator's segments had no room left for one (20.60 GiB reserved
     # but unallocated at h2o-danube's prefill_32k, 23 rows, on an H100 80GB), so
@@ -4842,7 +4934,8 @@ def launch_phase(torch, tr, counters, kernels):
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     try:
         for arch, shapes in LAUNCH_RUNS:
-            launches.update(launch_arch(torch, tr, counters, dryrun, arch, shapes, card))
+            launches.update(launch_arch(torch, tr, counters, dryrun, arch, shapes, card,
+                                        records))
     finally:
         torch.cuda.empty_cache()
         torch.cuda.memory._set_allocator_settings("expandable_segments:False")
@@ -4852,7 +4945,7 @@ def launch_phase(torch, tr, counters, kernels):
     rows = launch_timings(torch, *kernels)
     log(f"[phase20] the launch step functions at the production shapes: "
         f"{time.perf_counter() - t0:.1f} s on {card}")
-    return launches, rows
+    return launches, rows, records
 
 
 # ---------------------------------------------------------------------------
@@ -5195,6 +5288,233 @@ def examples_phase(torch, counters, init_backbone, init_server, get_config):
     return {"examples": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: remat, each layer body checkpointed in training
+# ---------------------------------------------------------------------------
+
+# train_4k at full width and depth, bf16, kernels on, with remat off; phase 20
+# ran the same shape with remat on (every full config's default).
+REMAT_RUNS = (H2O, MAMBA)
+# The other families, held on against off at the depths their phases run:
+# llama4-scout (moe) at MOE_LAYERS, recurrentgemma-9b and whisper-base in full.
+REMAT_HOLD_ARCHS = ("llama4-scout-17b-a16e",) + NEW_ARCHS
+# launched inside a layer body, so once more a layer in remat's recompute
+REMAT_KERNELS = ("flash_attention", "ssd_scan")
+REMAT_ITERS = 3  # llava-1.5-7b's local step: one warm-up step, then these timed
+
+
+def grads_equal(torch, a, b) -> bool:
+    from repro_torch.utils import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def remat_hold(torch, tr, counters, cfg, backbone, adapters, batch, what):
+    """One step's loss and adapter gradients with remat on and off, on the
+    same weights, adapters and batch: equal to the bit, as the recompute
+    runs the same kernels on the same inputs and no kernel uses atomics.
+    Each run's launches are counted with the counters reset just before it:
+    flash attention and the SSD scan launch once more a layer with remat,
+    every other kernel as often. The peak is above the memory allocated
+    before the step. -> launches by setting."""
+    out = {}
+    for remat in (True, False):
+        c = cfg.with_(remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for fn in counters.values():
+            fn.launches = 0
+        loss, _, grads = tr["client"].value_and_grad(
+            lambda a: tr["fednano_loss"](c, backbone, a, batch), adapters, allow_unused=True)
+        torch.cuda.synchronize()
+        out[remat] = (loss, grads, {n: fn.launches for n, fn in counters.items()},
+                      torch.cuda.max_memory_allocated() - base)
+    (l_on, g_on, n_on, p_on), (l_off, g_off, n_off, p_off) = out[True], out[False]
+    if (not math.isfinite(float(l_on)) or not torch.equal(l_on, l_off)
+            or not grads_equal(torch, g_on, g_off)):
+        raise AssertionError(f"[remat] {what}: remat on vs off not equal to the bit: loss "
+                             f"{float(l_on)} vs {float(l_off)}, adapter grads "
+                             f"{tree_rel_err(g_on, g_off):.3e} of ‖ref‖∞ apart")
+    want = {n: (2 if n in REMAT_KERNELS else 1) * v for n, v in n_off.items()}
+    if n_on != want or not any(n_off[n] for n in REMAT_KERNELS):
+        raise AssertionError(f"[remat] {what}: launches with remat {n_on}, without {n_off}; "
+                             f"want flash and SSD launched once more a layer: {want}")
+    log(f"[remat] {what}, {cfg.dtype}, kernels on: one step's loss and adapter gradients, "
+        f"remat on vs off: equal to the bit (loss {float(l_on):.7f}); launches on "
+        f"{json.dumps({n: v for n, v in n_on.items() if v})}, off "
+        f"{json.dumps({n: v for n, v in n_off.items() if v})}; peak above the resident "
+        f"memory on {p_on / 2**30:.3f} GiB, off {p_off / 2**30:.3f} GiB")
+    return {"on": n_on, "off": n_off}
+
+
+def flash_bwd_peak(torch, cfg, s: int) -> int:
+    """Bytes the plain flash backward (``ref.attention_bwd``) of one layer
+    takes above its inputs at batch 1 and ``s`` positions, measured alone."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    hd = cfg.resolved_head_dim
+    q, g = (torch.randn((1, s, cfg.n_heads, hd), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, s, cfg.n_kv_heads, hd), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, window=cfg.sliding_window, softcap=cfg.logit_softcap)
+    with torch.no_grad():
+        out, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads = fa_ref.attention_bwd(q, k, v, out, lse, g, **kw)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del q, k, v, g, out, lse, grads
+    torch.cuda.empty_cache()
+    return peak
+
+
+def remat_line(rec) -> str:
+    probe = rec["probe"]
+    mean = sum(rec["ms"]) / len(rec["ms"])
+    return (f"peak a row {probe['per_row'] / 2**30:.3f} GiB (probes {probe['peak_b1'] / 2**30:.2f}"
+            f" GiB at batch 1, {probe['peak_b2'] / 2**30:.2f} at 2), holds {rec['batch']} rows, "
+            f"ms a step {mean:.2f} at {rec['batch']} rows ({mean / rec['batch']:.2f} a row), "
+            f"peak {rec['peak_bytes'] / 2**30:.2f} GiB")
+
+
+def remat_train_4k(torch, tr, counters, dryrun, arch, on, card):
+    """Phase 22a: ``arch`` at train_4k, full width and depth, bf16, kernels
+    on, with remat off: the peak a row from ``dryrun.fit_batch``'s two probe
+    steps, the rows the card holds and ms a step at that batch (one warm-up
+    step, then LAUNCH_ITERS timed), counters reset around them, beside phase
+    20's run with remat on (``on``, its record); the per-row peak's split into
+    the layer inputs (``dryrun.train_transients``), the larger of the f32
+    logits with their gradient and the plain flash backward of one layer
+    (measured alone), which do not peak together, and the rest; one step at
+    batch 1 held on against off (``remat_hold``). -> launches by run."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import steps
+
+    shape = INPUT_SHAPES["train_4k"]
+    cfg0 = tr["get_config"](arch).with_(use_pallas=True)
+    backbone = tr["model"].init_backbone(cfg0, seed=0, device="cuda")
+    adapters = launch_adapters(torch, cfg0)
+    cfg = steps.exec_config(cfg0, shape, "full", {"remat": False})
+    run = dryrun.step_runner(cfg, shape, backbone, adapters)
+    batch, probe = dryrun.fit_batch(cfg, shape, run, "cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    off = dryrun.run_record(arch, cfg0.with_(remat=False), cfg, shape, run, batch, "cuda",
+                            probe, iters=LAUNCH_ITERS["train"])
+    short = arch.split("-")[0]
+    launches = {f"remat_{short}_train_4k_off": {n: fn.launches for n, fn in counters.items()}}
+    on_row, off_row = on["probe"]["per_row"], probe["per_row"]
+    on_ms = sum(on["ms"]) / len(on["ms"]) / on["batch"]
+    off_ms = sum(off["ms"]) / len(off["ms"]) / off["batch"]
+    log(f"[remat] {arch} x train_4k (seq {shape.seq_len}, bf16, kernels on, full width and "
+        f"depth): remat on (phase 20's run): {remat_line(on)} | remat off: {remat_line(off)} | "
+        f"remat on / off: peak a row {on_row / off_row:.3f}, ms a row {on_ms / off_ms:.3f}, "
+        f"rows held {on['batch']} vs {off['batch']} | {card}")
+    # the row's peak: the layer inputs kept through the backward, plus the
+    # larger of two transients that do not peak together (the f32 logits and
+    # their gradient at the loss; one layer's plain flash backward, measured
+    # alone), plus the rest
+    flash = 0 if cfg0.family == "ssm" else flash_bwd_peak(torch, cfg0, shape.seq_len)
+    terms = []
+    for label, c, row in (("on", cfg0, on_row), ("off", cfg, off_row)):
+        t = dryrun.train_transients(steps.exec_config(c, shape, "full"), shape, 1)
+        top = max(flash, t["logits"])
+        terms.append(f"remat {label}: measured {row / 2**30:.3f} GiB a row = layer inputs "
+                     f"{t['layer_inputs'] / 2**30:.3f} + the larger of the flash backward "
+                     f"{flash / 2**30:.3f} and the f32 logits and their gradient "
+                     f"{t['logits'] / 2**30:.3f} + the rest (activations kept or recomputed "
+                     f"at the peak, not split further) "
+                     f"{(row - t['layer_inputs'] - top) / 2**30:.3f}")
+    log(f"[remat] {arch} x train_4k split of the per-row peak (GiB; layer inputs and logits "
+        f"from dryrun.train_transients at batch 1, the plain flash backward of one layer "
+        + ("measured alone at batch 1 above its inputs" if flash else "absent: no attention")
+        + f"): {' | '.join(terms)}")
+    ins = dryrun.make_inputs(cfg0, shape, 1, "cuda", seed=1)
+    hold = remat_hold(torch, tr, counters, cfg0, backbone, adapters, ins["batch"],
+                      f"{arch} x train_4k (batch 1, {cfg0.n_layers} layers)")
+    launches.update({f"remat_{short}_train_4k_{k}": v for k, v in hold.items()})
+    del backbone, adapters, run, ins
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_llava(torch, tr, counters, card):
+    """Phase 22b: llava-1.5-7b's local step (``client.train_step``) at full
+    width, bf16, kernels on, batch 4 x (64 patches + 32 tokens), remat on and
+    off: ms a step (one warm-up step, then REMAT_ITERS timed by CUDA events)
+    and the peak above the resident weights; one step held on against off.
+    -> launches by run."""
+    cfg = tr["get_config"]("llava-1.5-7b").with_(use_pallas=True)
+    server = tr["init_server"](cfg, seed=0, device="cuda")
+    train, _, _ = tr["make_federated_data"](cfg, device="cuda", **TRAIN_DATA)
+    b0 = train[0][0]
+    adapters = launch_adapters(torch, cfg)
+    hp, strat = tr["HyperParams"](**TRAIN_HP), tr["get_strategy"]("fednano")
+    cells = []
+    for remat in (True, False):
+        c = cfg.with_(remat=remat)
+        opt = tr["adamw_init"](adapters)
+        step = lambda: tr["client"].train_step(c, strat, hp, server.backbone, adapters, opt, b0,
+                                               adapters)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(REMAT_ITERS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() - base
+        cells.append(f"remat {'on' if remat else 'off'}: ms {', '.join(f'{t:.2f}' for t in times)}"
+                     f" (mean {sum(times) / len(times):.2f}), peak above the weights "
+                     f"{peak / 2**30:.3f} GiB")
+    log(f"[remat] llava-1.5-7b local step (client.train_step, fednano), batch "
+        f"{tuple(b0.tokens.shape)} tokens + {b0.patches.shape[1]} patches a row, bf16, kernels "
+        f"on, 32 layers: {' | '.join(cells)} | {card}")
+    hold = remat_hold(torch, tr, counters, cfg, server.backbone, adapters, b0,
+                      "llava-1.5-7b local step (batch 4 x (64 + 32), 32 layers)")
+    del server, train, adapters
+    torch.cuda.empty_cache()
+    return {f"remat_llava_{k}": v for k, v in hold.items()}
+
+
+def remat_phase(torch, tr, counters, on_records):
+    """Phase 22: h2o-danube-1.8b and mamba2-130m at train_4k with remat off
+    beside phase 20's runs with it on (``on_records`` by arch), then
+    llava-1.5-7b's local step on and off. -> launches by run."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    card = card_line()
+    launches = {}
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        for arch in REMAT_RUNS:
+            launches.update(remat_train_4k(torch, tr, counters, dryrun, arch, on_records[arch],
+                                           card))
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    launches.update(remat_llava(torch, tr, counters, card))
+    log(f"[phase22] remat, each layer body checkpointed in training: "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
 SOURCES = {
     "lora_residual": ("src/repro_torch/csrc/lora.cu", "src/repro/kernels/lora/lora.py:49"),
     # jax.vmap of lora_residual_2d's pallas_call: the vmap engine's batched call
@@ -5263,10 +5583,11 @@ def main() -> int:
     for ln in ptxas:
         log(f"[ptxas] {ln}")
 
-    main_err = parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref)
-    main_err.update(many_parity(torch, harness, lora_ops, lora_ref))
-    serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
-                  make_requests, ServingEngine)
+    with phase_time("3-4 kernel parity, smoke serving"):
+        main_err = parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref)
+        main_err.update(many_parity(torch, harness, lora_ops, lora_ref))
+        serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
+                      make_requests, ServingEngine)
     counters = {"lora_residual": lora_ops.lora_residual,
                 "lora_residual_many": lora_ops.lora_residual_many,
                 "grouped_lora_residual": lora_ops.grouped_lora_residual,
@@ -5274,9 +5595,11 @@ def main() -> int:
                 "fisher_merge": fm_ops.fisher_merge,
                 "fisher_fold": fm_ops.fisher_fold,
                 "ssd_scan": ssd_ops.ssd}
-    launches = {"serve": serving_full(torch, get_config, init_backbone, synth_tenant_adapters,
-                                      make_requests, ServingEngine, counters)}
-    torch.cuda.empty_cache()
+    with phase_time("5 full-width serving"):
+        launches = {"serve": serving_full(torch, get_config, init_backbone,
+                                          synth_tenant_adapters, make_requests, ServingEngine,
+                                          counters)}
+        torch.cuda.empty_cache()
 
     tr = dict(get_config=get_config, get_smoke_config=get_smoke_config,
               HyperParams=HyperParams, init_server=init_server, run_federated=run_federated,
@@ -5284,20 +5607,23 @@ def main() -> int:
               make_federated_data=make_federated_data, adamw_init=adamw_init,
               get_strategy=get_strategy, available_strategies=available_strategies,
               strategies=strategies, model=model_lib, adapters=adapters_lib)
-    main_err.update(training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref,
-                                    fm_ops, fm_ref))
-    training_smoke(torch, tr)
-    st, train_launches = training_full(torch, tr, counters)
-    launches.update(train_launches)
-    training_check(torch, tr, st)
+    with phase_time("6-7 training parity, smoke training"):
+        main_err.update(training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref,
+                                        fm_ops, fm_ref))
+        training_smoke(torch, tr)
+    with phase_time("8-9 full-width training and its check"):
+        st, train_launches = training_full(torch, tr, counters)
+        launches.update(train_launches)
+        training_check(torch, tr, st)
 
-    times = timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref)
-    times["lora_residual_many"] = many_timings(torch, lora_ops, lora_ref)
-    times.update(training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref,
-                                  fa_ops, fa_ref))
-    breakdown(torch, get_config, init_backbone, synth_tenant_adapters, make_requests,
-              ServingEngine)
-    step_profile(torch, tr, st)
+    with phase_time("10-11 timings and profiles"):
+        times = timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref)
+        times["lora_residual_many"] = many_timings(torch, lora_ops, lora_ref)
+        times.update(training_timings(torch, F, tr, st, fm_ops, fm_ref, lora_ops, lora_ref,
+                                      fa_ops, fa_ref))
+        breakdown(torch, get_config, init_backbone, synth_tenant_adapters, make_requests,
+                  ServingEngine)
+        step_profile(torch, tr, st)
     # phase 18 in bf16 on the same llava server: the vmap and buffered engines
     t18 = time.perf_counter()
     cohort_smoke(torch, tr, counters)
@@ -5337,74 +5663,87 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the paper's strategies on its second backbone, minigpt4-7b
-    for name in available_strategies():
-        training_smoke(torch, tr, arch=STRATEGY_ARCH, strategy=name,
-                       adapter_tol=SMOKE_ADAPTER_TOL, f64_witness=True)
-    launches["strategies_minigpt4"] = strategies_full(torch, tr, counters)
-    torch.cuda.empty_cache()
+    with phase_time("12 strategies on minigpt4-7b"):
+        with phase_time("12a smoke strategies, card against CPU"):
+            for name in available_strategies():
+                training_smoke(torch, tr, arch=STRATEGY_ARCH, strategy=name,
+                               adapter_tol=SMOKE_ADAPTER_TOL, f64_witness=True)
+        launches["strategies_minigpt4"] = strategies_full(torch, tr, counters)
+        torch.cuda.empty_cache()
 
     # the ssm family: mamba2-130m through the SSD scan kernel
-    main_err.update(mamba_parity(torch, harness, ssd_ops, ssd_ref, lora_ops, lora_ref,
-                                 fm_ops, fm_ref))
-    serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
-                  make_requests, ServingEngine, arch=MAMBA)
-    launches["serve_mamba2"] = serving_full(torch, get_config, init_backbone,
-                                            synth_tenant_adapters, make_requests, ServingEngine,
-                                            counters, arch=MAMBA)
-    torch.cuda.empty_cache()
-    training_smoke(torch, tr, arch=MAMBA)
-    st, train_launches = training_full(torch, tr, counters, arch=MAMBA)
-    launches.update(train_launches)
-    training_check(torch, tr, st)
-    ssd_times, lora_times, grouped_time = mamba_timings(torch, ssd_ops, ssd_ref, lora_ops,
-                                                        lora_ref, harness)
-    times.update(ssd_times)
-    times["lora_residual"]["shapes"].update(lora_times)
-    times["grouped_lora_residual"]["shapes"]["mamba2-130m 4 in use"] = grouped_time
-    loop_timings(torch, tr, st)
-    step_profile(torch, tr, st)
-    del st
-    torch.cuda.empty_cache()
-    breakdown(torch, get_config, init_backbone, synth_tenant_adapters, make_requests,
-              ServingEngine, arch=MAMBA)
+    with phase_time("13 mamba2-130m"):
+        main_err.update(mamba_parity(torch, harness, ssd_ops, ssd_ref, lora_ops, lora_ref,
+                                     fm_ops, fm_ref))
+        serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
+                      make_requests, ServingEngine, arch=MAMBA)
+        launches["serve_mamba2"] = serving_full(torch, get_config, init_backbone,
+                                                synth_tenant_adapters, make_requests,
+                                                ServingEngine, counters, arch=MAMBA)
+        torch.cuda.empty_cache()
+        training_smoke(torch, tr, arch=MAMBA)
+        st, train_launches = training_full(torch, tr, counters, arch=MAMBA)
+        launches.update(train_launches)
+        training_check(torch, tr, st)
+        ssd_times, lora_times, grouped_time = mamba_timings(torch, ssd_ops, ssd_ref, lora_ops,
+                                                            lora_ref, harness)
+        times.update(ssd_times)
+        times["lora_residual"]["shapes"].update(lora_times)
+        times["grouped_lora_residual"]["shapes"]["mamba2-130m 4 in use"] = grouped_time
+        loop_timings(torch, tr, st)
+        step_profile(torch, tr, st)
+        del st
+        torch.cuda.empty_cache()
+        breakdown(torch, get_config, init_backbone, synth_tenant_adapters, make_requests,
+                  ServingEngine, arch=MAMBA)
 
     # the dense family: h2o-danube-1.8b, glm4-9b, qwen1.5-4b, internlm2-20b
-    for arch in DENSE_ARCHS:
-        launches.update(dense_arch(torch, tr, sv, counters, arch))
-    times["flash_attention"]["shapes"].update(dense_timings(torch, F, fa_ops, fa_ref))
+    with phase_time("14 the dense family"):
+        for arch in DENSE_ARCHS:
+            with phase_time(f"14 {arch}"):
+                launches.update(dense_arch(torch, tr, sv, counters, arch))
+        times["flash_attention"]["shapes"].update(dense_timings(torch, F, fa_ops, fa_ref))
 
     # qwen2-vl-72b and the MoE family: smoke size card vs CPU, then published width
-    for arch in MOE_ARCHS:
-        serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
-                      make_requests, ServingEngine, arch=arch)
-        training_smoke(torch, tr, arch=arch, adapter_tol=SMOKE_ADAPTER_TOL, f64_witness=True,
-                       both_paths=True)
-    for arch in MOE_ARCHS:
-        launches.update(moe_arch(torch, tr, sv, counters, arch))
-    times["flash_attention"]["shapes"].update(moe_timings(torch, F, fa_ops, fa_ref))
+    with phase_time("15 qwen2-vl-72b and the MoE family"):
+        for arch in MOE_ARCHS:
+            serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
+                          make_requests, ServingEngine, arch=arch)
+            training_smoke(torch, tr, arch=arch, adapter_tol=SMOKE_ADAPTER_TOL,
+                           f64_witness=True, both_paths=True)
+        for arch in MOE_ARCHS:
+            with phase_time(f"15 {arch}"):
+                launches.update(moe_arch(torch, tr, sv, counters, arch))
+        times["flash_attention"]["shapes"].update(moe_timings(torch, F, fa_ops, fa_ref))
 
     # the last two families: recurrentgemma-9b (hybrid) and whisper-base (audio)
-    for arch in NEW_ARCHS:
-        serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
-                      make_requests, ServingEngine, arch=arch)
-        training_smoke(torch, tr, arch=arch, adapter_tol=SMOKE_ADAPTER_TOL, f64_witness=True)
-    for arch in NEW_ARCHS:
-        launches.update(new_family_arch(torch, tr, sv, counters, arch))
-    flash_times, lora_times, grouped_time = new_family_timings(torch, F, fa_ops, fa_ref,
-                                                               lora_ops, lora_ref, harness)
-    times["flash_attention"]["shapes"].update(flash_times)
-    times["lora_residual"]["shapes"].update(lora_times)
-    times["grouped_lora_residual"]["shapes"]["whisper-base 4 in use"] = grouped_time
+    with phase_time("16 recurrentgemma-9b and whisper-base"):
+        for arch in NEW_ARCHS:
+            serving_smoke(torch, get_smoke_config, init_backbone, synth_tenant_adapters,
+                          make_requests, ServingEngine, arch=arch)
+            training_smoke(torch, tr, arch=arch, adapter_tol=SMOKE_ADAPTER_TOL,
+                           f64_witness=True)
+        for arch in NEW_ARCHS:
+            with phase_time(f"16 {arch}"):
+                launches.update(new_family_arch(torch, tr, sv, counters, arch))
+        flash_times, lora_times, grouped_time = new_family_timings(torch, F, fa_ops, fa_ref,
+                                                                   lora_ops, lora_ref, harness)
+        times["flash_attention"]["shapes"].update(flash_times)
+        times["lora_residual"]["shapes"].update(lora_times)
+        times["grouped_lora_residual"]["shapes"]["whisper-base 4 in use"] = grouped_time
 
     # phase 20: the launch layer's step functions at the production shapes
-    launch_launches, launch_rows = launch_phase(torch, tr, counters,
-                                                (F, fa_ops, lora_ops, lora_ref, ssd_ops, ssd_ref))
+    launch_launches, launch_rows, train_records = launch_phase(
+        torch, tr, counters, (F, fa_ops, lora_ops, lora_ref, ssd_ops, ssd_ref))
     launches.update(launch_launches)
     for name, rows in launch_rows.items():
         times[name]["shapes"].update(rows)
 
     # phase 21: the three examples, at their own size and at llava's full width
     launches.update(examples_phase(torch, counters, init_backbone, init_server, get_config))
+
+    # phase 22: remat off beside phase 20's train_4k runs with it on, llava's local step
+    launches.update(remat_phase(torch, tr, counters, train_records))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -16,9 +16,13 @@ config and read by no layer of the JAX package, and the adapters'
 ``dropout`` is read nowhere in it. ``attn_chunk`` and ``loss_chunk``
 bound the plain path's live logits at long sequences (the launch layer's
 ``exec_config`` sets ``attn_chunk``; ``loss_chunk`` comes with a dry-run
-``--override``). The JAX package's execution switches for its TPU mesh
-(``remat``, ``scan_layers``, ``seq_parallel``, ``ctx_parallel_attn``) change
-no number and have no counterpart here. ``InputShape`` describes a
+``--override``). ``remat`` (on by default, off in ``reduced``, as in the
+JAX package) checkpoints each layer body in training: the forward keeps only
+each layer's input, and the backward runs the body's forward once more
+(``models/transformer.py``, ``models/encdec.py``); it changes memory and
+time, not the loss or the gradients. The JAX package's other execution
+switches for its TPU mesh (``scan_layers``, ``seq_parallel``,
+``ctx_parallel_attn``) have no counterpart here. ``InputShape`` describes a
 workload, ``INPUT_SHAPES`` the four production shapes
 (``repro/configs/base.py:194-199``).
 """
@@ -114,6 +118,7 @@ class ModelConfig:
 
     # numerics / execution
     dtype: str = "bfloat16"
+    remat: bool = True             # checkpoint each layer body in training
     use_pallas: bool = False       # route hot ops through the hand-written kernels
     attn_chunk: Optional[int] = None   # query chunking of the plain attention path;
                                        # bounds live logits to (B, H, chunk, S)
@@ -163,6 +168,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
         mrope_sections=(head_dim // 4, head_dim // 8, head_dim // 8) if cfg.mrope_sections else (),
         dtype="float32",
+        remat=False,
         adapter=dataclasses.replace(cfg.adapter, rank=4, alpha=8.0),
     )
     if cfg.moe is not None:

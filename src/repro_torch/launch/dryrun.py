@@ -12,9 +12,14 @@ analytic per-card footprint on the layout (sharded backbone, adapters,
 AdamW state, inputs or decode state, and an allowance of four live
 (B, S, D) f32 buffers) and its verdict against the card's 80 GiB. The
 estimate is the JAX package's, whose workspace allowance assumes a TPU
-step with remat: the port keeps every activation (and the flash
-backward's scores) for the backward, so its measured peak (``--run``) at
-train and prefill shapes is far above it, and the verdict says so.
+step with remat. The port checkpoints each layer too (``cfg.remat``), but
+its measured peak (``--run``) at train and prefill shapes is still far
+above the allowance: a train step keeps each layer's input through the
+backward, and on top of them holds either the f32 logits and their
+gradient (at the loss) or one layer's backward (its recomputed
+activations and, for attention, the plain flash backward's f32 (B, H, S, S)
+scores); ``--run`` prints the first two (``train_transients``) beside the
+peak.
 ``--mode roofline`` (``run_roofline``) counts the step's FLOPs and bytes on
 ``meta`` tensors through the plain path at reduced depths
 (``steps._depth_points``) and extrapolates to full depth, as the JAX
@@ -229,9 +234,26 @@ def run_fit(arch: str, shape_name: str, layout_name: str = "1x1", out_dir: str |
 def fit_verdict(rec) -> str:
     """A fit record's verdict, labelled as the analytic estimate it is."""
     verdict = "fits 80 GiB" if rec["fits"] else "over 80 GiB"
-    note = ("; the port holds no remat, --run measures its peak"
+    note = ("; --run measures the step's peak"
             if rec["shape"] in INPUT_SHAPES and INPUT_SHAPES[rec["shape"]].kind == "train" else "")
     return f"analytic (TPU remat allowance): {verdict}{note}"
+
+
+def train_transients(cfg, shape_cfg, batch: int) -> dict:
+    """Bytes a train step holds that the analytic allowance of four (B, S, D)
+    f32 buffers leaves out, at ``batch`` rows, from the config alone:
+    ``layer_inputs``, each layer body's input that ``cfg.remat`` keeps
+    through the backward (0 without remat, which keeps every activation
+    instead); ``logits``, the f32 logits and their gradient, held at the
+    loss only (0 under ``loss_chunk``, whose chunks die inside). The two do
+    not add up to a peak: a layer's backward, which these leave out, frees
+    the logits first."""
+    s = shape_cfg.seq_len
+    bodies = cfg.n_layers // 3 + cfg.n_layers % 3 if cfg.family == "hybrid" else cfg.n_layers
+    positions = bodies * s + cfg.n_enc_layers * cfg.enc_seq_len  # whisper's encoder: its frames
+    itemsize = torch_dtype(cfg.dtype).itemsize
+    return {"layer_inputs": positions * batch * cfg.d_model * itemsize if cfg.remat else 0,
+            "logits": 0 if cfg.loss_chunk else 2 * batch * s * cfg.vocab_size * 4}
 
 
 # ---------------------------------------------------------------------------
@@ -368,8 +390,10 @@ def run_record(arch, cfg0, cfg, shape_cfg, run, batch, device, probe, iters=3,
         rep, _ = roofline_report(arch, cfg0, shape_b, "1x1")
     bound = max(rep.t_compute, rep.t_memory)
     return {"status": "ok", "batch": batch, "global_batch": shape_cfg.global_batch,
-            "probe": probe, "ms": ms, "peak_bytes": peak,
+            "probe": probe, "ms": ms, "peak_bytes": peak, "remat": cfg.remat,
             "footprint": analytic_footprint(cfg, shape_b, layout("1x1"))["total"],
+            "transients": (train_transients(cfg, shape_cfg, batch)
+                           if shape_cfg.kind == "train" else None),
             "t_compute": rep.t_compute, "t_memory": rep.t_memory,
             "bottleneck": rep.bottleneck,
             "ms_over_bound": (sum(ms) / len(ms)) / (1e3 * bound) if peak is not None else None}
@@ -379,9 +403,16 @@ def run_line(rec) -> str:
     cut = ("the global batch" if rec["batch"] == rec["global_batch"]
            else f"cut from {rec['global_batch']} to the largest batch the card holds")
     peak = "not measured (CPU)" if rec["peak_bytes"] is None else _gib(rec["peak_bytes"])
+    tr = rec.get("transients")
+    held = "" if tr is None else (
+        f" (remat {'on' if rec['remat'] else 'off'}; beyond the analytic allowance the step "
+        "keeps " + (f"each layer's input ({_gib(tr['layer_inputs'])})" if rec["remat"]
+                    else "every layer's activations")
+        + f" through the backward and on top of them holds either f32 logits and their "
+        f"gradient ({_gib(tr['logits'])}) or one layer's backward, not measured apart here)")
     return (f"[run] {rec['arch']} x {rec['shape']} on {rec['device']}: batch {rec['batch']} "
             f"({cut}); ms {', '.join(f'{t:.3f}' for t in rec['ms'])}; peak {peak} against "
-            f"the analytic {_gib(rec['footprint'])}; roofline compute "
+            f"the analytic {_gib(rec['footprint'])}{held}; roofline compute "
             f"{rec['t_compute'] * 1e3:.3f} ms, memory {rec['t_memory'] * 1e3:.3f} ms "
             f"({rec['bottleneck']}-bound), measured / max "
             + ("not measured (CPU)" if rec["ms_over_bound"] is None

@@ -31,9 +31,13 @@ from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.utils import tree_map
 
 META = torch.device("meta")
-# The JAX package's execution switches for its TPU mesh: they change no
-# number, and the port has none of them, so an override names them and fails.
-UNPORTED_SWITCHES = ("remat", "scan_layers", "seq_parallel", "ctx_parallel_attn")
+# The JAX package's execution switches that the port has no counterpart of:
+# ``scan_layers`` sets only the size of the HLO, and ``seq_parallel`` and
+# ``ctx_parallel_attn`` shard over a device mesh that one process does not
+# have; an override names them and fails. ``remat`` is the port's too
+# (``ModelConfig.remat``): each layer keeps its input only and the backward
+# runs the layer's forward once more.
+UNPORTED_SWITCHES = ("scan_layers", "seq_parallel", "ctx_parallel_attn")
 
 
 def make_train_step(cfg, hp_lr: float = 1e-3):
@@ -158,8 +162,8 @@ def check_overrides(overrides) -> None:
     """Raise for an override of a JAX execution switch the port lacks."""
     bad = sorted(set(overrides or ()) & set(UNPORTED_SWITCHES))
     if bad:
-        raise ValueError(f"the port has no execution switch {bad}: the JAX package's TPU "
-                         "mesh options change no number and have no counterpart here")
+        raise ValueError(f"the port has no execution switch {bad}: the JAX package's HLO "
+                         "and TPU mesh options have no counterpart here")
 
 
 def exec_config(cfg, shape_cfg, mode: str, overrides: dict | None = None):
@@ -168,8 +172,10 @@ def exec_config(cfg, shape_cfg, mode: str, overrides: dict | None = None):
     mode "full": query-chunked attention (``attn_chunk`` 1,024) for train and
     prefill, so the plain path holds (B, H, 1024, S) logits at a time.
     mode "roofline": no chunking; ``run_roofline`` counts reduced depths and
-    extrapolates. Of JAX's switches the port has only ``attn_chunk``; an
-    override of one it lacks raises and names it.
+    extrapolates. ``remat`` passes through as the config has it (on in every
+    full config), as JAX's does, so a train step's count includes the
+    recompute; ``--override remat=false`` turns it off. An override of a
+    switch the port lacks (``UNPORTED_SWITCHES``) raises and names it.
     """
     check_overrides(overrides)
     kw = {}

@@ -24,6 +24,7 @@ import torch
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import init_mlp, init_norm, mlp, norm
+from repro_torch.models.transformer import remat_call
 
 
 class DecLayerState(NamedTuple):
@@ -58,13 +59,20 @@ def init_encdec_stacks(gen, cfg, dtype):
             "dec_layers": [init_dec_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]}
 
 
+def _enc_layer(cfg, lp, x):
+    """One bidirectional encoder layer (``encdec.py:64-68``)."""
+    x = x + attn_lib.full_attention(cfg, lp["attn"], norm(cfg, lp["norm1"], x), None,
+                                    causal=False)
+    return x + mlp(cfg, lp["mlp"], norm(cfg, lp["norm2"], x))
+
+
 def encode(cfg, stacks, x):
     """Bidirectional encoder. x (B, M, D): frame embeddings, positions added
-    by the caller (``encdec.py:65-76``)."""
+    by the caller (``encdec.py:65-76``). Each layer goes through
+    ``remat_call``: checkpointed in a training forward under ``cfg.remat``,
+    run as it is under ``torch.no_grad`` (prefill)."""
     for lp in stacks["enc_layers"]:
-        x = x + attn_lib.full_attention(cfg, lp["attn"], norm(cfg, lp["norm1"], x), None,
-                                        causal=False)
-        x = x + mlp(cfg, lp["mlp"], norm(cfg, lp["norm2"], x))
+        x = remat_call(cfg, _enc_layer, cfg, lp, x)
     return x
 
 
@@ -79,10 +87,16 @@ def _dec_layer(cfg, lp, x, memory):
     return x + mlp(cfg, lp["mlp"], norm(cfg, lp["norm2"], x)), kv, ckv
 
 
+def _dec_body(cfg, lp, x, memory):
+    """One decoder layer of the training forward, its KV dropped."""
+    return _dec_layer(cfg, lp, x, memory)[0]
+
+
 def decode_forward(cfg, stacks, x, memory):
-    """Teacher-forced decoder over the full target sequence -> (x, aux = 0)."""
+    """Teacher-forced decoder over the full target sequence -> (x, aux = 0)
+    (``encdec.py:84-92``), each layer through ``remat_call``."""
     for lp in stacks["dec_layers"]:
-        x = _dec_layer(cfg, lp, x, memory)[0]
+        x = remat_call(cfg, _dec_body, cfg, lp, x, memory)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -21,9 +21,12 @@ encoder-decoder stack of the audio family is ``repro_torch.models.encdec``.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -160,32 +163,94 @@ def rec_prefill(cfg, lp, x, length=None):
     return x + mlp(cfg, lp["mlp"], norm(cfg, lp["norm2"], x)), st
 
 
+def remat_call(cfg, body, *args):
+    """``body(*args)``, one layer body of a training forward: under
+    ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` is on and
+    grad is enabled, as the JAX package wraps its scanned body in
+    ``jax.checkpoint`` (``transformer.py:214-236``). The forward then keeps
+    only the body's inputs, and the backward runs the body once more to
+    rebuild what it needs (kernels included), stopping after the last saved
+    tensor. Under ``torch.no_grad`` or ``inference_mode`` (evaluation,
+    prefill, decode) the body runs once as it is. The bodies draw no random
+    numbers, so no RNG state is kept for the recompute; they are
+    deterministic, so the recomputed tensors' shapes and dtypes are not
+    checked again (the check costs host time on every saved tensor of a
+    host-bound step; ``tests/test_torch_remat.py`` holds remat on against
+    off to the bit). While the backward runs a body again, ``recomputing()``
+    is true."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False,
+                          determinism_check="none",
+                          context_fn=lambda: (contextlib.nullcontext(), _recompute_scope()))
+    return body(*args)
+
+
+class _Recompute(threading.local):
+    depth = 0
+
+
+_RECOMPUTE = _Recompute()
+
+
+@contextlib.contextmanager
+def _recompute_scope():
+    _RECOMPUTE.depth += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE.depth -= 1
+
+
+def recomputing() -> bool:
+    """Whether this call runs inside the backward's second forward of a
+    ``remat_call`` body (in the thread that runs it): a call made there
+    repeats one of the forward's, on the same inputs."""
+    return _RECOMPUTE.depth > 0
+
+
+def _layer_body(cfg, lp, x, angles, clients):
+    """One dense/vlm/moe layer -> (x, aux), its (k, v) dropped."""
+    x, _, aux = dense_body(cfg, lp, x, angles, clients)
+    return x, aux
+
+
+def _triple_body(cfg, lp, x, angles):
+    """One hybrid (rec, rec, attn) triple, each sub-layer with its MLP."""
+    x = rec_prefill(cfg, lp["rec0"], x)[0]
+    x = rec_prefill(cfg, lp["rec1"], x)[0]
+    return dense_body(_attn_cfg(cfg), lp["attn"], x, angles)[0]
+
+
+def _rec_body(cfg, lp, x):
+    """One trailing recurrent layer and its MLP."""
+    return rec_prefill(cfg, lp, x)[0]
+
+
 def forward_stack(cfg, stack, x, angles, clients=None):
     """Full-sequence causal stack for training: x (B, S, D) -> (hidden, aux).
 
     aux is the MoE balance loss summed over the layers, 0 for the other
-    families (``transformer.py:214-236``). Activations are kept for the
-    backward: the JAX package's ``remat`` is a memory option that changes
-    no number. ``clients=K``: the B rows are K clients' blocks; only the MoE
-    layers read it (routing groups within a client, aux (K,)), every other
-    layer is row-local.
+    families (``transformer.py:214-253``). Each layer body (a dense/vlm/moe
+    or ssm layer, a hybrid triple, a trailing rec layer) goes through
+    ``remat_call``: with ``cfg.remat`` a training forward keeps each body's
+    input only and its backward runs the body's forward once more; the loss
+    and the gradients are the same. ``clients=K``: the B rows are K clients'
+    blocks; only the MoE layers read it (routing groups within a client,
+    aux (K,)), every other layer is row-local.
     """
     check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
-        acfg = _attn_cfg(cfg)
         for lp in stack["triples"]:
-            x = rec_prefill(cfg, lp["rec0"], x)[0]
-            x = rec_prefill(cfg, lp["rec1"], x)[0]
-            x = dense_body(acfg, lp["attn"], x, angles)[0]
+            x = remat_call(cfg, _triple_body, cfg, lp, x, angles)
         for lp in stack["extras"] or []:
-            x = rec_prefill(cfg, lp, x)[0]
+            x = remat_call(cfg, _rec_body, cfg, lp, x)
         return x, aux
     for lp in stack["layers"]:
         if cfg.family == "ssm":
-            x = ssm_body(cfg, lp, x)
+            x = remat_call(cfg, ssm_body, cfg, lp, x)
         else:
-            x, _, a = dense_body(cfg, lp, x, angles, clients)
+            x, a = remat_call(cfg, _layer_body, cfg, lp, x, angles, clients)
             aux = aux + a
     return x, aux
 

@@ -11,6 +11,7 @@ footprints exactly. The abstract inputs (meta tensors) are held against
 """
 import dataclasses
 import functools
+import json
 import os
 
 import jax
@@ -42,9 +43,10 @@ from repro_torch.core.types import Batch
 from repro_torch.launch import dryrun, roofline, steps
 from repro_torch.launch.mesh import LAYOUTS
 from repro_torch.models import attention as attn
-from repro_torch.models import encdec, rglru, ssm
+from repro_torch.models import encdec, rglru, ssm, transformer
 from repro_torch.models import layers
 from repro_torch.models import model as model_lib
+from repro_torch.models.rotary import make_angles
 from repro_torch.models.vision_stub import num_patches
 from repro_torch.optim import adamw_init
 from repro_torch.sharding import resolve_spec
@@ -281,6 +283,7 @@ def test_workload_policy_matches_reference(arch):
 
 def test_unported_switch_override_raises():
     cfg = get_smoke_config("h2o-danube-1.8b")
+    assert steps.UNPORTED_SWITCHES == ("scan_layers", "seq_parallel", "ctx_parallel_attn")
     for switch in steps.UNPORTED_SWITCHES:
         with pytest.raises(ValueError, match=switch):
             steps.exec_config(cfg, INPUT_SHAPES["train_4k"], "full", {switch: False})
@@ -590,7 +593,7 @@ def test_dryrun_fit_all_on_cpu(capsys, tmp_path):
     assert ("[fit] h2o-danube-1.8b x decode_32k x 1x1: 33.42 GiB a card, analytic (TPU remat "
             "allowance): fits 80 GiB (") in out
     assert ("[fit] h2o-danube-1.8b x train_4k x 1x1: 43.43 GiB a card, analytic (TPU remat "
-            "allowance): fits 80 GiB; the port holds no remat, --run measures its peak") in out
+            "allowance): fits 80 GiB; --run measures the step's peak") in out
     assert "[skip] grok-1-314b x long_500k" in out
     assert (tmp_path / "h2o-danube-1.8b__train_4k__1x1__full.json").exists()
 
@@ -603,7 +606,6 @@ def test_dryrun_roofline_on_cpu(capsys, tmp_path):
     assert dryrun.main(argv) == 0
     out = capsys.readouterr().out
     assert out.count("[roofline] h2o-danube-1.8b") == 4
-    import json
     rec = json.loads((tmp_path / "h2o-danube-1.8b__train_4k__1x1__roofline__smoke.json")
                      .read_text())
     assert rec["status"] == "ok" and rec["collective_bytes"] is None
@@ -621,5 +623,55 @@ def test_dryrun_run_on_cpu_when_asked(capsys):
 
 
 def test_dryrun_rejects_unported_switch():
-    with pytest.raises(ValueError, match="remat"):
-        dryrun.main(["--override", "remat=false"])
+    with pytest.raises(ValueError, match="scan_layers"):
+        dryrun.main(["--override", "scan_layers=false"])
+
+
+def test_dryrun_remat_override_on_cpu(capsys, tmp_path):
+    """``--override remat=false`` runs: the roofline's train count without
+    the recompute below the default's, and a train step run on the CPU."""
+    flops = {}
+    for remat in ("true", "false"):
+        argv = ["--mode", "roofline", "--arch", "h2o-danube-1.8b", "--shape", "train_4k",
+                "--out", str(tmp_path), "--tag", remat, "--override", f"remat={remat}"]
+        for ov in SMOKE_OVERRIDES:
+            argv += ["--override", ov]
+        assert dryrun.main(argv) == 0
+        rec = json.loads((tmp_path / f"h2o-danube-1.8b__train_4k__1x1__roofline__{remat}.json")
+                         .read_text())
+        assert rec["status"] == "ok" and rec["overrides"]["remat"] is (remat == "true")
+        flops[remat] = rec["hlo_flops"]
+    assert flops["true"] > flops["false"]
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    shape = InputShape("train", "train", 24, 2)
+    rec = dryrun.run_record("h2o-danube-1.8b", cfg, cfg.with_(remat=False), shape,
+                            dryrun.step_runner(cfg.with_(remat=False), shape,
+                                               steps.backbone_specs(cfg, "cpu"),
+                                               steps.adapter_specs(cfg, "cpu")),
+                            2, "cpu", None, iters=1)
+    assert not rec["remat"] and rec["transients"]["layer_inputs"] == 0
+    assert "remat off" in dryrun.run_line(dict(rec, arch="h2o-danube-1.8b", shape="train",
+                                               device="cpu"))
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "mamba2-130m"])
+def test_roofline_counts_the_recompute(arch):
+    """A train step's FLOPs with remat on, minus off, are one forward of the
+    stack (counted on meta tensors) less each layer body's last matrix
+    product: the recompute stops once it has rebuilt the last tensor the
+    backward saved (``torch.utils.checkpoint``'s early stop), and the last
+    product's output (the MLP's down projection, mamba2's out_proj) is not
+    one of them, as XLA drops the same dead recompute under
+    ``jax.checkpoint``."""
+    cfg = get_smoke_config(arch)
+    shape = InputShape("train", "train", 24, 2)
+    on, off = (dryrun.count_pair(steps.exec_config(cfg.with_(remat=r), shape, "roofline"),
+                                 shape)["flops"] for r in (True, False))
+    x = torch.empty((2, 24, cfg.d_model), device="meta")
+    positions = torch.arange(24, device="meta")[None].expand(2, 24)
+    with roofline.OpCounter() as stack, torch.no_grad():
+        transformer.forward_stack(cfg, steps.backbone_specs(cfg), x,
+                                  make_angles(cfg, positions))
+    inner = cfg.ssm.expand * cfg.d_model if cfg.family == "ssm" else cfg.d_ff
+    last = 2 * 2 * 24 * inner * cfg.d_model
+    assert stack.flops > 0 and on - off == stack.flops - cfg.n_layers * last
