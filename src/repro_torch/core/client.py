@@ -61,6 +61,7 @@ from repro_torch.models.layers import token_accuracy
 from repro_torch.optim import adamw_init, adamw_update, adamw_update_many
 from repro_torch.sharding import ClientMesh, Sharded, pad_to_multiple, replicate, shard
 from repro_torch.utils import tree_leaves, tree_map, tree_stack, tree_unstack
+from repro_torch.utils.trace import span
 
 
 @dataclass(frozen=True)
@@ -228,27 +229,29 @@ def local_update(cfg, backbone, state: ClientState, batches: List[Batch], hp: Hy
     adapters = global_adapters if strategy.downloads_global(participated) else state.adapters
     opt_state = state.opt_state
 
-    # personal-adapter warmup rounds (FedDPA-F), AdamW state carried across rounds
-    local_adapters, local_opt_state = state.local_adapters, state.local_opt_state
-    if local_adapters is not None and strategy.local_warmup(participated, hp):
-        if local_opt_state is None:
-            local_opt_state = adamw_init(local_adapters)
-        for batch in batches[: hp.local_steps]:
-            local_adapters, local_opt_state, _ = local_adapter_step(
-                cfg, hp, backbone, adapters, local_adapters, local_opt_state, batch)
+    with span("nano.round.local_steps", device=True):
+        # personal-adapter warmup rounds (FedDPA-F), AdamW state carried across rounds
+        local_adapters, local_opt_state = state.local_adapters, state.local_opt_state
+        if local_adapters is not None and strategy.local_warmup(participated, hp):
+            if local_opt_state is None:
+                local_opt_state = adamw_init(local_adapters)
+            for batch in batches[: hp.local_steps]:
+                local_adapters, local_opt_state, _ = local_adapter_step(
+                    cfg, hp, backbone, adapters, local_adapters, local_opt_state, batch)
 
-    acc = FisherAccumulator.init(adapters) if strategy.wants_fisher == "streaming" else None
-    losses = []
-    for t in range(hp.local_steps):
-        adapters, opt_state, loss, acc = train_step(
-            cfg, strategy, hp, backbone, adapters, opt_state, batches[t % len(batches)],
-            global_adapters, local_adapters=local_adapters, fisher_acc=acc)
-        losses.append(float(loss))
+        acc = FisherAccumulator.init(adapters) if strategy.wants_fisher == "streaming" else None
+        losses = []
+        for t in range(hp.local_steps):
+            adapters, opt_state, loss, acc = train_step(
+                cfg, strategy, hp, backbone, adapters, opt_state, batches[t % len(batches)],
+                global_adapters, local_adapters=local_adapters, fisher_acc=acc)
+            losses.append(float(loss))
 
     fisher = None
     if strategy.wants_fisher == "dedicated":
-        fisher = fisher_pass(lambda adp, b: fisher_grad(cfg, backbone, adp, b), adapters,
-                             batches[: hp.fisher_batches])
+        with span("nano.round.fisher", device=True):
+            fisher = fisher_pass(lambda adp, b: fisher_grad(cfg, backbone, adp, b), adapters,
+                                 batches[: hp.fisher_batches])
     elif strategy.wants_fisher == "streaming":
         fisher = acc.finalize()
 
@@ -344,24 +347,27 @@ def make_many_update(cfg, strategy, hp: HyperParams, *, downloads: bool,
         k = opt_state.step.shape[0]
         if downloads:
             adapters = tree_map(lambda g: g.expand(k, *g.shape).clone(), global_adapters)
-        if warmup:
-            for batch in warm_xs or []:
-                local, lopt = cohort_local_adapter_step(cfg, hp, backbone, adapters, local,
-                                                        lopt, batch, k)
-        acc = FisherAccumulator.init(adapters) if strategy.wants_fisher == "streaming" else None
-        losses = []
-        for batch in train_xs or []:
-            adapters, opt_state, loss, grads = cohort_train_step(
-                cfg, strategy, hp, backbone, adapters, opt_state, batch, global_adapters, k,
-                local_adapters=local)
-            losses.append(loss)
-            if acc is not None:
-                acc = acc.update(grads)
+        with span("nano.round.local_steps", device=True):
+            if warmup:
+                for batch in warm_xs or []:
+                    local, lopt = cohort_local_adapter_step(cfg, hp, backbone, adapters, local,
+                                                            lopt, batch, k)
+            acc = (FisherAccumulator.init(adapters) if strategy.wants_fisher == "streaming"
+                   else None)
+            losses = []
+            for batch in train_xs or []:
+                adapters, opt_state, loss, grads = cohort_train_step(
+                    cfg, strategy, hp, backbone, adapters, opt_state, batch, global_adapters, k,
+                    local_adapters=local)
+                losses.append(loss)
+                if acc is not None:
+                    acc = acc.update(grads)
         fisher = None
         if strategy.wants_fisher == "dedicated":
             # over zero Fisher batches, fisher_pass gives the eps floor (1e-8)
-            fisher = fisher_pass(lambda adp, b: cohort_fisher_grad(cfg, backbone, adp, b, k),
-                                 adapters, fish_xs or [])
+            with span("nano.round.fisher", device=True):
+                fisher = fisher_pass(lambda adp, b: cohort_fisher_grad(cfg, backbone, adp, b, k),
+                                     adapters, fish_xs or [])
         elif strategy.wants_fisher == "streaming":
             fisher = acc.finalize()
         losses = (torch.stack(losses, dim=1) if losses

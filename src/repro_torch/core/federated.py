@@ -90,6 +90,7 @@ from repro_torch.strategies.base import Strategy, get_strategy
 from repro_torch.strategies.sampling import ClientSampler
 from repro_torch.strategies.transforms import TransformCtx, default_transforms
 from repro_torch.utils import tree_bytes, tree_leaves
+from repro_torch.utils.trace import span
 
 ENGINES = ("sequential", "vmap", "sharded", "buffered")
 
@@ -391,255 +392,269 @@ def _run_sync(cfg, server, strat, clients, cids, index_of, train_data, hp, trans
 
     for r in range(start_round, rounds):
         cohort = list(sampler.select(r, cids))
-        gbytes = tree_bytes(server.global_adapters)
-        down_bytes = wire_up = 0
-        n_dropped = n_crashed = 0
-        # dropped clients never start (no bytes, no compute); crashed clients
-        # pull the global (charged), then die: progress lost, state as it was
-        if failures is not None and failures.active:
-            alive = [cid for cid in cohort if not failures.drops(cid, r)]
-            n_dropped = len(cohort) - len(alive)
-            cohort = []
-            for cid in alive:
-                if failures.crashes(cid, r):
-                    if strat.downloads_global(clients[index_of[cid]].rounds_participated):
-                        down_bytes += gbytes
-                    n_crashed += 1
-                else:
-                    cohort.append(cid)
-        losses: Dict[int, float] = {}      # cid -> loss_mean
-        updates: List[tuple] = []          # (theta, fisher, size), offer order
-        stream_acc = strat.agg_stream_init() if streaming else None
-        stream_buf: List[tuple] = []
-        stream_bytes = {"param_up": 0, "fisher_up": 0}
-        folded_any = False
-        # the sharded engine's stacked merge: the round's outputs fold where
-        # they lie at its end, padding rows at weight 0
-        fast_pend: List[tuple] = []        # (theta stack, fisher stack, weights)
-        fast_losses: List[tuple] = []      # (chunk, device losses, real k)
-        fast_bytes = {"param_up": 0, "fisher_up": 0}
-
-        def apply_transforms(cid: int, theta):
-            """-> (θ the server sees, wire bytes): the last size-changing
-            transform of the chain sets the wire size, else the dense tree's."""
-            ctx = TransformCtx(cid=cid, round_idx=r)
-            theta_wire = None
-            for j, t in enumerate(transforms):
-                theta, tstates[cid][j], w = t.apply(ctx, theta, server.global_adapters,
-                                                    tstates[cid][j])
-                if w is not None:
-                    theta_wire = w
-            return theta, (theta_wire if theta_wire is not None else tree_bytes(theta))
-
-        def fold_stream():
-            nonlocal stream_acc, folded_any
-            if not stream_buf:
-                return
-            ts, fs, ws = (list(col) for col in zip(*stream_buf))
-            stream_bytes["param_up"] += sum(tree_bytes(t) for t in ts)
-            stream_bytes["fisher_up"] += sum(tree_bytes(f) for f in fs if f is not None)
-            stream_acc = strat.agg_stream_fold(stream_acc, ts, fs, ws, use_pallas=use_pallas)
-            folded_any = True
-            stream_buf.clear()
-
-        def offer(cid: int, state: ClientState, loss_mean: float):
-            nonlocal wire_up
-            theta, wbytes = apply_transforms(
-                cid, strat.post_local_update(state, server.global_adapters, r))
-            wire_up += wbytes
-            losses[cid] = loss_mean
-            upload = (theta, state.fisher, state.n_examples)
-            if streaming:
-                stream_buf.append(upload)
-                if len(stream_buf) >= agg_chunk:
-                    fold_stream()
-            else:
-                updates.append(upload)
-
-        if engine == "sequential":
-            for cid in cohort:
-                i = index_of[cid]
-                if strat.downloads_global(clients[i].rounds_participated):
-                    down_bytes += gbytes
-                clients[i], metrics = client_lib.local_update(
-                    cfg, server.backbone, clients[i], train_data[cid], hp, strat,
-                    server.global_adapters, round_idx=r)
-                offer(cid, clients[i], metrics["loss_mean"])
-        else:  # vmap, sharded: group the cohort by its schedule flags, then run chunks
-            groups: Dict[tuple, List[int]] = {}
-            for cid in cohort:
-                st = clients[index_of[cid]]
-                p = st.rounds_participated
-                flags = (strat.downloads_global(p),
-                         st.local_adapters is not None and strat.local_warmup(p, hp))
-                groups.setdefault(flags, []).append(cid)
-            global_dev = server.global_adapters
-            if mesh is not None:
-                global_dev = replicate(server.global_adapters, mesh)
-
-            # the plan: (downloads, chunk) over every flag group
-            plan: List[tuple] = []
-            for (downloads, _), gcids in groups.items():
-                width = agg_chunk or len(gcids)
-                if mesh is not None:
-                    width = pad_to_multiple(agg_chunk or min(
-                        _CHUNK_WIDTH_CAP, max(1, -(-len(gcids) // _PIPELINE_CHUNKS))), mesh.size)
-                plan.extend((downloads, chunk) for chunk in _chunks(gcids, width))
-
-            # the stacked outputs are the uploads when every upload is the raw
-            # adapter tree (stock post_local_update, no wire transforms, no
-            # personal adapters) and every chunk downloads the global: then
-            # they fold into the merge where they lie
-            fast_agg = (
-                mesh is not None and strat.aggregates and not use_pallas and not transforms
-                and type(strat).post_local_update is Strategy.post_local_update
-                and all(flags[0] for flags in groups)
-                and not any(clients[index_of[g[0]]].local_adapters is not None
-                            for g in groups.values()))
-
-            # two chunks in flight (sharded + overlap): the host stacks and
-            # queues chunk k+1 before it collects chunk k
-            depth = 2 if (mesh is not None and overlap) else 1
-            inflight: deque = deque()
-
-            def collect_one():
-                nonlocal down_bytes, wire_up
-                downloads, chunk, launched = inflight.popleft()
-                kc = len(chunk)
-                if downloads:
-                    down_bytes += gbytes * kc
-                ck = tuple(chunk)
-                if fast_agg:
-                    # nothing leaves the devices: adapters, AdamW state and
-                    # Fisher wait for the round's stacked merge, the losses
-                    # for one copy at the round's end
-                    new_states, loss_dev = client_lib.collect_cohort_deferred(launched)
-                    outs = launched.outs
-                    wants_f = launched.prepared.wants_fisher is not None
-                    resident[ck] = {"k": kc, "opt": outs[1], "adp": outs[0],
-                                    "fish": outs[4] if wants_f else None}
-                    for c, ns in zip(chunk, new_states):
-                        home[c] = ck
-                        clients[index_of[c]] = ns
-                    width = outs[0].width
-                    fast_pend.append((outs[0], outs[4] if wants_f else None,
-                                      [float(clients[index_of[c]].n_examples) for c in chunk]
-                                      + [0.0] * (width - kc)))
-                    fast_bytes["param_up"] += outs[0].row_bytes() * kc
-                    wire_up += outs[0].row_bytes() * kc
-                    if wants_f:
-                        fast_bytes["fisher_up"] += outs[4].row_bytes() * kc
-                    fast_losses.append((chunk, loss_dev, kc))
-                    return
-                if mesh is not None:
-                    # the new AdamW state stays on the devices; the clients'
-                    # own opt_state goes stale until materialize
-                    new_states, mets = client_lib.collect_cohort(launched, with_opt=False)
-                    resident[ck] = {"k": kc, "opt": launched.outs[1], "adp": None,
-                                    "fish": None}
-                    for c in chunk:
-                        home[c] = ck
-                else:
-                    new_states, mets = client_lib.collect_cohort(launched)
-                for c, ns, m in zip(chunk, new_states, mets):
-                    clients[index_of[c]] = ns
-                    offer(c, ns, m["loss_mean"])
-
-            for downloads, chunk in plan:
-                opt0 = bx = None
-                if mesh is not None:
-                    ck = tuple(chunk)
-                    bx = batch_cache.get(ck)
-                    if (all(home.get(c) == ck for c in chunk)
-                            and (downloads or resident[ck]["adp"] is None)):
-                        opt0 = resident[ck]["opt"]
+        with span("nano.round", {"round": r, "cohort": len(cohort)}, device=True):
+            gbytes = tree_bytes(server.global_adapters)
+            down_bytes = wire_up = 0
+            n_dropped = n_crashed = 0
+            # dropped clients never start (no bytes, no compute); crashed clients
+            # pull the global (charged), then die: progress lost, state as it was
+            if failures is not None and failures.active:
+                alive = [cid for cid in cohort if not failures.drops(cid, r)]
+                n_dropped = len(cohort) - len(alive)
+                cohort = []
+                for cid in alive:
+                    if failures.crashes(cid, r):
+                        if strat.downloads_global(clients[index_of[cid]].rounds_participated):
+                            down_bytes += gbytes
+                        n_crashed += 1
                     else:
-                        # a reshuffled cohort (or stale adapters would be
-                        # stacked): the resident rows back to their
-                        # ClientStates before stacking
-                        materialize([c for c in chunk if c in home])
-                prepared = client_lib.prepare_cohort(
-                    cfg, [clients[index_of[c]] for c in chunk], [train_data[c] for c in chunk],
-                    hp, strat, mesh=mesh, opt0_override=opt0, batches_override=bx)
-                if mesh is not None and bx is None:
-                    batch_cache[ck] = prepared.args[4:7]
-                inflight.append((downloads, chunk, client_lib.launch_cohort(
-                    prepared, backbone_dev, global_dev)))
-                if len(inflight) >= depth:
+                        cohort.append(cid)
+            losses: Dict[int, float] = {}      # cid -> loss_mean
+            updates: List[tuple] = []          # (theta, fisher, size), offer order
+            stream_acc = strat.agg_stream_init() if streaming else None
+            stream_buf: List[tuple] = []
+            stream_bytes = {"param_up": 0, "fisher_up": 0}
+            folded_any = False
+            # the sharded engine's stacked merge: the round's outputs fold where
+            # they lie at its end, padding rows at weight 0
+            fast_pend: List[tuple] = []        # (theta stack, fisher stack, weights)
+            fast_losses: List[tuple] = []      # (chunk, device losses, real k)
+            fast_bytes = {"param_up": 0, "fisher_up": 0}
+
+            def apply_transforms(cid: int, theta):
+                """-> (θ the server sees, wire bytes): the last size-changing
+                transform of the chain sets the wire size, else the dense tree's."""
+                ctx = TransformCtx(cid=cid, round_idx=r)
+                theta_wire = None
+                for j, t in enumerate(transforms):
+                    theta, tstates[cid][j], w = t.apply(ctx, theta, server.global_adapters,
+                                                        tstates[cid][j])
+                    if w is not None:
+                        theta_wire = w
+                return theta, (theta_wire if theta_wire is not None else tree_bytes(theta))
+
+            def fold_stream():
+                nonlocal stream_acc, folded_any
+                if not stream_buf:
+                    return
+                ts, fs, ws = (list(col) for col in zip(*stream_buf))
+                stream_bytes["param_up"] += sum(tree_bytes(t) for t in ts)
+                stream_bytes["fisher_up"] += sum(tree_bytes(f) for f in fs if f is not None)
+                stream_acc = strat.agg_stream_fold(stream_acc, ts, fs, ws, use_pallas=use_pallas)
+                folded_any = True
+                stream_buf.clear()
+
+            def offer(cid: int, state: ClientState, loss_mean: float):
+                nonlocal wire_up
+                with span("nano.round.upload", {"cid": cid}):
+                    theta, wbytes = apply_transforms(
+                        cid, strat.post_local_update(state, server.global_adapters, r))
+                wire_up += wbytes
+                losses[cid] = loss_mean
+                upload = (theta, state.fisher, state.n_examples)
+                if streaming:
+                    stream_buf.append(upload)
+                    if len(stream_buf) >= agg_chunk:
+                        fold_stream()
+                else:
+                    updates.append(upload)
+
+            if engine == "sequential":
+                for cid in cohort:
+                    i = index_of[cid]
+                    if strat.downloads_global(clients[i].rounds_participated):
+                        down_bytes += gbytes
+                    with span("nano.round.update", {"cid": cid}, device=True):
+                        clients[i], metrics = client_lib.local_update(
+                            cfg, server.backbone, clients[i], train_data[cid], hp, strat,
+                            server.global_adapters, round_idx=r)
+                    offer(cid, clients[i], metrics["loss_mean"])
+            else:  # vmap, sharded: group the cohort by its schedule flags, then run chunks
+                groups: Dict[tuple, List[int]] = {}
+                for cid in cohort:
+                    st = clients[index_of[cid]]
+                    p = st.rounds_participated
+                    flags = (strat.downloads_global(p),
+                             st.local_adapters is not None and strat.local_warmup(p, hp))
+                    groups.setdefault(flags, []).append(cid)
+                global_dev = server.global_adapters
+                if mesh is not None:
+                    global_dev = replicate(server.global_adapters, mesh)
+
+                # the plan: (downloads, chunk) over every flag group
+                plan: List[tuple] = []
+                for (downloads, _), gcids in groups.items():
+                    width = agg_chunk or len(gcids)
+                    if mesh is not None:
+                        width = pad_to_multiple(agg_chunk or min(
+                            _CHUNK_WIDTH_CAP, max(1, -(-len(gcids) // _PIPELINE_CHUNKS))),
+                            mesh.size)
+                    plan.extend((downloads, chunk) for chunk in _chunks(gcids, width))
+
+                # the stacked outputs are the uploads when every upload is the raw
+                # adapter tree (stock post_local_update, no wire transforms, no
+                # personal adapters) and every chunk downloads the global: then
+                # they fold into the merge where they lie
+                fast_agg = (
+                    mesh is not None and strat.aggregates and not use_pallas and not transforms
+                    and type(strat).post_local_update is Strategy.post_local_update
+                    and all(flags[0] for flags in groups)
+                    and not any(clients[index_of[g[0]]].local_adapters is not None
+                                for g in groups.values()))
+
+                # two chunks in flight (sharded + overlap): the host stacks and
+                # queues chunk k+1 before it collects chunk k
+                depth = 2 if (mesh is not None and overlap) else 1
+                inflight: deque = deque()
+
+                def collect_one():
+                    nonlocal down_bytes, wire_up
+                    downloads, chunk, launched = inflight.popleft()
+                    kc = len(chunk)
+                    if downloads:
+                        down_bytes += gbytes * kc
+                    ck = tuple(chunk)
+                    if fast_agg:
+                        # nothing leaves the devices: adapters, AdamW state and
+                        # Fisher wait for the round's stacked merge, the losses
+                        # for one copy at the round's end
+                        with span("nano.round.collect"):
+                            new_states, loss_dev = client_lib.collect_cohort_deferred(launched)
+                        outs = launched.outs
+                        wants_f = launched.prepared.wants_fisher is not None
+                        resident[ck] = {"k": kc, "opt": outs[1], "adp": outs[0],
+                                        "fish": outs[4] if wants_f else None}
+                        for c, ns in zip(chunk, new_states):
+                            home[c] = ck
+                            clients[index_of[c]] = ns
+                        width = outs[0].width
+                        fast_pend.append((outs[0], outs[4] if wants_f else None,
+                                          [float(clients[index_of[c]].n_examples) for c in chunk]
+                                          + [0.0] * (width - kc)))
+                        fast_bytes["param_up"] += outs[0].row_bytes() * kc
+                        wire_up += outs[0].row_bytes() * kc
+                        if wants_f:
+                            fast_bytes["fisher_up"] += outs[4].row_bytes() * kc
+                        fast_losses.append((chunk, loss_dev, kc))
+                        return
+                    if mesh is not None:
+                        # the new AdamW state stays on the devices; the clients'
+                        # own opt_state goes stale until materialize
+                        with span("nano.round.collect"):
+                            new_states, mets = client_lib.collect_cohort(launched,
+                                                                         with_opt=False)
+                        resident[ck] = {"k": kc, "opt": launched.outs[1], "adp": None,
+                                        "fish": None}
+                        for c in chunk:
+                            home[c] = ck
+                    else:
+                        with span("nano.round.collect"):
+                            new_states, mets = client_lib.collect_cohort(launched)
+                    for c, ns, m in zip(chunk, new_states, mets):
+                        clients[index_of[c]] = ns
+                        offer(c, ns, m["loss_mean"])
+
+                for downloads, chunk in plan:
+                    opt0 = bx = None
+                    if mesh is not None:
+                        ck = tuple(chunk)
+                        bx = batch_cache.get(ck)
+                        if (all(home.get(c) == ck for c in chunk)
+                                and (downloads or resident[ck]["adp"] is None)):
+                            opt0 = resident[ck]["opt"]
+                        else:
+                            # a reshuffled cohort (or stale adapters would be
+                            # stacked): the resident rows back to their
+                            # ClientStates before stacking
+                            materialize([c for c in chunk if c in home])
+                    with span("nano.round.prepare", {"clients": len(chunk)}):
+                        prepared = client_lib.prepare_cohort(
+                            cfg, [clients[index_of[c]] for c in chunk],
+                            [train_data[c] for c in chunk], hp, strat, mesh=mesh,
+                            opt0_override=opt0, batches_override=bx)
+                    if mesh is not None and bx is None:
+                        batch_cache[ck] = prepared.args[4:7]
+                    with span("nano.round.update", {"clients": len(chunk)}, device=True):
+                        launched = client_lib.launch_cohort(prepared, backbone_dev, global_dev)
+                    inflight.append((downloads, chunk, launched))
+                    if len(inflight) >= depth:
+                        collect_one()
+                while inflight:
                     collect_one()
-            while inflight:
-                collect_one()
-            # drop resident chunks no client points at any more (reshuffles)
-            # and the batch stacks of chunks this round did not run
-            live = set(home.values())
-            for ck in [ck for ck in resident if ck not in live]:
-                del resident[ck]
-            used = {tuple(chunk) for _, chunk in plan}
-            for ck in [ck for ck in batch_cache if ck not in used]:
-                del batch_cache[ck]
-            if fast_losses:
-                all_mets = client_lib.loss_metrics_deferred([a for _, a, _ in fast_losses],
-                                                            [kk for _, _, kk in fast_losses])
-                for (chunk, _, _), mets in zip(fast_losses, all_mets):
-                    for c, m in zip(chunk, mets):
-                        losses[c] = m["loss_mean"]
+                # drop resident chunks no client points at any more (reshuffles)
+                # and the batch stacks of chunks this round did not run
+                live = set(home.values())
+                for ck in [ck for ck in resident if ck not in live]:
+                    del resident[ck]
+                used = {tuple(chunk) for _, chunk in plan}
+                for ck in [ck for ck in batch_cache if ck not in used]:
+                    del batch_cache[ck]
+                if fast_losses:
+                    with span("nano.round.collect"):
+                        all_mets = client_lib.loss_metrics_deferred(
+                            [a for _, a, _ in fast_losses], [kk for _, _, kk in fast_losses])
+                    for (chunk, _, _), mets in zip(fast_losses, all_mets):
+                        for c, m in zip(chunk, mets):
+                            losses[c] = m["loss_mean"]
 
-        if fast_pend:
-            # the stacked merge: fold where the outputs lie, finalize, commit
-            # with the per-client path's byte totals (k rows of row bytes)
-            prev_global = server.global_adapters
-            acc = strat.agg_stream_fold_stacked(None, [f[0] for f in fast_pend],
-                                                [f[1] for f in fast_pend],
-                                                [f[2] for f in fast_pend], use_pallas=use_pallas)
-            server = server_lib.server_commit(
-                server, strat.agg_stream_finalize(acc, use_pallas=use_pallas),
-                param_up=fast_bytes["param_up"], fisher_up=fast_bytes["fisher_up"],
-                param_down=down_bytes, wire_up=wire_up)
-            if server_opt is not None:
-                new_global, opt_state = server_opt.apply(opt_state, prev_global,
-                                                         server.global_adapters)
-                server = dataclasses.replace(server, global_adapters=new_global)
-        elif strat.aggregates and (updates or stream_buf or folded_any):
-            prev_global = server.global_adapters
-            if streaming:
-                fold_stream()
-                merged = strat.agg_stream_finalize(stream_acc, use_pallas=use_pallas)
-                server = server_lib.server_commit(
-                    server, merged, param_up=stream_bytes["param_up"],
-                    fisher_up=stream_bytes["fisher_up"], param_down=down_bytes,
-                    wire_up=wire_up)
-            else:
-                thetas, fishers, sizes = (list(col) for col in zip(*updates))
-                server = server_lib.server_aggregate(
-                    server, strat, thetas, fishers, sizes, down_bytes=down_bytes,
-                    use_pallas=use_pallas, wire_up=wire_up)
-            if server_opt is not None:
-                new_global, opt_state = server_opt.apply(opt_state, prev_global,
-                                                         server.global_adapters)
-                server = dataclasses.replace(server, global_adapters=new_global)
-        elif down_bytes:
-            # no merge this round (LocFT, or every starter crashed), but the
-            # global still crossed the wire
-            server_lib.log_downloads(server, r, down_bytes)
+            with span("nano.round.merge", device=True):
+                if fast_pend:
+                    # the stacked merge: fold where the outputs lie, finalize, commit
+                    # with the per-client path's byte totals (k rows of row bytes)
+                    prev_global = server.global_adapters
+                    acc = strat.agg_stream_fold_stacked(None, [f[0] for f in fast_pend],
+                                                        [f[1] for f in fast_pend],
+                                                        [f[2] for f in fast_pend],
+                                                        use_pallas=use_pallas)
+                    server = server_lib.server_commit(
+                        server, strat.agg_stream_finalize(acc, use_pallas=use_pallas),
+                        param_up=fast_bytes["param_up"], fisher_up=fast_bytes["fisher_up"],
+                        param_down=down_bytes, wire_up=wire_up)
+                    if server_opt is not None:
+                        new_global, opt_state = server_opt.apply(opt_state, prev_global,
+                                                                 server.global_adapters)
+                        server = dataclasses.replace(server, global_adapters=new_global)
+                elif strat.aggregates and (updates or stream_buf or folded_any):
+                    prev_global = server.global_adapters
+                    if streaming:
+                        fold_stream()
+                        merged = strat.agg_stream_finalize(stream_acc, use_pallas=use_pallas)
+                        server = server_lib.server_commit(
+                            server, merged, param_up=stream_bytes["param_up"],
+                            fisher_up=stream_bytes["fisher_up"], param_down=down_bytes,
+                            wire_up=wire_up)
+                    else:
+                        thetas, fishers, sizes = (list(col) for col in zip(*updates))
+                        server = server_lib.server_aggregate(
+                            server, strat, thetas, fishers, sizes, down_bytes=down_bytes,
+                            use_pallas=use_pallas, wire_up=wire_up)
+                    if server_opt is not None:
+                        new_global, opt_state = server_opt.apply(opt_state, prev_global,
+                                                                 server.global_adapters)
+                        server = dataclasses.replace(server, global_adapters=new_global)
+                elif down_bytes:
+                    # no merge this round (LocFT, or every starter crashed), but the
+                    # global still crossed the wire
+                    server_lib.log_downloads(server, r, down_bytes)
 
-        # round metrics in cohort order, whatever order the engine ran them
-        round_losses = [losses[c] for c in cohort if c in losses]
-        n = len(round_losses)
-        # an empty cohort is not a perfect round: mean_loss None, never 0.0
-        rm = {"round": r, "mean_loss": sum(round_losses) / n if n else None, "participants": n}
-        if failures is not None:
-            rm["dropped"] = n_dropped
-            rm["crashed"] = n_crashed
-        result.round_metrics.append(rm)
-        if verbose:
-            shown = ("skipped (no participants)" if n == 0
-                     else f"mean local loss {rm['mean_loss']:.4f}")
-            print(f"  [{strat.name}] round {r}: {shown}")
-        if ckpt is not None:
-            if home and ckpt.would_save(r + 1):
-                materialize()  # a snapshot needs every client's own rows
-            ckpt.maybe_save(r + 1, server=server, clients=clients, tstates=tstates,
-                            opt_state=opt_state, metrics=result.round_metrics)
+            # round metrics in cohort order, whatever order the engine ran them
+            round_losses = [losses[c] for c in cohort if c in losses]
+            n = len(round_losses)
+            # an empty cohort is not a perfect round: mean_loss None, never 0.0
+            rm = {"round": r, "mean_loss": sum(round_losses) / n if n else None, "participants": n}
+            if failures is not None:
+                rm["dropped"] = n_dropped
+                rm["crashed"] = n_crashed
+            result.round_metrics.append(rm)
+            if verbose:
+                shown = ("skipped (no participants)" if n == 0
+                         else f"mean local loss {rm['mean_loss']:.4f}")
+                print(f"  [{strat.name}] round {r}: {shown}")
+            if ckpt is not None:
+                if home and ckpt.would_save(r + 1):
+                    materialize()  # a snapshot needs every client's own rows
+                ckpt.maybe_save(r + 1, server=server, clients=clients, tstates=tstates,
+                                opt_state=opt_state, metrics=result.round_metrics)
     if home:
         materialize()
     if ckpt is not None:

@@ -37,6 +37,7 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.rotary import make_angles
+from repro_torch.utils.trace import span
 
 
 def param_dtype(cfg) -> torch.dtype:
@@ -144,7 +145,8 @@ def forward(cfg, params, embeds, positions, enc_embeds=None, clients=None):
 
 def logits(cfg, params, hidden):
     """Tied configs read the embedding table (``model.py:111-115``)."""
-    return unembed(params["embed" if cfg.tie_embeddings else "unembed"], hidden)
+    with span("nano.model.head"):
+        return unembed(params["embed" if cfg.tie_embeddings else "unembed"], hidden)
 
 
 def loss_fn(cfg, params, embeds, positions, labels, mask, enc_embeds=None, clients=None):

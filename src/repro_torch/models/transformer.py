@@ -33,6 +33,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import init_mlp, init_norm, mlp, norm
+from repro_torch.utils.trace import span
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
@@ -134,11 +135,13 @@ def dense_body(cfg, lp, x, angles, clients=None):
     tensors; prefill seeds the cache after. ``clients``: the rows are that
     many clients' blocks (``moe_apply``).
     """
-    h = norm(cfg, lp["norm1"], x)
-    out, kv = attn_lib.full_attention(cfg, lp["attn"], h, angles, return_kv=True)
-    x = x + out
-    y, aux = _ffn(cfg, lp, norm(cfg, lp["norm2"], x), clients=clients)
-    return x + y, kv, aux
+    with span("nano.model.attention"):
+        h = norm(cfg, lp["norm1"], x)
+        out, kv = attn_lib.full_attention(cfg, lp["attn"], h, angles, return_kv=True)
+        x = x + out
+    with span("nano.model.ffn"):
+        y, aux = _ffn(cfg, lp, norm(cfg, lp["norm2"], x), clients=clients)
+        return x + y, kv, aux
 
 
 def _ffn(cfg, lp, h, group=None, clients=None):
@@ -294,10 +297,12 @@ def prefill_stack(cfg, stack, x, angles, capacity: int, length=None):
 
 def _attn_step(cfg, lp, x, angles, cache, pos, moe_group: Optional[int]):
     """One decode layer of attention and its MLP or MoE layer."""
-    h = norm(cfg, lp["norm1"], x)
-    out, _ = attn_lib.decode_attention(cfg, lp["attn"], h, angles, cache, pos)
-    x = x + out
-    return x + _ffn(cfg, lp, norm(cfg, lp["norm2"], x), group=moe_group)[0]
+    with span("nano.model.attention"):
+        h = norm(cfg, lp["norm1"], x)
+        out, _ = attn_lib.decode_attention(cfg, lp["attn"], h, angles, cache, pos)
+        x = x + out
+    with span("nano.model.ffn"):
+        return x + _ffn(cfg, lp, norm(cfg, lp["norm2"], x), group=moe_group)[0]
 
 
 def _rec_step(cfg, lp, x, stacked, i):

@@ -45,6 +45,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.vision_stub import num_patches
 from repro_torch.serving.adapter_bank import AdapterBank, AdapterCache, grouped_adapter_apply
 from repro_torch.serving.kv_cache import KVSlotManager
+from repro_torch.utils.trace import span
 
 
 @dataclass
@@ -181,60 +182,72 @@ class ServingEngine:
     def _admit(self, done: Dict[int, Completion]) -> None:
         while self._queue and self.slots.n_free > 0:
             r = self._queue.popleft()
-            aslot = self.cache.acquire(r.tenant)
-            t0 = time.perf_counter()
-            page, lg, last_idx = self._prefill(r, aslot)
-            tok0 = int(torch.argmax(lg))  # first index on ties, as jnp.argmax
-            self.stats["prefill_s"] += time.perf_counter() - t0
-            self.stats["prefills"] += 1
-            comp = Completion(rid=r.rid, tenant=r.tenant, tokens=[tok0])
-            if r.max_new_tokens <= 1 or tok0 == self.stop_token:
-                self.cache.release(r.tenant)
-                done[r.rid] = comp
-                continue
-            slot = self.slots.alloc()
-            self.slots.write(slot, page, start_pos=last_idx + 1)
-            self._aslot[slot] = aslot
-            self._last_tok[slot] = tok0
-            self._active[slot] = comp
-            self._budget[slot] = r.max_new_tokens - 1
+            with span("nano.serve.admit", {"rid": r.rid, "tenant": r.tenant,
+                                           "prompt": len(r.prompt)}):
+                aslot = self.cache.acquire(r.tenant)
+                t0 = time.perf_counter()
+                with span("nano.serve.prefill"):
+                    page, lg, last_idx = self._prefill(r, aslot)
+                with span("nano.serve.first_token_read"):
+                    tok0 = int(torch.argmax(lg))  # first index on ties, as jnp.argmax
+                self.stats["prefill_s"] += time.perf_counter() - t0
+                self.stats["prefills"] += 1
+                comp = Completion(rid=r.rid, tenant=r.tenant, tokens=[tok0])
+                if r.max_new_tokens <= 1 or tok0 == self.stop_token:
+                    self.cache.release(r.tenant)
+                    done[r.rid] = comp
+                    continue
+                slot = self.slots.alloc()
+                with span("nano.serve.page_write"):
+                    self.slots.write(slot, page, start_pos=last_idx + 1)
+                self._aslot[slot] = aslot
+                self._last_tok[slot] = tok0
+                self._active[slot] = comp
+                self._budget[slot] = r.max_new_tokens - 1
 
     def _decode(self) -> np.ndarray:
         """One step over every page (free pages too; their output is dropped)."""
-        toks = torch.from_numpy(self._last_tok).to(self.device)
-        pos = torch.from_numpy(self.slots.pos).to(self.device)
-        emb = model_lib.embed_tokens(self.cfg, self.backbone, toks[:, None])
-        if "text" in self.bank.data:
-            aslots = torch.from_numpy(self._aslot).to(self.device)
-            flat = grouped_adapter_apply(self.bank, "text", emb[:, 0, :], aslots,
-                                         use_pallas=self.use_pallas_grouped)
-            emb = flat[:, None, :]
-        lg, _ = model_lib.decode_step(self.cfg, self.backbone, emb, self.slots.state, pos,
-                                      moe_group=1)
-        return torch.argmax(lg[:, 0, :], dim=-1).cpu().numpy()
+        adapted = "text" in self.bank.data
+        with span("nano.serve.inputs"):
+            toks = torch.from_numpy(self._last_tok).to(self.device)
+            pos = torch.from_numpy(self.slots.pos).to(self.device)
+            aslots = torch.from_numpy(self._aslot).to(self.device) if adapted else None
+        with span("nano.serve.decode"):
+            emb = model_lib.embed_tokens(self.cfg, self.backbone, toks[:, None])
+            if adapted:
+                flat = grouped_adapter_apply(self.bank, "text", emb[:, 0, :], aslots,
+                                             use_pallas=self.use_pallas_grouped)
+                emb = flat[:, None, :]
+            lg, _ = model_lib.decode_step(self.cfg, self.backbone, emb, self.slots.state, pos,
+                                          moe_group=1)
+        with span("nano.serve.token_read"):
+            return torch.argmax(lg[:, 0, :], dim=-1).cpu().numpy()
 
     def _step(self, done: Dict[int, Completion]) -> None:
         if not self._active:
             return
-        t0 = time.perf_counter()
-        nxt = self._decode()
-        self.stats["decode_s"] += time.perf_counter() - t0
-        self.stats["decode_steps"] += 1
-        self.stats["occupancy_sum"] += len(self._active)
-        for slot in sorted(self._active):
-            comp = self._active[slot]
-            tok = int(nxt[slot])
-            comp.tokens.append(tok)
-            self.slots.pos[slot] += 1
-            self._last_tok[slot] = tok
-            self._budget[slot] -= 1
-            if self._budget[slot] <= 0 or tok == self.stop_token:
-                self.cache.release(comp.tenant)
-                self.slots.free(slot)
-                self._aslot[slot] = -1
-                del self._active[slot]
-                del self._budget[slot]
-                done[comp.rid] = comp
+        with span("nano.serve.step", {"step": self.stats["decode_steps"],
+                                      "rows": len(self._active)}):
+            t0 = time.perf_counter()
+            nxt = self._decode()
+            self.stats["decode_s"] += time.perf_counter() - t0
+            self.stats["decode_steps"] += 1
+            self.stats["occupancy_sum"] += len(self._active)
+            with span("nano.serve.bookkeeping"):
+                for slot in sorted(self._active):
+                    comp = self._active[slot]
+                    tok = int(nxt[slot])
+                    comp.tokens.append(tok)
+                    self.slots.pos[slot] += 1
+                    self._last_tok[slot] = tok
+                    self._budget[slot] -= 1
+                    if self._budget[slot] <= 0 or tok == self.stop_token:
+                        self.cache.release(comp.tenant)
+                        self.slots.free(slot)
+                        self._aslot[slot] = -1
+                        del self._active[slot]
+                        del self._budget[slot]
+                        done[comp.rid] = comp
 
     def mean_occupancy(self) -> float:
         s = self.stats
