@@ -36,7 +36,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    Functions (kernel forward, hand-written backward) against torch.autograd
    through the plain versions, f32 and bf16, including x (128, 4096) and
    (256, 4096) (the text and image rows NanoEdge gives the kernel), x
-   (384, 4096) and q/k/v (4, 96, 32, 128).
+   (384, 4096) and q/k/v (4, 96, 32, 128); flash attention's bf16 backward
+   kernel at the training cells' shapes (``harness.FLASH_BWD_SHAPES[:2]``)
+   against its rounding model (``harness.BF16_MODEL_TOLERANCES``) and
+   the exact plain backward on the same saved out and lse (``[accuracy]``).
 7. Smoke-size training: two FedNano rounds of smoke llava on the card
    (kernels, f32) and on the CPU (plain versions): round losses, global
    adapters and the first step's loss and adapter gradients within 1e-5,
@@ -63,8 +66,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bytes-only floor, an f32 ``torch.addmm`` beside the bf16 one and the
    device time of each CUDA kernel it launches; flash also at (4, 96, 32,
    128); grouped LoRA at the decode step with 4, 1 and 8 of its 8 adapters
-   in use); the gradients beside autograd through the plain versions and
-   SDPA; the Fisher merge and fold on whole adapter trees (``FISHER_TIMED``:
+   in use); flash attention's backward kernel at the training cells' shapes
+   (``flash_bwd_timing``: warm and cold, its bound, the plain backward,
+   SDPA's backward); the gradients beside autograd through the plain
+   versions and SDPA; the Fisher merge and fold on whole adapter trees (``FISHER_TIMED``:
    llava's at K = 2 and 5, mamba2's, and one llava leaf); and the training
    step, Fisher batch, merge (also at K = 5, with its launches and aten ops)
    and round end to end.
@@ -394,14 +399,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       beside phase 20's run of the same shape with remat on; the per-row
       peak split into the layer inputs (``dryrun.train_transients``), the
       larger of two transients that do not peak together (the f32 logits and
-      their gradient; h2o-danube's plain flash backward of one layer,
+      their gradient; h2o-danube's flash backward kernel of one layer,
       measured alone) and the rest;
    b. llava-1.5-7b's local step (batch 4 x (64 + 32)) with remat on and
       off: ms a step and the peak above the weights;
    c. one step's loss and adapter gradients, remat on against off on the
       same inputs (``remat_hold``): equal to the bit; each setting's launches
       counted, flash and SSD exactly twice as many with remat, every other
-      kernel as many. Held for a and b at batch 1 and 4, and at the depths
+      kernel (the flash backward among them) as many. Held for a and b at batch 1 and 4, and at the depths
       their phases run for llama4-scout (15b, MOE_LAYERS), recurrentgemma-9b
       and whisper-base (16b, full depth).
    MoE routes recorded or replayed (``recorded_routes``,
@@ -550,10 +555,27 @@ SERVING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "grouped_lora_resid
                            **{a: ("lora_residual", "grouped_lora_residual", "flash_attention")
                               for a in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS}}
 TRAINING_KERNELS_BY_ARCH = {"llava-1.5-7b": ("lora_residual", "flash_attention",
-                                             "fisher_merge"),
+                                             "flash_attention_bwd", "fisher_merge"),
                             MAMBA: ("lora_residual", "ssd_scan", "fisher_merge"),
-                            **{a: ("lora_residual", "flash_attention", "fisher_merge")
+                            **{a: ("lora_residual", "flash_attention", "flash_attention_bwd",
+                                   "fisher_merge")
                                for a in DENSE_ARCHS + MOE_ARCHS + NEW_ARCHS}}
+
+
+class BwdCounter:
+    """``flash_attention.bwd_launches`` (the backward kernel's calls) as a
+    launch counter, beside the wrappers' own ``launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.bwd_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.bwd_launches = n
 
 
 def log(msg: str) -> None:
@@ -882,6 +904,8 @@ def serve_main_path(torch, cfg, backbone, Engine, counters, kw, reqs, what):
     arch = cfg.name
     if not all(launches[n] for n in SERVING_KERNELS_BY_ARCH[arch]):
         raise AssertionError(f"a kernel of the {arch} serving path never launched: {launches}")
+    if launches["flash_attention_bwd"]:
+        raise AssertionError(f"the {arch} serving path ran an attention backward: {launches}")
     st = eng.stats
     n_tok = sum(len(c.tokens) for c in done.values())
     log(f"[serve] {what}: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
@@ -1086,7 +1110,34 @@ def training_parity(torch, harness, lora_ops, lora_ref, fa_ops, fa_ref, fm_ops, 
                 elif shape in wider:
                     main_err[f"flash_attention {name} {dtype_name} {label}"] = err
             n_cases += 1
+    bwd_gaps = {}
+    for shape in harness.FLASH_BWD_SHAPES[:2]:  # the training cells' attention
+        label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
+        kw = dict(causal=causal, window=window, softcap=cap)
+        q = randn((b, sq, h, d), dtype=torch.bfloat16)
+        k_, v = (randn((b, sk, hkv, d), dtype=torch.bfloat16) for _ in range(2))
+        out, lse = fa_ops.flash_attention(q, k_, v, return_lse=True, **kw)
+        args = (q, k_, v, out, lse, randn(out.shape, dtype=torch.bfloat16))
+        got = fa_ops._backward(*args, **kw)
+        model = fa_ref.attention_bwd_bf16_model(*args, **kw)
+        exact = fa_ref.attention_bwd(*args, **kw)
+        for name, g, m, e in zip(("dq", "dk", "dv"), got, model, exact):
+            harness.check_close(g, m, "bfloat16", f"flash bwd {name} {label} vs model",
+                                harness.BF16_MODEL_TOLERANCES)
+            err = harness.check_close(g, e, "bfloat16", f"flash bwd {name} {label}",
+                                      harness.FLASH_GRAD_TOLERANCES)
+            bwd_gaps[f"{label} {name}"] = (rel_gap(g, m), rel_gap(g, e), rel_gap(m, e))
+            if shape is harness.FLASH_BWD_SHAPES[1]:  # the longdoc row: the table's shape
+                main_err["flash_attention_bwd"] = max(main_err.get("flash_attention_bwd", 0.0),
+                                                      err)
+        del args, got, model, exact
+        n_cases += 1
     torch.cuda.synchronize()
+    for key, (km, ke, me) in bwd_gaps.items():
+        log(f"[accuracy] flash_attention_bwd {key} bf16, max |err| / max(1, ‖ref‖∞): kernel vs "
+            f"its rounding model {km[0]:.3e} (elements that differ {km[1]:.3e}; limit "
+            f"{harness.BF16_MODEL_TOLERANCES['bfloat16']}) | kernel vs the exact plain "
+            f"backward {ke[0]:.3e} | model vs the exact plain backward {me[0]:.3e}")
     log(f"[train-parity] {n_cases} kernel-vs-plain cases passed (fisher_merge, fisher_fold on "
         f"(K, N) stacks and whole adapter trees, f32 bit for bit; LoRA and flash gradients; f32 "
         f"and bf16); full-width max |err|: {json.dumps(main_err)}")
@@ -2099,6 +2150,53 @@ def flash_timing(torch, F, fa_ops, fa_ref, q, k, v, what="", window=None, softca
                 bound_by=b_by, shape=[B, S, H, Hkv, hd, window] + ([softcap] if softcap else []))
 
 
+def flash_bwd_timing(torch, F, fa_ops, fa_ref, gen, b, s_, h, hkv, hd, what=""):
+    """Flash attention's backward kernel at one causal bf16 shape, warm and
+    cold, beside its bound (10·D operations a visible pair at the bf16 peak,
+    or its bytes at 3.35 TB/s, the larger), the plain backward
+    (``ref.attention_bwd``) and SDPA's backward as the library yardstick
+    (forward and backward through autograd, less the forward alone; K/V
+    heads as they are, ``enable_gqa``). -> a kernel-table row."""
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=gen.device).to(torch.bfloat16)
+
+    kw = dict(causal=True, window=None, softcap=0.0)
+    q, g = randn((b, s_, h, hd)), randn((b, s_, h, hd))
+    k, v = randn((b, s_, hkv, hd)), randn((b, s_, hkv, hd))
+    out, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    args = (q, k, v, out, lse, g)
+    grads = fa_ops._backward(*args, **kw)
+    n_bytes = nbytes(*args, *grads)
+    b_ms, b_by = bound(n_bytes, 10 * hd * causal_pairs(s_) * h * b, "bf16")
+    k_ms, k_is = time_ms(torch, lambda: fa_ops._backward(*args, **kw))
+    c_ms = time_ms_cold(torch, lambda *a: fa_ops._backward(*a, **kw), args, n_bytes)
+    p_ms = time_events(torch, lambda: fa_ref.attention_bwd(*args, **kw), iters=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    sdpa_kw = dict(is_causal=True, enable_gqa=hkv != h)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+        torch.autograd.grad(o, (qt, kt, vt), gt)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+
+    l_ms = time_events(torch, sdpa_fwd_bwd) - time_events(torch, sdpa_fwd)
+    kernel_breakdown(torch, lambda: fa_ops._backward(*args, **kw),
+                     f"flash_attention_bwd at q ({b}, {s_}, {h}, {hd})", calls=5)
+    log(f"[time] flash_attention_bwd at q ({b}, {s_}, {h}, {hd}) k/v Hkv {hkv} bf16 causal"
+        f"{what}, device ms per call (issued from Python): kernel {k_ms:.5f} ({k_is:.5f}), "
+        f"cold {c_ms:.5f} | plain {p_ms:.5f} | library SDPA backward (forward + backward less "
+        f"the forward) {l_ms:.5f} | bound {b_ms:.5f} ({b_by}; 10·D operations a visible pair) "
+        f"| bound / time: warm {b_ms / k_ms:.3f}, cold {b_ms / c_ms:.3f}; "
+        f"{10 * hd * causal_pairs(s_) * h * b / k_ms / 1e9:.1f} TFLOP/s at 10·D, "
+        f"{18 * hd * causal_pairs(s_) * h * b / k_ms / 1e9:.1f} at the 18·D it computes")
+    return dict(ms=k_ms, cold_ms=c_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by, shape=[b, s_, h, hkv, hd])
+
+
 def timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
     """Each kernel at its main-path shape: llava-1.5-7b, prefill_len 128,
     64 patches, 8 decode slots, 8 adapter slots, rank 64, bf16 activations;
@@ -2140,6 +2238,16 @@ def timings(torch, F, lora_ops, lora_ref, fa_ops, fa_ref):
         q, k, v = (randn((b, s_, H, hd), dtype=bf16) for _ in range(3))
         flash[label] = flash_timing(torch, F, fa_ops, fa_ref, q, k, v, f" ({label})")
     out["flash_attention"] = dict(flash["prefill"], shapes=flash)
+
+    # the backward kernel at the training cells' attention: internlm2-20b's
+    # 4 rows of 2,048 tokens (GQA 6; the table's shape) and qwen2-vl-72b's
+    # cohort of 32 rows of 256 (GQA 8)
+    bwd = {}
+    for label, (b, s_, h, hkv) in (("longdoc", (4, 2048, 48, 8)),
+                                   ("vqa-cohort", (32, 256, 64, 8))):
+        bwd[label] = flash_bwd_timing(torch, F, fa_ops, fa_ref, gen, b, s_, h, hkv, hd,
+                                      f" ({label})")
+    out["flash_attention_bwd"] = dict(bwd["longdoc"], shapes=bwd)
     return out
 
 
@@ -5350,10 +5458,9 @@ def remat_hold(torch, tr, counters, cfg, backbone, adapters, batch, what):
 
 
 def flash_bwd_peak(torch, cfg, s: int) -> int:
-    """Bytes the plain flash backward (``ref.attention_bwd``) of one layer
-    takes above its inputs at batch 1 and ``s`` positions, measured alone."""
+    """Bytes the flash backward of one layer (the bf16 kernel) takes above
+    its inputs at batch 1 and ``s`` positions, measured alone."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     hd = cfg.resolved_head_dim
@@ -5368,7 +5475,7 @@ def flash_bwd_peak(torch, cfg, s: int) -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        grads = fa_ref.attention_bwd(q, k, v, out, lse, g, **kw)
+        grads = fa_ops._backward(q, k, v, out, lse, g, **kw)
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     del q, k, v, g, out, lse, grads
@@ -5392,7 +5499,7 @@ def remat_train_4k(torch, tr, counters, dryrun, arch, on, card):
     step, then LAUNCH_ITERS timed), counters reset around them, beside phase
     20's run with remat on (``on``, its record); the per-row peak's split into
     the layer inputs (``dryrun.train_transients``), the larger of the f32
-    logits with their gradient and the plain flash backward of one layer
+    logits with their gradient and the flash backward of one layer
     (measured alone), which do not peak together, and the rest; one step at
     batch 1 held on against off (``remat_hold``). -> launches by run."""
     from repro_torch.configs import INPUT_SHAPES
@@ -5420,7 +5527,7 @@ def remat_train_4k(torch, tr, counters, dryrun, arch, on, card):
         f"rows held {on['batch']} vs {off['batch']} | {card}")
     # the row's peak: the layer inputs kept through the backward, plus the
     # larger of two transients that do not peak together (the f32 logits and
-    # their gradient at the loss; one layer's plain flash backward, measured
+    # their gradient at the loss; one layer's flash backward, measured
     # alone), plus the rest
     flash = 0 if cfg0.family == "ssm" else flash_bwd_peak(torch, cfg0, shape.seq_len)
     terms = []
@@ -5434,7 +5541,7 @@ def remat_train_4k(torch, tr, counters, dryrun, arch, on, card):
                      f"at the peak, not split further) "
                      f"{(row - t['layer_inputs'] - top) / 2**30:.3f}")
     log(f"[remat] {arch} x train_4k split of the per-row peak (GiB; layer inputs and logits "
-        f"from dryrun.train_transients at batch 1, the plain flash backward of one layer "
+        f"from dryrun.train_transients at batch 1, the flash backward kernel of one layer "
         + ("measured alone at batch 1 above its inputs" if flash else "absent: no attention")
         + f"): {' | '.join(terms)}")
     ins = dryrun.make_inputs(cfg0, shape, 1, "cuda", seed=1)
@@ -5523,6 +5630,9 @@ SOURCES = {
                               "src/repro/kernels/lora/lora.py:115"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:121"),
+    # no Pallas kernel: the JAX backward is plain jnp
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/ops.py:46 (_fa_bwd, plain jnp)"),
     "fisher_merge": ("src/repro_torch/csrc/fisher_merge.cu",
                      "src/repro/kernels/fisher_merge/fisher_merge.py:100"),
     "fisher_fold": ("src/repro_torch/csrc/fisher_merge.cu",
@@ -5592,6 +5702,7 @@ def main() -> int:
                 "lora_residual_many": lora_ops.lora_residual_many,
                 "grouped_lora_residual": lora_ops.grouped_lora_residual,
                 "flash_attention": fa_ops.flash_attention,
+                "flash_attention_bwd": BwdCounter(fa_ops.flash_attention),
                 "fisher_merge": fm_ops.fisher_merge,
                 "fisher_fold": fm_ops.fisher_fold,
                 "ssd_scan": ssd_ops.ssd}

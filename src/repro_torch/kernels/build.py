@@ -43,6 +43,10 @@ _SIGNATURES = {
     "repro_grouped_lora_residual": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, causal, window, softcap, scale, dtype, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # q, k, v, out, dout, lse, delta, lse2, dq, dk, dv, B, Sq, Sk, H, Hkv, D, causal, window,
+    # softcap, scale, dtype, stream
+    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _F, _I, _P],
     # theta, fisher, w (host), out, K, N, eps, dtype, stream
     "repro_fisher_merge": [_P, _P, _P, _P, _I, _L, _F, _I, _P],
     # num, den, theta, fisher, w, N, dtype, stream

@@ -3,16 +3,20 @@
 
 A tensor on the CPU takes the plain version in ``ref.py``. A tensor on a CUDA
 device launches the hand-written kernel of ``csrc/flash_attention.cu`` or
-raises. ``flash_attention.launches`` counts kernel launches.
+raises. ``flash_attention.launches`` counts the forward's kernel launches.
 
 ``flash_attention`` is differentiable in (q, k, v): ``FlashAttention`` saves
-the forward's output and per-row logsumexp and runs the JAX package's
-backward (``repro/kernels/flash_attention/ops.py::_fa_bwd``, plain jnp there)
-as plain torch, ``ref.attention_bwd``, on either device. p is rebuilt from
-the saved LSE, so a wrong LSE from the kernel gives wrong gradients. That
-backward holds the whole (B, H, Sq, Sk) f32 score matrix: 4.7 MB a layer at
-llava's 96 training positions and batch 4, but quadratic in the sequence;
-a blockwise backward kernel is ROADMAP performance work.
+the forward's output and per-row logsumexp, and its backward rebuilds p from
+the saved LSE, so a wrong LSE from the kernel gives wrong gradients. A bf16
+tensor on a CUDA device launches the blockwise tensor-core backward of
+``csrc/flash_attention_bwd.cu`` (dq, dk and dv without the score matrix in
+device memory; ``ref.attention_bwd_bf16_model`` is its rounding) or raises;
+``flash_attention.bwd_launches`` counts those calls, one a backward whatever
+the device launches it makes (three). On the CPU, and for f32 on the card
+(the 1e-6 parity path), the backward is the JAX package's
+(``repro/kernels/flash_attention/ops.py::_fa_bwd``, plain jnp there) as
+plain torch, ``ref.attention_bwd``, which holds the whole (B, H, Sq, Sk) f32
+score matrix.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (32, 64, 80, 128, 256)  # the instantiations in csrc/flash_attention.cu
+HEAD_DIMS = (32, 64, 80, 128, 256)  # the instantiations in csrc/flash_attention*.cu
+BWD_ROW_PAD = 64  # the backward's (B, H, Sq) scratch rows, padded (csrc/flash_attention_bwd.cu)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -39,6 +44,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
 
 
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -55,7 +61,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = ref.attention_bwd(q, k, v, out, lse, g, **ctx.args)
+        dq, dk, dv = _backward(q, k, v, out, lse, g, **ctx.args)
         return dq, dk, dv, None, None, None
 
 
@@ -86,3 +92,31 @@ def _forward(q, k, v, *, causal, window, softcap):
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out, lse
+
+
+def _backward(q, k, v, out, lse, g, *, causal, window, softcap):
+    """-> (dq, dk, dv): the plain backward on the CPU and for f32, the kernel
+    for bf16 on a CUDA device. A non-contiguous incoming gradient ``g`` is
+    copied into a contiguous one first."""
+    if q.device.type == "cpu" or q.dtype == torch.float32:
+        return ref.attention_bwd(q, k, v, out, lse, g, causal=causal, window=window,
+                                 softcap=softcap)
+    if g.dtype != q.dtype or g.shape != q.shape:
+        raise ValueError(f"flash_attention backward: gradient {g.dtype} {tuple(g.shape)} "
+                         f"for an output {q.dtype} {tuple(q.shape)}")
+    g = g.contiguous()
+    build.require_cuda("flash_attention backward", q, k, v, out, lse, g)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    sq_pad = -(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    scratch = torch.empty((2, B, H, sq_pad), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = build.library().repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv, D, int(causal), window or 0,
+            float(softcap or 0.0), D ** -0.5, build.DTYPE_CODES[q.dtype], build.stream_of(q))
+    build.check(err, "flash_attention backward")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv

@@ -5,8 +5,10 @@ scores and probabilities, the per-row logsumexp, and 0 output with
 lse = NEG_INF for a row that sees no key (the kernel's guard; the JAX jnp
 oracle has no such rows at the shapes it is run at).
 
-``attention_bwd`` is the plain backward from the saved LSE that both devices
-run (the JAX package's ``_fa_bwd``).
+``attention_bwd`` is the plain backward from the saved LSE (the JAX
+package's ``_fa_bwd``): the CPU's, and f32's on the card; bf16 on the card
+runs the backward kernel, whose rounding ``attention_bwd_bf16_model``
+models.
 """
 from __future__ import annotations
 
@@ -93,6 +95,39 @@ def attention_bwd(q, k, v, out, lse, g, *, causal: bool, window: Optional[int],
     the softcap chain factor (1 - tanh²); GQA K/V grads summed over each
     head group. f32 inside, grads in the input dtypes.
     """
+    return _attention_bwd(q, k, v, out, lse, g, causal=causal, window=window,
+                          softcap=softcap, p_operand=_exact, ds_operand=_exact)
+
+
+def attention_bwd_bf16_model(q, k, v, out, lse, g, *, causal: bool, window: Optional[int],
+                             softcap: float):
+    """Plain model of the bf16 backward kernel's rounding
+    (``csrc/flash_attention_bwd.cu``): ``attention_bwd`` with p rounded to
+    bf16 before dv = pᵀ·g, and ds as hi + lo, two bf16 halves
+    (hi = bf16(ds), lo = bf16(ds - hi)), before dq = ds·k and dk = dsᵀ·q;
+    the scores, p, the row term, ds and every sum stay f32. Same arguments
+    and result. Only the tests and ``chip_smoke.py`` use it.
+    """
+    return _attention_bwd(q, k, v, out, lse, g, causal=causal, window=window,
+                          softcap=softcap, p_operand=_bf16, ds_operand=_bf16_hi_lo)
+
+
+def _exact(x):
+    return x
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_hi_lo(x):
+    hi = _bf16(x)
+    return hi + _bf16(x - hi)
+
+
+def _attention_bwd(q, k, v, out, lse, g, *, causal, window, softcap, p_operand, ds_operand):
+    """The backward, with ``p_operand`` and ``ds_operand`` applied to p and
+    ds where they enter their products."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
@@ -115,12 +150,13 @@ def attention_bwd(q, k, v, out, lse, g, *, causal: bool, window: Optional[int],
     live = (lse_h > NEG_INF / 2)[..., None]                       # (B, H, Sq, 1)
     p = torch.where(mask & live, torch.exp(s - lse_h[..., None]), 0.0)
 
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_operand(p), gf)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
     drow = (gf * of).sum(dim=-1).permute(0, 2, 1)                 # (B, H, Sq)
     ds = p * (dp - drow[..., None])
     if dfac is not None:
         ds = ds * dfac
+    ds = ds_operand(ds)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     if group > 1:

@@ -63,7 +63,14 @@ FULL_SSD_TOLERANCES = {
 # the other side); flash 2.0e-3 to 3.9e-3, 14 % to 18 % of elements (the
 # kernel rounds P against its running max, the model against the row's
 # final max). The bound, rtol 8e-3 with atol 4e-3 of max(1, ‖ref‖∞), holds
-# those gaps and sits well under the bf16 tolerance of 2e-2.
+# those gaps and sits well under the bf16 tolerance of 2e-2. It holds flash
+# attention's bf16 backward kernel (csrc/flash_attention_bwd.cu) against
+# flash_attention/ref.py::attention_bwd_bf16_model too: the two round P, and
+# split dS, alike, so what remains is the f32 sums' order, an element on the
+# other side of a bf16 rounding boundary and the gradients' own rounding to
+# bf16, whose ulp the rtol passes anywhere (measured on an H100 at 700 W at
+# the training cells' shapes and five tile edges: at most 3.5e-3 of
+# max(1, ‖ref‖∞), 0.01 % to 1.6 % of the elements differing).
 BF16_MODEL_TOLERANCES = {
     "bfloat16": {"rtol": 8e-3, "atol_scale": 4e-3},
 }
@@ -315,6 +322,24 @@ AUDIO_FLASH_SHAPES = [
 # ... the flash Function's gradient at both training batches, held at
 # FULL_FLASH_GRAD_TOLERANCES (head dim 256 sums the widest dot products)
 NEW_FAMILY_FLASH_GRAD_SHAPES = [HYBRID_FLASH_SHAPES[1], AUDIO_FLASH_SHAPES[1]]
+# The bf16 backward kernel (csrc/flash_attention_bwd.cu), run on the card
+# only, beside the gradient grids above and FLASH_EDGE_SHAPES: the two
+# training cells' attention (qwen2-vl-72b's cohort of 8 clients x 4 rows of
+# 64 patches + 192 tokens, GQA 8; internlm2-20b's 4 rows of 2,048 tokens,
+# GQA 6), then edges of its 64-key and 64-query tiles that those miss: GQA 3
+# at Sq < Sk, head dim 256 (32-row query tiles, dK and dV in two column
+# halves) with GQA 2 and a window off the tiles, and with Sq < Sk and the
+# softcap; a window without the causal mask; Sq > Sk under a window, where
+# whole query tiles see no key.
+FLASH_BWD_SHAPES = [
+    ("qwen2vl-cohort-train", 32, 256, 256, 64, 8, 128, True, None, 0.0, 0, 0),
+    ("internlm2-longdoc-train", 4, 2048, 2048, 48, 8, 128, True, None, 0.0, 0, 0),
+    ("bwd-q63-k129-gqa3", 1, 63, 129, 6, 2, 64, True, None, 0.0, 0, 0),
+    ("bwd-d256-gqa2-window-s150", 1, 150, 150, 4, 2, 256, True, 40, 0.0, 0, 0),
+    ("bwd-d256-q33-k100-softcap", 2, 33, 100, 2, 1, 256, True, None, 30.0, 0, 0),
+    ("bwd-bidir-window-s150", 1, 150, 150, 2, 1, 64, False, 50, 0.0, 0, 0),
+    ("bwd-q200-k70-window-dead", 1, 200, 70, 4, 2, 128, True, 30, 0.0, 0, 0),
+]
 # ... and their LoRA at rank 64: whisper's image adapter over 1,500 frames a
 # request and 4 x 1,500 a training step, its text adapter over a 128-token
 # prefill and 4 x 32 tokens, all at d_model 512; recurrentgemma's text

@@ -381,6 +381,72 @@ def test_flash_grad_matches_pallas_vjp_and_autograd(shape, dtype):
                      err_msg=f"{label} {name} vs autograd")
 
 
+# The bf16 backward kernel's rounding model (P rounded to bf16 and dS split
+# into two bf16 halves before their products): the harness's flash-gradient
+# shapes (softcap, window, GQA 2 and MQA, rows without keys), grok-1's GQA 6
+# and a GQA-5 case with the softcap of 30, qwen2-vl's GQA 8 training batch.
+MODEL_FLASH_BWD = (harness.FLASH_GRAD_SHAPES + harness.MOE_FLASH_GRAD_SHAPES
+                   + [harness.MOE_FLASH_SHAPES[5]])
+
+
+def _bwd_inputs(seed, shape):
+    """bf16 q, k, v, the plain forward's out and lse, an incoming bf16 gradient."""
+    label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _flash_inputs(seed, b, sq, sk, h, hkv, d))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = fa_ref.attention(q, k, v, return_lse=True, **kw)
+    g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((b, sq, h, d))
+                         .astype(np.float32)).to(torch.bfloat16)
+    return (q, k, v, out, lse, g), kw
+
+
+@pytest.mark.parametrize("shape", MODEL_FLASH_BWD, ids=[s[0] for s in MODEL_FLASH_BWD])
+def test_flash_bwd_bf16_model_holds_bf16_grad_tolerance(shape):
+    """The model against the exact f32 backward (``attention_bwd``) on the
+    same bf16 inputs, at the harness's bf16 flash-gradient tolerance."""
+    args, kw = _bwd_inputs(shape[2] * 7 + shape[6], shape)
+    got = fa_ref.attention_bwd_bf16_model(*args, **kw)
+    want = fa_ref.attention_bwd(*args, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        harness.check_close(g, w, "bfloat16", f"bwd model {name} {shape[0]}",
+                            harness.FLASH_GRAD_TOLERANCES)
+
+
+@pytest.mark.parametrize("shape", harness.FLASH_GRAD_SHAPES,
+                         ids=[s[0] for s in harness.FLASH_GRAD_SHAPES])
+def test_flash_bwd_bf16_model_matches_jax_fa_bwd(shape):
+    """The model against the JAX package's backward (``_fa_bwd``, f32 inside)
+    on the same bf16 residuals, at the harness's bf16 flash-gradient
+    tolerance."""
+    label, b, sq, sk, h, hkv, d, causal, window, cap, bq, bk = shape
+    args, kw = _bwd_inputs(sk * 5 + d, shape)
+    res = tuple(jnp.asarray(_np(t)).astype(jnp.float32 if t.dtype == torch.float32
+                                            else jnp.bfloat16) for t in args[:5])
+    want = jax_fa_ops._fa_bwd(causal, window, cap, bq, bk, True, res,
+                              jnp.asarray(_np(args[5])).astype(jnp.bfloat16))
+    got = fa_ref.attention_bwd_bf16_model(*args, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert w.dtype == jnp.bfloat16
+        assert_close(_np(g), w, kernel="flash_attention_grad", dtype="bfloat16",
+                     err_msg=f"{label} {name} vs _fa_bwd")
+
+
+def test_flash_bwd_on_the_cpu_is_the_plain_version():
+    """On the CPU the backward is ``attention_bwd``, bit for bit in both
+    dtypes, and counts no kernel launch."""
+    shape = harness.FLASH_GRAD_SHAPES[2]
+    for dtype in (torch.bfloat16, torch.float32):
+        args, kw = _bwd_inputs(9, shape)
+        args = tuple(t.to(dtype) if t.dtype == torch.bfloat16 else t for t in args)
+        before = (fa_ops.flash_attention.launches, fa_ops.flash_attention.bwd_launches)
+        got = fa_ops._backward(*args, **kw)
+        assert (fa_ops.flash_attention.launches, fa_ops.flash_attention.bwd_launches) == before
+        for g, w in zip(got, fa_ref.attention_bwd(*args, **kw)):
+            assert torch.equal(g, w)
+
+
 # ---------------------------------------------------------------------------
 # Fisher merge and fold vs fisher_merge_2d / fisher_fold_2d
 # ---------------------------------------------------------------------------

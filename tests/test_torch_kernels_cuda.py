@@ -16,7 +16,8 @@ the vmap engine's batched ``lora_residual_many`` over cohorts of 1 to 8
 clients and its tile edges. The gradients of ``lora_residual``,
 ``lora_residual_many``, ``flash_attention``
 and ``ssd`` (kernel forward, hand-written or recomputed backward) are held
-against ``torch.autograd`` through the plain versions; the Fisher-merge and
+against ``torch.autograd`` through the plain versions, and flash attention's
+bf16 backward kernel also against its rounding model; the Fisher-merge and
 SSD kernels against their plain versions (the Fisher kernels also over whole
 adapter trees, one launch a tree, and their single-leaf wrappers against the
 tree wrappers), also on the rank-heterogeneous merge's padded trees, where
@@ -334,6 +335,116 @@ def test_flash_grad_matches_plain(cuda, shape, dtype):
     tol = harness.FULL_FLASH_GRAD_TOLERANCES if full else harness.FLASH_GRAD_TOLERANCES
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         harness.check_close(g, w, dtype, f"flash grad {name} {label}", tol)
+
+
+# The bf16 backward kernel: against its rounding model over every gradient
+# and tile-edge shape, and through the autograd Function against autograd of
+# the plain version at the shapes the grids above miss.
+FLASH_BWD = FLASH_GRAD + FLASH_EDGE + harness.FLASH_BWD_SHAPES
+FLASH_BWD_NEW = FLASH_EDGE + harness.FLASH_BWD_SHAPES
+
+
+def _bwd_inputs(gen, shape, dtype="bfloat16"):
+    """q, k, v, the kernel forward's out and lse, and an incoming gradient."""
+    (q, k, v), kw = _flash_qkv(gen, shape, dtype)
+    out, lse = fa_ops.flash_attention(q, k, v, return_lse=True, **kw)
+    return (q, k, v, out, lse, _randn(gen, out.shape, dtype=out.dtype)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_BWD, ids=[s[0] for s in FLASH_BWD])
+def test_flash_bwd_kernel_matches_its_model(cuda, shape):
+    """dq, dk, dv of the bf16 kernel against ref.attention_bwd_bf16_model (P
+    rounded to bf16, dS as two bf16 halves) on the same saved out and
+    lse, at harness.BF16_MODEL_TOLERANCES; one backward launch, no
+    forward launch; rows that see no key get exactly 0 in dq."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[2] * 13 + shape[3] + shape[6])
+    args, kw = _bwd_inputs(gen, shape)
+    before = (fa_ops.flash_attention.launches, fa_ops.flash_attention.bwd_launches)
+    got = fa_ops._backward(*args, **kw)
+    assert (fa_ops.flash_attention.launches, fa_ops.flash_attention.bwd_launches) == \
+        (before[0], before[1] + 1)
+    want = fa_ref.attention_bwd_bf16_model(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        harness.check_close(g, w, "bfloat16", f"flash bwd {name} {shape[0]} vs model",
+                            harness.BF16_MODEL_TOLERANCES)
+    dead = ~fa_ref.attention_mask(shape[2], shape[3], causal=kw["causal"], window=kw["window"],
+                                  device=cuda).any(dim=-1)
+    assert torch.equal(got[0][:, dead], torch.zeros_like(got[0][:, dead]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_BWD_NEW, ids=[s[0] for s in FLASH_BWD_NEW])
+def test_flash_bwd_kernel_grad_matches_plain(cuda, shape):
+    """The autograd Function (kernel forward, kernel backward) against
+    autograd through the plain version in bf16, at the flash-gradient
+    tolerance, at the cells' shapes and the kernels' tile edges."""
+    label, b, sq, sk, h, hkv, d, causal, window, cap, _, _ = shape
+    gen = torch.Generator(device=cuda).manual_seed(sk * 19 + d)
+    (q, k, v), kw = _flash_qkv(gen, shape, "bfloat16")
+    before = fa_ops.flash_attention.bwd_launches
+    got = _grads(lambda *a: fa_ops.flash_attention(*a, **kw), q, k, v)
+    assert fa_ops.flash_attention.bwd_launches == before + 1
+    want = _grads(lambda *a: fa_ref.attention(*a, **kw), q, k, v)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        harness.check_close(g, w, "bfloat16", f"flash bwd grad {name} {label}",
+                            harness.FLASH_GRAD_TOLERANCES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [harness.FLASH_BWD_SHAPES[0], harness.FLASH_BWD_SHAPES[3],
+                                   FLASH_EDGE[-1]], ids=lambda s: s[0])
+def test_flash_bwd_kernel_is_deterministic(cuda, shape):
+    """Two backwards on the same inputs give the same bits (no atomics: each
+    gradient element is summed by one block in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[2] + shape[6])
+    args, kw = _bwd_inputs(gen, shape)
+    first = fa_ops._backward(*args, **kw)
+    second = fa_ops._backward(*args, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), f"{shape[0]} {name}: two calls differ"
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dispatches_by_dtype(cuda):
+    """bf16 launches the backward kernel once a backward and the forward's
+    counter does not move in it; f32 on the card keeps the plain backward,
+    bit for bit, and launches nothing."""
+    shape = harness.FLASH_GRAD_SHAPES[1]
+    for dtype in DTYPES:
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        (q, k, v), kw = _flash_qkv(gen, shape, dtype)
+        q.requires_grad_(True)
+        out = fa_ops.flash_attention(q, k, v, **kw)
+        g = torch.ones_like(out)
+        before = (fa_ops.flash_attention.launches, fa_ops.flash_attention.bwd_launches)
+        out.backward(g)
+        after = (fa_ops.flash_attention.launches, fa_ops.flash_attention.bwd_launches)
+        assert after == (before[0], before[1] + (dtype == "bfloat16")), dtype
+        if dtype == "float32":
+            _, lse = fa_ops.flash_attention(q.detach(), k, v, return_lse=True, **kw)
+            want = fa_ref.attention_bwd(q.detach(), k, v, out.detach(), lse, g, **kw)[0]
+            assert torch.equal(q.grad, want)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_takes_a_non_contiguous_gradient(cuda):
+    """An incoming gradient that is a strided view (as autograd may hand one
+    in) gives the bits of its contiguous copy."""
+    shape = FLASH_EDGE[3]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    (q, k, v, out, lse, g), kw = _bwd_inputs(gen, shape)
+    g_view = g.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    assert not g_view.is_contiguous() and torch.equal(g_view, g)
+    got = fa_ops._backward(q, k, v, out, lse, g_view, **kw)
+    want = fa_ops._backward(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
